@@ -1,0 +1,436 @@
+"""Broker core: publish routing + fan-out dispatch.
+
+``publish_many`` routes a window of messages through three stages:
+
+  1. match — `MatchEngine.match_batch_submit/finish`: one compact match
+     kernel launch for the window's distinct topics, codes expanded to
+     filters on the host, the host tiers overlaid;
+  2. decide — `Router.expand_window` CSR-expands the matched filters
+     into flat ``(msg_idx, client_row, opts_row)`` delivery columns,
+     and `MatchEngine.decide_window` packs every delivery's effective
+     QoS, no-local drop and retain flag in one kernel launch;
+  3. deliver — one run per subscriber, in publish order, encoded once
+     per window (`DispatchEncoder`) and flushed as one corked write per
+     connection.
+
+`PublishBatcher` is the live front: connections enqueue concurrently,
+a collector closes a window every ``batch_window_ms`` or ``batch_max``
+messages and launches its match off the event loop, and a dispatch loop
+delivers windows strictly in order.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from collections import Counter, deque
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+
+from ..codec import mqtt as C
+from ..config import BrokerConfig
+from ..engine import MatchEngine
+from ..message import Message
+from ..ops.match_kernel import DEC_DROP_BIT, DEC_QMAX_SHIFT, DEC_RETAIN_BIT
+from ..router import Router
+from .cm import ConnectionManager
+from .session import Session
+
+log = logging.getLogger("emqx_tpu_torch.broker")
+
+
+class Metrics(Counter):
+    """Named counters."""
+
+    def inc(self, name: str, n: int = 1) -> None:
+        self[name] += n
+
+
+class Broker:
+    def __init__(
+        self, config: Optional[BrokerConfig] = None, device="cuda"
+    ) -> None:
+        self.config = config or BrokerConfig()
+        self.metrics = Metrics()
+        eng = self.config.engine
+        self.router = Router(MatchEngine(
+            max_levels=eng.max_levels,
+            f_width=eng.f_width,
+            m_cap=eng.m_cap,
+            rebuild_threshold=eng.rebuild_threshold,
+            device=device,
+        ))
+        self.cm = ConnectionManager(self._make_session)
+        self.cm.on_discarded = self._session_discarded
+        # live micro-batcher, installed by the server (needs a loop);
+        # without one, channels publish synchronously
+        self.batcher: Optional[PublishBatcher] = None
+        # clientid -> timer handle of a delayed will (MQTT 5)
+        self._pending_wills: Dict[str, asyncio.TimerHandle] = {}
+
+    # -------------------------------------------------- session setup
+
+    def _make_session(self, clientid: str, clean_start: bool, **kw) -> Session:
+        mqtt = self.config.mqtt
+        self.metrics.inc("session.created")
+        session = Session(
+            clientid=clientid,
+            clean_start=clean_start,
+            max_inflight=kw.get("max_inflight", mqtt.max_inflight),
+            max_mqueue_len=mqtt.max_mqueue_len,
+            max_awaiting_rel=mqtt.max_awaiting_rel,
+            await_rel_timeout=mqtt.await_rel_timeout,
+            retry_interval=mqtt.retry_interval,
+            expiry_interval=kw.get(
+                "expiry_interval",
+                0.0 if clean_start else mqtt.session_expiry_interval,
+            ),
+            upgrade_qos=mqtt.upgrade_qos,
+            mqueue_priorities=mqtt.mqueue_priorities,
+            mqueue_default_priority=mqtt.mqueue_default_priority,
+            mqueue_store_qos0=mqtt.mqueue_store_qos0,
+        )
+
+        def on_dropped(msg: Message, reason: str) -> None:
+            self.metrics.inc("delivery.dropped")
+            self.metrics.inc(f"delivery.dropped.{reason}")
+
+        session.on_dropped = on_dropped
+        return session
+
+    def _session_discarded(self, session: Session) -> None:
+        self.metrics.inc("session.discarded")
+        self.router.cleanup_client(session.clientid)
+
+    def session_terminated(self, clientid: str, session: Session) -> None:
+        """A session ending with expiry <= 0: drop its router state."""
+        self.router.cleanup_client(clientid)
+        self.metrics.inc("session.terminated")
+
+    # ------------------------------------------------------- wills
+
+    def schedule_will(self, clientid: str, will: Message,
+                      delay: float) -> None:
+        self.cancel_will(clientid)
+        self._pending_wills[clientid] = asyncio.get_running_loop(
+        ).call_later(delay, self._fire_will, clientid, will)
+
+    def _fire_will(self, clientid: str, will: Message) -> None:
+        self._pending_wills.pop(clientid, None)
+        self.publish(will)
+
+    def cancel_will(self, clientid: str) -> None:
+        handle = self._pending_wills.pop(clientid, None)
+        if handle is not None:
+            handle.cancel()
+
+    # ------------------------------------------------------ publish
+
+    def publish(self, msg: Message) -> int:
+        """Route one message; returns the delivery count."""
+        return self.publish_many([msg])[0]
+
+    def publish_many(self, msgs: Sequence[Message]) -> List[int]:
+        """Route a window: all topics matched in one kernel launch."""
+        return self.publish_dispatch(
+            msgs, self.publish_match_finish(self.publish_match_submit(msgs))
+        )
+
+    def publish_match_submit(self, msgs: Sequence[Message]):
+        """Stage 1a (any thread): launch the window's match."""
+        self.metrics.inc("messages.publish", len(msgs))
+        if not msgs:
+            return None
+        return self.router.engine.match_batch_submit([m.topic for m in msgs])
+
+    def publish_match_finish(self, pending) -> List[Set[str]]:
+        """Stage 1b (any thread): wait for the match, overlay host tiers."""
+        if pending is None:
+            return []
+        return self.router.engine.match_batch_finish(pending)
+
+    def publish_dispatch(
+        self, msgs: Sequence[Message], matched: Sequence[Set[str]]
+    ) -> List[int]:
+        """Stage 2 (loop thread): decide and deliver the whole window."""
+        if not msgs:
+            return []
+        return self._dispatch_window(msgs, matched)
+
+    # ----------------------------------------------------- dispatch
+
+    def _dispatch_window(
+        self, msgs: Sequence[Message], matched: Sequence[Set[str]]
+    ) -> List[int]:
+        """Fan a routed window out to subscriber sessions: CSR-expand,
+        group per client with one stable sort (each client's deliveries
+        keep publish order), decide every delivery in one column pass,
+        deliver one run per client.  A connected client's run counts
+        every delivery (no-local drops included) toward its message's
+        delivery count; a detached persistent session counts what it
+        queued."""
+        router = self.router
+        n = len(msgs)
+        counts = [0] * n
+        msg_idx, rows, opts_rows = router.expand_window(matched)
+        mloc: Counter = Counter()
+        if len(rows):
+            order = np.lexsort((msg_idx, rows))
+            sra, sm_a, so_a = rows[order], msg_idx[order], opts_rows[order]
+            m_qos = np.fromiter((m.qos for m in msgs), np.int8, n)
+            m_retain = np.fromiter((m.retain for m in msgs), bool, n)
+            m_from = np.fromiter(
+                (self._from_row(m) for m in msgs), np.int32, n
+            )
+            packed = router.engine.decide_window(
+                router.opts_columns(), router.opts_rev,
+                so_a, sra, sm_a, m_qos, m_retain, m_from,
+            )
+            qmin = (packed & 3).tolist()
+            qmax = ((packed >> DEC_QMAX_SHIFT) & 3).tolist()
+            drop = ((packed & DEC_DROP_BIT) != 0).tolist()
+            retain = ((packed & DEC_RETAIN_BIT) != 0).tolist()
+            sm_l = sm_a.tolist()
+            so_l = so_a.tolist()
+            cuts = np.flatnonzero(sra[1:] != sra[:-1]) + 1
+            bounds = [0, *cuts.tolist(), len(sra)]
+            enc = C.DispatchEncoder()
+            corked: List = []
+            for k, e in zip(bounds[:-1], bounds[1:]):
+                clientid = router.client_of_row(int(sra[k]))
+                try:
+                    kept = self._deliver_run(
+                        clientid, msgs, sm_l[k:e], so_l[k:e],
+                        qmin[k:e], qmax[k:e], drop[k:e], retain[k:e],
+                        enc, mloc, corked,
+                    )
+                except Exception:
+                    log.exception("dispatch to %s failed", clientid)
+                    mloc["messages.publish.error"] += 1
+                    continue
+                for i, f in zip(sm_l[k:e], kept):
+                    counts[i] += f
+            # one concatenated write per connection for the whole window
+            for ch in corked:
+                ch.uncork()
+        delivered = sum(counts)
+        if delivered:
+            mloc["messages.delivered"] += delivered
+        n_none = n - len(np.unique(msg_idx))
+        if n_none:
+            mloc["messages.dropped"] += n_none
+            mloc["messages.dropped.no_subscribers"] += n_none
+        self.metrics.update(mloc)
+        return counts
+
+    def _from_row(self, msg: Message) -> int:
+        r = (
+            self.router.row_of_client(msg.from_client)
+            if msg.from_client else None
+        )
+        return -1 if r is None else r
+
+    def _deliver_run(
+        self, clientid: str, msgs, sm, so, qmin, qmax, drop, retain,
+        enc: "C.DispatchEncoder", mloc: Counter, corked: List,
+    ) -> List[int]:
+        """Deliver one client's slice of the window from its decided
+        columns; returns a 0/1 count per delivery."""
+        nd = len(sm)
+        session = self.cm.lookup(clientid)
+        if session is None:
+            mloc["delivery.dropped"] += nd
+            return [0] * nd
+        eff = qmax if session.upgrade_qos else qmin
+        opts_at = self.router.opts_at
+        decided = [
+            (msgs[sm[t]], opts_at(so[t]), eff[t], retain[t])
+            for t in range(nd) if not drop[t]
+        ]
+        channel = self.cm.channel(clientid)
+        if channel is None:
+            return self._queue_detached_run(session, sm, decided, drop,
+                                            mloc)
+        channel.cork()
+        corked.append(channel)
+        channel.send_packets(session.deliver_decided(
+            decided, encoder=enc, version=channel.version
+        ))
+        return [1] * nd
+
+    def _queue_detached_run(
+        self, session: Session, sm, decided, drop, mloc: Counter
+    ) -> List[int]:
+        """Queue a DETACHED persistent session's run: QoS>0 queued (the
+        effective QoS and subscription options baked into the queued
+        copy), QoS0 dropped."""
+        kept = [0] * len(sm)
+        slots = [t for t in range(len(sm)) if not drop[t]]
+        for t, (m, opts, qos, _retain) in zip(slots, decided):
+            if qos == 0:
+                mloc["delivery.dropped"] += 1
+                continue
+            dropped = session.mqueue.insert(session._queued(m, opts, qos))
+            if dropped is not None:
+                mloc["delivery.dropped.queue_full"] += 1
+            kept[t] = 1
+        return kept
+
+    def shutdown(self) -> None:
+        for handle in self._pending_wills.values():
+            handle.cancel()
+        self._pending_wills.clear()
+
+
+class PublishBatcher:
+    """Micro-batching front of `Broker.publish_many`: producers enqueue,
+    a collector closes a window every ``window`` seconds or
+    ``batch_max`` messages (at once when the broker is idle) and
+    launches its match in an executor thread, keeping up to
+    ``pipeline_windows`` windows in flight; the dispatch loop delivers
+    them strictly in window order on the event loop and resolves the
+    publishers' futures (their PUBACK/PUBREC)."""
+
+    def __init__(
+        self,
+        broker: Broker,
+        window: float = 0.001,
+        batch_max: int = 4096,
+        pipeline_windows: int = 4,
+    ) -> None:
+        self.broker = broker
+        self.window = window
+        self.batch_max = batch_max
+        self.pipeline_windows = max(pipeline_windows, 1)
+        self._queue: deque = deque()
+        self._arrival = asyncio.Event()
+        self._inflight = 0
+        self._task: Optional[asyncio.Task] = None
+        self._dispatch_task: Optional[asyncio.Task] = None
+        # read-pause bounds: a connection stops reading while the queue
+        # is above high, and resumes below low (TCP backpressure)
+        self.high_watermark = batch_max * 2
+        self.low_watermark = batch_max // 2
+        self._uncongested = asyncio.Event()
+        self._uncongested.set()
+
+    def depth(self) -> int:
+        return len(self._queue) + self._inflight
+
+    def congested(self) -> bool:
+        if self.depth() >= self.high_watermark:
+            self._uncongested.clear()
+            return True
+        return False
+
+    async def wait_uncongested(self) -> None:
+        await self._uncongested.wait()
+
+    def _maybe_release(self) -> None:
+        if self.depth() <= self.low_watermark:
+            self._uncongested.set()
+
+    async def start(self) -> None:
+        if self._task is None:
+            self._task = asyncio.get_running_loop().create_task(self._run())
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+
+    def publish(self, msg: Message) -> "asyncio.Future[int]":
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._queue.append((msg, fut))
+        self._arrival.set()
+        return fut
+
+    def publish_nowait(self, msg: Message) -> None:
+        """Fire-and-forget enqueue (QoS 0)."""
+        self._queue.append((msg, None))
+        self._arrival.set()
+
+    async def _run(self) -> None:
+        loop = asyncio.get_running_loop()
+        inflight: asyncio.Queue = asyncio.Queue(maxsize=self.pipeline_windows)
+        self._dispatch_task = loop.create_task(self._dispatch_loop(inflight))
+        try:
+            while True:
+                while not self._queue:
+                    self._arrival.clear()
+                    await self._arrival.wait()
+                batch = [self._queue.popleft()]
+                if self._queue or self._inflight:
+                    # busy: accumulate up to the window deadline
+                    deadline = loop.time() + self.window
+                    while len(batch) < self.batch_max:
+                        if self._queue:
+                            batch.append(self._queue.popleft())
+                            continue
+                        timeout = deadline - loop.time()
+                        if timeout <= 0:
+                            break
+                        self._arrival.clear()
+                        try:
+                            await asyncio.wait_for(
+                                self._arrival.wait(), timeout
+                            )
+                        except asyncio.TimeoutError:
+                            break
+                msgs = [m for m, _ in batch]
+                self._inflight += len(batch)
+                match_fut = loop.run_in_executor(
+                    None, self.broker.publish_match_submit, msgs
+                )
+                await inflight.put((batch, msgs, match_fut))
+        finally:
+            self._dispatch_task.cancel()
+            try:
+                await self._dispatch_task
+            except asyncio.CancelledError:
+                pass
+            exc = ConnectionError("broker stopping")
+            while not inflight.empty():
+                batch, _msgs, match_fut = inflight.get_nowait()
+                match_fut.cancel()
+                self._fail(batch, exc)
+            self._fail(list(self._queue), exc)
+            self._queue.clear()
+            self._inflight = 0
+
+    @staticmethod
+    def _fail(batch, exc: BaseException) -> None:
+        for _m, fut in batch:
+            if fut is not None and not fut.done():
+                fut.set_exception(exc)
+
+    async def _dispatch_loop(self, inflight: asyncio.Queue) -> None:
+        loop = asyncio.get_running_loop()
+        while True:
+            batch, msgs, match_fut = await inflight.get()
+            try:
+                try:
+                    pending = await match_fut
+                    matched = await loop.run_in_executor(
+                        None, self.broker.publish_match_finish, pending
+                    )
+                finally:
+                    self._inflight -= len(batch)
+                counts = self.broker.publish_dispatch(msgs, matched)
+            except asyncio.CancelledError:
+                raise
+            except Exception as exc:
+                log.exception("publish window of %d failed", len(batch))
+                self._fail(batch, exc)
+                self._maybe_release()
+                continue
+            for (_m, fut), n in zip(batch, counts):
+                if fut is not None and not fut.done():
+                    fut.set_result(n)
+            self._maybe_release()
+

@@ -1,0 +1,116 @@
+"""Asyncio TCP connection: the owning loop for one client socket.
+
+Reads socket chunks into the incremental `StreamParser`, feeds packets
+to the channel state machine, serializes outgoing packets, and drives
+the keepalive / retry timers.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from typing import List
+
+from ..codec import mqtt as C
+from .broker import Broker
+from .channel import CONNECTING, Channel
+
+log = logging.getLogger("emqx_tpu_torch.connection")
+
+_TIMER_TICK = 5.0  # keepalive/retry check cadence
+
+
+class Connection:
+    def __init__(
+        self,
+        broker: Broker,
+        reader: asyncio.StreamReader,
+        writer: asyncio.StreamWriter,
+    ) -> None:
+        self.broker = broker
+        self.reader = reader
+        self.writer = writer
+        peername = writer.get_extra_info("peername")
+        peer = f"{peername[0]}:{peername[1]}" if peername else "?"
+        self.channel = Channel(
+            broker, send=self._send_packets, close=self._close, peer=peer
+        )
+        self.parser = C.StreamParser(
+            max_packet_size=broker.config.mqtt.max_packet_size
+        )
+        self._closed = asyncio.Event()
+
+    def _send_packets(self, packets: List[C.Packet]) -> None:
+        if self.writer.is_closing():
+            return
+        version = self.channel.version
+        data = b"".join(C.serialize(p, version) for p in packets)
+        self.broker.metrics.inc("packets.sent", len(packets))
+        self.broker.metrics.inc("bytes.sent", len(data))
+        self.writer.write(data)
+
+    def _close(self, reason: str) -> None:
+        if not self.writer.is_closing():
+            self.writer.close()
+        self._closed.set()
+
+    async def run(self) -> None:
+        """The connection's receive loop."""
+        timer = asyncio.get_running_loop().create_task(self._timers())
+        reason = "closed"
+        try:
+            idle = self.broker.config.mqtt.idle_timeout
+            while not self._closed.is_set():
+                timeout = idle if self.channel.state == CONNECTING else None
+                try:
+                    data = await asyncio.wait_for(
+                        self.reader.read(65536), timeout
+                    )
+                except asyncio.TimeoutError:
+                    reason = "idle_timeout"
+                    break
+                if not data:
+                    break
+                self.broker.metrics.inc("bytes.received", len(data))
+                for pkt in self.parser.feed(data):
+                    self.channel.handle_in(pkt)
+                    if self._closed.is_set():
+                        break
+                await self._drain()
+                batcher = self.broker.batcher
+                if batcher is not None and batcher.congested():
+                    # stop reading until the publish queue drains: TCP
+                    # backpressure reaches the client
+                    await batcher.wait_uncongested()
+        except C.MqttError as exc:
+            log.debug("codec error from %s: %s", self.channel.peer, exc)
+            reason = "frame_error"
+        except (ConnectionResetError, BrokenPipeError):
+            reason = "peer_reset"
+        except asyncio.CancelledError:
+            reason = "server_stopped"
+        finally:
+            timer.cancel()
+            self.channel.connection_lost(reason)
+            if not self.writer.is_closing():
+                self.writer.close()
+            try:
+                await self.writer.wait_closed()
+            except (ConnectionError, asyncio.CancelledError):
+                pass
+
+    async def _drain(self) -> None:
+        try:
+            await self.writer.drain()
+        except (ConnectionError, asyncio.CancelledError):
+            self._closed.set()
+
+    async def _timers(self) -> None:
+        """Keepalive + redelivery ticks."""
+        while not self._closed.is_set():
+            await asyncio.sleep(_TIMER_TICK)
+            if self.channel.keepalive_expired():
+                self.channel.close("keepalive_timeout")
+                return
+            self.channel.retry_deliveries()
+            await self._drain()

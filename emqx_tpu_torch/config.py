@@ -1,0 +1,56 @@
+"""Typed broker configuration: the knobs this slice's broker reads,
+with the JAX package's defaults."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+
+@dataclass
+class MqttConfig:
+    max_packet_size: int = 1024 * 1024
+    max_clientid_len: int = 65535
+    max_topic_levels: int = 128
+    max_qos_allowed: int = 2
+    max_topic_alias: int = 65535
+    retain_available: bool = True
+    wildcard_subscription: bool = True
+    # shared subscriptions wait for a later slice; CONNACK says so
+    shared_subscription: bool = False
+    max_inflight: int = 32
+    max_awaiting_rel: int = 100
+    await_rel_timeout: float = 300.0
+    max_mqueue_len: int = 1000
+    mqueue_priorities: Dict[str, int] = field(default_factory=dict)
+    mqueue_default_priority: str = "lowest"  # lowest | highest
+    mqueue_store_qos0: bool = True
+    upgrade_qos: bool = False
+    keepalive_multiplier: float = 1.5
+    session_expiry_interval: float = 7200.0
+    server_keepalive: Optional[int] = None
+    retry_interval: float = 30.0
+    idle_timeout: float = 15.0
+
+
+@dataclass
+class BrokerEngineConfig:
+    """Knobs for the match engine and the publish batcher."""
+
+    max_levels: int = 16
+    f_width: int = 16
+    m_cap: int = 128
+    rebuild_threshold: int = 4096
+    batch_window_ms: float = 1.0  # micro-batch accumulation window
+    batch_max: int = 4096
+    # windows matched concurrently: the collector fills window N+1..N+k
+    # while window N's kernel runs; dispatch stays in window order
+    pipeline_windows: int = 4
+
+
+@dataclass
+class BrokerConfig:
+    mqtt: MqttConfig = field(default_factory=MqttConfig)
+    engine: BrokerEngineConfig = field(default_factory=BrokerEngineConfig)
+    bind: str = "0.0.0.0"
+    port: int = 1883

@@ -1,0 +1,127 @@
+"""Fleet-telemetry subscription and publish workload.
+
+The filter families and the Zipf-skewed publish stream of the repo's
+headline benchmark (``bench.py`` ``make_filters``/``make_topics``):
+BASELINE configs 3 and 4 — 1M and 10M mixed ``+``/``#`` wildcard
+subscriptions with ~``fanout`` subscribers per matched topic.
+
+`fleet_encoded` builds the same filter set straight into the
+automaton's build input arrays with numpy, for sizes where a Python
+loop over 10M filters would dominate a run.  Given a `TokenDict`
+seeded by `seed_words`, it yields exactly what
+``encode_filters(make_filters(...))`` would.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+from .ops.dictionary import PAD_TOK, PLUS_TOK, TokenDict
+
+
+def populations(n_subs: int, fanout: int) -> Tuple[int, int, int, int]:
+    return (
+        max(n_subs // (2 * fanout), 1),
+        max(n_subs // (5 * fanout), 1),
+        max(n_subs // (5 * fanout), 1),
+        max(n_subs // (10 * fanout), 1),
+    )
+
+
+def make_filters(n_subs: int, fanout: int):
+    """``[(fid, words)]`` of the four filter families, and the family
+    populations ``(vehicles, dev groups, sites, alert zones)``."""
+    n_vehicles, n_dev, n_site, n_alert = pops = populations(n_subs, fanout)
+    filters = []
+    for i in range(n_subs):
+        kind = i % 10
+        if kind < 5:  # fanout x subscribers share each vehicle
+            filters.append((i, ("vehicles", f"v{i % n_vehicles}",
+                                "sensors", "#")))
+        elif kind < 7:
+            filters.append((i, ("dev", f"g{i % n_dev}", "+", f"d{i % 7}")))
+        elif kind < 9:
+            filters.append((i, ("site", "+", "floor", f"f{i % n_site}",
+                                "#")))
+        else:
+            filters.append((i, ("alerts", f"z{i % n_alert}", "+", "+")))
+    return filters, pops
+
+
+def make_topics(rng: np.random.Generator, n: int, pops) -> List[str]:
+    """``n`` publish topics: 60% Zipf(1.3)-skewed vehicle telemetry,
+    then device, site and never-matching topics."""
+    n_vehicles, n_dev, n_site, n_alert = pops
+    zipf = rng.zipf(1.3, size=n) % max(n_vehicles, 1)
+    topics = []
+    for i in range(n):
+        k = i % 10
+        if k < 6:
+            topics.append(f"vehicles/v{zipf[i]}/sensors/temp")
+        elif k < 8:
+            topics.append(f"dev/g{i % n_dev}/x/d{i % 7}")
+        elif k < 9:
+            topics.append(f"site/s{i % 7}/floor/f{i % n_site}/a")
+        else:
+            topics.append(f"nomatch/q{i}")
+    return topics
+
+
+_CONST = ("vehicles", "sensors", "dev", "site", "floor", "alerts")
+
+
+def seed_words(tdict: TokenDict, pops: Sequence[int]) -> None:
+    """Add every word of the filter families to ``tdict`` in a fixed
+    order: the constants, then each family's numbered words."""
+    n_vehicles, n_dev, n_site, n_alert = pops
+    for w in _CONST:
+        tdict.add(w)
+    for prefix, n in (("v", n_vehicles), ("g", n_dev), ("d", 7),
+                      ("f", n_site), ("z", n_alert)):
+        for j in range(n):
+            tdict.add(f"{prefix}{j}")
+
+
+def fleet_encoded(n_subs: int, fanout: int, tdict: TokenDict,
+                  max_levels: int = 16):
+    """``(mat, blen, is_hash, pops)`` for ``make_filters(n_subs,
+    fanout)``, encoded with ``tdict`` after `seed_words`."""
+    pops = populations(n_subs, fanout)
+    seed_words(tdict, pops)
+    n_vehicles, n_dev, n_site, n_alert = pops
+    tid = tdict.get
+    i = np.arange(n_subs, dtype=np.int64)
+    kind = i % 10
+    mat = np.full((n_subs, max_levels), PAD_TOK, np.int32)
+    blen = np.full(n_subs, 4, np.int32)
+    is_hash = np.zeros(n_subs, bool)
+    v0, g0, d0, f0, z0 = (tid(w) for w in ("v0", "g0", "d0", "f0", "z0"))
+
+    veh = kind < 5
+    mat[veh, 0] = tid("vehicles")
+    mat[veh, 1] = v0 + i[veh] % n_vehicles
+    mat[veh, 2] = tid("sensors")
+    blen[veh] = 3
+    is_hash[veh] = True
+
+    dev = (kind >= 5) & (kind < 7)
+    mat[dev, 0] = tid("dev")
+    mat[dev, 1] = g0 + i[dev] % n_dev
+    mat[dev, 2] = PLUS_TOK
+    mat[dev, 3] = d0 + i[dev] % 7
+
+    site = (kind >= 7) & (kind < 9)
+    mat[site, 0] = tid("site")
+    mat[site, 1] = PLUS_TOK
+    mat[site, 2] = tid("floor")
+    mat[site, 3] = f0 + i[site] % n_site
+    is_hash[site] = True
+
+    alert = kind == 9
+    mat[alert, 0] = tid("alerts")
+    mat[alert, 1] = z0 + i[alert] % n_alert
+    mat[alert, 2] = PLUS_TOK
+    mat[alert, 3] = PLUS_TOK
+    return mat, blen, is_hash, pops
