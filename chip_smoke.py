@@ -6,18 +6,23 @@
 Run from the repository root on a machine with a CUDA card.  It builds
 the hand-written kernels from ``emqx_tpu_torch/ops/csrc``, holds each
 one against its plain PyTorch version at the real sizes (10M wildcard
-subscriptions, publish windows of 32,768 topics), times them, drives the
-match engine with 1M subscriptions, and drives the broker — over TCP,
-as a user would — with 1M background subscriptions: the publish path
-whose kernel launches it counts.  Phases:
+subscriptions, publish windows of 32,768 topics; rule registries of 100
+and 10,000 programs over windows of 4,096 messages), times them, drives
+the match engine with 1M subscriptions, and drives the broker — over
+TCP, as a user would — with 1M background subscriptions: first the
+publish path, then the publish path with config 4's 100 rules, whose
+kernel launches it counts.  Phases:
 
   device        the card's name and power limit (nvidia-smi)
-  build         nvcc of the kernel source, with its seconds
+  build         nvcc of the kernel sources, with its seconds
   kernel_parity K1/K2/K3 against their plain versions, exactly
   kernel_times  CUDA-event times, plain times, bytes and bounds
+  rules kernel  K4 against its plain version, exactly, and its times
   engine        MatchEngine on the card vs the host trie, 1M filters
   broker        CLI round trip, then the in-process broker under load
-  kernels       one JSON line per kernel (launches from the broker run)
+  rules broker  the broker with 100 rules under load, against a second
+                broker pinned to the scalar interpreter referee
+  kernels       one JSON line per kernel (launches from the broker runs)
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.  Without CUDA, or without the package beside this
@@ -37,16 +42,22 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor rate, proxy for int32 ALU
-SOURCE = "emqx_tpu_torch/ops/csrc/match_kernels.cu"
-REPLACES = {
-    "match_batch_compact": "emqx_tpu/ops/match_kernel.py:190",
-    "match_batch": "emqx_tpu/ops/match_kernel.py:159",
-    "decide_batch": "emqx_tpu/ops/match_kernel.py:270",
+FP64_OPS_PER_S = 34e12  # H100 SXM non-tensor float64 (data sheet)
+MATCH_SOURCE = "emqx_tpu_torch/ops/csrc/match_kernels.cu"
+RULES_SOURCE = "emqx_tpu_torch/ops/csrc/rules_kernels.cu"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "match_batch_compact": (MATCH_SOURCE,
+                            "emqx_tpu/ops/match_kernel.py:190"),
+    "match_batch": (MATCH_SOURCE, "emqx_tpu/ops/match_kernel.py:159"),
+    "decide_batch": (MATCH_SOURCE, "emqx_tpu/ops/match_kernel.py:270"),
+    "rules_eval_batch": (RULES_SOURCE, "emqx_tpu/ops/match_kernel.py:502"),
 }
 N_FILTERS = 10_000_000
 BATCH = 32_768
 SHAPES = ((4, 16), (16, 128))  # (f_width, m_cap): bench, broker
 DECIDE_N = 1 << 20
+RULES_W = 4096  # config 4's batch_max: one publish window
+RULES_SIZES = (100, 10_000)  # config 4's rules; a 10k-program registry
 
 
 def fail(msg: str) -> None:
@@ -77,6 +88,21 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Host clock per call of ``fn``, which ends on a device sync (a
+    download to the host)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
 def exact_equal(name: str, got, want) -> float:
     """Integer/boolean outputs: equality is the tolerance (0)."""
     import torch
@@ -103,6 +129,7 @@ class Client:
         self.client_id = client_id
         self.parser = C.StreamParser(version=C.MQTT_V4)
         self.inbox: asyncio.Queue = asyncio.Queue()
+        self.raw = bytearray()  # every byte the broker sent
         self.reader = self.writer = None
         self._pump = None
 
@@ -123,6 +150,7 @@ class Client:
             if not data:
                 await self.inbox.put(None)
                 return
+            self.raw += data
             for pkt in self.parser.feed(data):
                 await self.inbox.put(pkt)
 
@@ -248,9 +276,9 @@ def match_bytes(tab, batch, f_width, c_cap=None, m_cap=None):
     return n_in + n_out, ops, buckets, nodes, lanes
 
 
-def bound(n_bytes: float, ops: float):
+def bound(n_bytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -305,29 +333,53 @@ def phase_kernels(results):
           flush=True)
 
     phase("kernel_times")
+    from emqx_tpu_torch.ops import _kernels
+
     card = results["card"]
     for f, m in SHAPES:
-        for name, fn, plain, kw, c_cap in (
+        # the launches alone, into buffers allocated once
+        codes = torch.empty((BATCH, m), dtype=torch.int32, device="cuda")
+        counts = torch.empty(BATCH, dtype=torch.int32, device="cuda")
+        ovf = torch.empty(BATCH, dtype=torch.bool, device="cuda")
+        row_start = torch.empty(BATCH, dtype=torch.int32, device="cuda")
+        flat = torch.empty(BATCH, dtype=torch.int32, device="cuda")
+        counts16 = torch.empty(BATCH, dtype=torch.int16, device="cuda")
+        total = torch.empty(1, dtype=torch.int32, device="cuda")
+
+        def rows_only(f=f, m=m):
+            _kernels.match_rows(tab.fp_rows, tab.node_rows, tab.salt,
+                                *batch, f, m, codes, counts, ovf)
+
+        def compact_only(f=f, m=m):
+            rows_only(f, m)
+            _kernels.compact(codes, counts, ovf, m, BATCH, row_start, total,
+                             flat, counts16)
+
+        for name, fn, plain, kw, c_cap, bare in (
             ("match_batch_compact", mk.match_batch_compact,
-             mk.match_batch_compact_plain, {"c_cap": BATCH}, BATCH),
-            ("match_batch", mk.match_batch, mk.match_batch_plain, {}, None),
+             mk.match_batch_compact_plain, {"c_cap": BATCH}, BATCH,
+             compact_only),
+            ("match_batch", mk.match_batch, mk.match_batch_plain, {}, None,
+             rows_only),
         ):
-            ms = cuda_ms(lambda: fn(*args, f_width=f, m_cap=m, **kw), 50, 10)
+            ms = cuda_ms(bare, 50, 10)
+            wrap_ms = cuda_ms(
+                lambda: fn(*args, f_width=f, m_cap=m, **kw), 50, 10)
             plain_ms = cuda_ms(
                 lambda: plain(*args, f_width=f, m_cap=m, **kw), 3, 1)
             n_bytes, ops, buckets, nodes, lanes = match_bytes(
                 tab, batch, f, c_cap=c_cap, m_cap=m)
             b_ms, b_by = bound(n_bytes, ops)
-            print(f"time {name} F={f} M={m} B={BATCH}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
-                  f"({n_bytes} B: {buckets} bucket rows, {nodes} node rows, "
-                  f"{lanes} live lane-levels; {ops} ops), no library call "
-                  f"[{card}]", flush=True)
+            print(f"time {name} F={f} M={m} B={BATCH}: kernel {ms:.4f} ms "
+                  f"(wrapper {wrap_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                  f"bound {b_ms:.5f} ms by {b_by} ({n_bytes} B: {buckets} "
+                  f"bucket rows, {nodes} node rows, {lanes} live "
+                  f"lane-levels; {ops} ops), no library call [{card}]",
+                  flush=True)
             if (f, m) == SHAPES[1]:
                 results["kernels"][name] = dict(
-                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    from emqx_tpu_torch.ops import _kernels
-
+                    ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by)
     out = torch.empty(DECIDE_N, dtype=torch.uint8, device="cuda")
     ms = cuda_ms(lambda: _kernels.decide(*dec, out), 50, 5)
     wrap_ms = cuda_ms(lambda: mk.decide_batch(*dec), 50, 5)
@@ -340,12 +392,159 @@ def phase_kernels(results):
           f"bound {b_ms:.5f} ms by {b_by} ({n_bytes} B), no library call "
           f"[{card}]", flush=True)
     results["kernels"]["decide_batch"] = dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by)
     del tab, batch, args, dec
     torch.cuda.empty_cache()
 
 
-def phase_engine():
+def rules_window(n_rules: int):
+    """A stacked registry of ``n_rules`` programs and one window of
+    RULES_W fleet messages with JSON payloads, as the rule engine
+    builds them.  100 rules: config 4's rule set (its lowerable part);
+    10,000: distinct literals, so no two rules share a program."""
+    import numpy as np
+
+    from emqx_tpu_torch import workload as W
+    from emqx_tpu_torch.message import Message
+    from emqx_tpu_torch.rules.columns import WindowColumns
+    from emqx_tpu_torch.rules.predicate import build_stack
+    from emqx_tpu_torch.rules.sql import parse_sql
+
+    if n_rules == RULES_SIZES[0]:
+        sqls = [q for _, q in W.make_rules(n_rules)]
+    else:
+        sqls = [f'SELECT * FROM "t" WHERE {w}'
+                for w in W.make_distinct_wheres(n_rules)]
+    stack = build_stack([(str(i), parse_sql(q).where)
+                         for i, q in enumerate(sqls)])
+    if stack.fallback or stack.n_lowered != n_rules:
+        fail(f"rules: {len(stack.fallback)} of {n_rules} did not lower")
+    rng = np.random.default_rng(n_rules)
+    pops = W.populations(1_000_000, 8)
+    topics = W.make_topics(rng, RULES_W, pops)
+    msgs = [Message(topic=t, payload=p, qos=1, from_client=f"pub{k % 4}",
+                    timestamp=1752000000.0 + k / 1000)
+            for k, (t, p) in enumerate(zip(
+                topics, W.make_rule_payloads(rng, RULES_W)))]
+    return stack, WindowColumns(msgs, stack.paths, stack.lit_strings)
+
+
+def rules_work(stack, cols):
+    """What K4 must do for this window: the bytes it must move (the
+    program, the planes, the literal ranks and the [R, W] output, each
+    once) and the least operations per message of the steps each rule
+    runs up to its result register, counted per opcode: float64 for
+    NaN tests, arithmetic and numeric comparisons; int32 for id and
+    rank comparisons and the boolean pair algebra.  Loads, literals and
+    presence reads count as bytes only."""
+    import numpy as np
+
+    from emqx_tpu_torch.rules import predicate as P
+
+    r, s = stack.code.shape
+    p, w = cols.num.shape
+    n_bytes = (r * s * (4 * 5 + 8) + r * 4 + p * w * (8 + 4 + 1 + 1)
+               + cols.lit_ranks.size * 4 + r * w)
+    # opcode -> (float64 ops, int32 ops) per message
+    per_op = {
+        P.R_NLOAD: (1, 0), P.R_NNEG: (1, 0), P.R_NADD: (1, 0),
+        P.R_NSUB: (1, 0), P.R_NMUL: (1, 0),
+        P.R_NDIV: (2, 0),  # zero test, divide
+        P.R_NIDV: (5, 0),  # zero test, 2 truncs, divide, floor
+        P.R_NMOD: (7, 0),  # div's 5, multiply, subtract
+        P.R_BNOT: (0, 1), P.R_BAND: (0, 2), P.R_BOR: (0, 2),
+        P.R_CGT: (1, 0), P.R_CLT: (1, 0), P.R_CGE: (1, 0),
+        P.R_CLE: (1, 0),
+        P.R_EQVV: (3, 2),  # 2 NaN tests, equal; id known, id equal
+        P.R_EQVL: (2, 0),  # NaN test, equal
+        P.R_EQSL: (0, 1), P.R_EQC: (1, 0),
+    }
+    f64 = np.zeros(64, np.int64)
+    i32 = np.zeros(64, np.int64)
+    for op, (f, i) in per_op.items():
+        f64[op], i32[op] = f, i
+    live = np.arange(s)[None, :] <= stack.last[:, None]
+    code = np.where(live, stack.code, P.R_NOP)
+    ranked = (live & (stack.code >= P.R_CGT) & (stack.code <= P.R_CLE)
+              & (stack.a2 >= 0) & (stack.a3 >= 0))  # + a rank compare
+    fp_ops = int(f64[code].sum()) * w
+    int_ops = (int(i32[code].sum()) + int(ranked.sum())) * w
+    return n_bytes, fp_ops, int_ops
+
+
+def phase_rules_kernel(results):
+    import torch
+
+    from emqx_tpu_torch.ops import _kernels
+    from emqx_tpu_torch.ops import match_kernel as mk
+    from emqx_tpu_torch.state import (
+        columns_from_reference, rules_program_from_reference,
+    )
+
+    phase("rules kernel")
+    card = results["card"]
+    for n_rules in RULES_SIZES:
+        t0 = time.perf_counter()
+        stack, cols = rules_window(n_rules)
+        built = time.perf_counter() - t0
+        prog = rules_program_from_reference(
+            stack.code, stack.a0, stack.a1, stack.a2, stack.a3, stack.litn,
+            stack.last, "cuda")
+        pl = columns_from_reference(cols.num, cols.sid, cols.err, cols.prs,
+                                    cols.lit_ranks, "cuda")
+        args = (prog.code, prog.a0, prog.a1, prog.a2, prog.a3, prog.litn,
+                pl.lit_ranks, prog.last, pl.num, pl.sid, pl.err, pl.prs)
+        got = mk.rules_eval_batch(*args)
+        want = mk.rules_eval_plain(*args)
+        torch.cuda.synchronize()
+        exact_equal(f"rules_eval_batch R={n_rules} W={RULES_W}", (got,),
+                    (want,))
+        r, s = stack.code.shape
+        ops_used = sorted(set(stack.code.ravel().tolist()))
+        print(f"parity rules R={r} S={s} P={cols.num.shape[0]} "
+              f"L={cols.lit_ranks.size} W={RULES_W}: K4 equals its plain "
+              f"version ({int(got.sum())} of {got.numel()} cells pass; "
+              f"opcodes {ops_used}; stack and window built in "
+              f"{built:.1f} s)", flush=True)
+        out = torch.empty((r, RULES_W), dtype=torch.bool, device="cuda")
+        ms = cuda_ms(lambda: _kernels.rules_eval(
+            prog.code, prog.a0, prog.a1, prog.a2, prog.a3, prog.litn,
+            prog.last, pl.lit_ranks, pl.num, pl.sid, pl.err, pl.prs, out),
+            20, 3)
+
+        def wrapper():
+            # what the engine does per window: planes up, matrix down
+            p = columns_from_reference(cols.num, cols.sid, cols.err,
+                                       cols.prs, cols.lit_ranks, "cuda")
+            return mk.rules_eval_batch(
+                prog.code, prog.a0, prog.a1, prog.a2, prog.a3, prog.litn,
+                p.lit_ranks, prog.last, p.num, p.sid, p.err,
+                p.prs).cpu().numpy()
+
+        wrap_ms = host_ms(wrapper, 10, 2)
+        plain_ms = cuda_ms(lambda: mk.rules_eval_plain(*args), 2, 1)
+        n_bytes, fp_ops, int_ops = rules_work(stack, cols)
+        # the float64 and int32 pipes run side by side: the slower one
+        # bounds the operations
+        b_ms, b_by = max(bound(n_bytes, fp_ops, FP64_OPS_PER_S),
+                         bound(n_bytes, int_ops, FP32_OPS_PER_S))
+        print(f"time rules_eval_batch R={r} W={RULES_W}: kernel {ms:.4f} ms, "
+              f"wrapper (planes up, kernel, [R, W] down) {wrap_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
+              f"({n_bytes} B; {fp_ops} float64 and {int_ops} int32 ops), "
+              f"no library call [{card}]",
+              flush=True)
+        row = dict(ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        results["rules_sizes"][n_rules] = row
+        if n_rules == RULES_SIZES[0]:
+            results["kernels"]["rules_eval_batch"] = row
+        del prog, pl, args, got, want, out
+        torch.cuda.empty_cache()
+
+
+def phase_engine(filters):
     import numpy as np
 
     from emqx_tpu_torch import topic as T
@@ -354,7 +553,7 @@ def phase_engine():
     from emqx_tpu_torch.ops import match_kernel as mk
 
     phase("engine")
-    filters, pops = W.make_filters(1_000_000, 8)
+    pops = W.populations(len(filters), 8)
     eng = MatchEngine()
     t0 = time.perf_counter()
     eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
@@ -463,12 +662,11 @@ SUB_FILTERS = ("load/#", "load/+/#", "load/+/+", "+/+/+", "#", "+/#",
 N_PUB, N_MSG = 4, 1000
 
 
-async def broker_load(results) -> None:
+async def broker_load(results, filters) -> None:
     """The main path: 1M background subscriptions in the engine, 8
     subscribers (each filter matches every load topic, 8 distinct trie
     codes per topic) and 4 publishers sending 1,000 QoS 1 messages each
     over TCP through the batcher."""
-    from emqx_tpu_torch import workload as W
     from emqx_tpu_torch.broker.listener import BrokerServer
     from emqx_tpu_torch.config import BrokerConfig
     from emqx_tpu_torch.ops import match_kernel as mk
@@ -479,7 +677,6 @@ async def broker_load(results) -> None:
     cfg.mqtt.max_mqueue_len = 4 * N_PUB * N_MSG
     server = BrokerServer(cfg)
     eng = server.broker.router.engine
-    filters, _pops = W.make_filters(1_000_000, 8)
     t0 = time.perf_counter()
     eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
     await server.start()
@@ -565,7 +762,8 @@ async def broker_load(results) -> None:
         for j in range(len(subs)):
             if len(seen[j]) != expected:
                 fail(f"sub{j} got {len(seen[j])} of {expected}")
-        if min(launches.values()) < 1:
+        if min(launches[k] for k in ("match_batch_compact", "match_batch",
+                                     "decide_batch")) < 1:
             fail(f"a kernel of the publish path never launched: {launches}")
         dropped = server.broker.metrics["delivery.dropped"]
         if dropped:
@@ -589,10 +787,221 @@ async def broker_load(results) -> None:
         await server.stop()
 
 
-def phase_broker(results):
+RULES_PUB, RULES_MSG = 4, 1000
+REPUBLISH_SQL = ('SELECT payload.v AS v, topic, clientid FROM '
+                 '"vehicles/+/sensors/#" WHERE payload.v >= 55')
+
+
+class Capture:
+    """An in-process MQTT 3.1.1 subscriber on a broker's channel: the
+    bytes its connection would write, as the TCP client reads them."""
+
+    def __init__(self, broker, client_id: str, flt: str) -> None:
+        from emqx_tpu_torch.broker.channel import Channel
+        from emqx_tpu_torch.codec import mqtt as C
+
+        self.raw = bytearray()
+
+        def send(pkts):
+            for p in pkts:
+                self.raw += C.serialize(p, self.ch.version)
+
+        self.ch = Channel(broker, send=send, close=lambda reason: None)
+        for pkt in (C.Connect(client_id=client_id, proto_ver=C.MQTT_V4),
+                    C.Subscribe(packet_id=1, subscriptions=[
+                        C.Subscription(topic_filter=flt, qos=0)])):
+            for q in C.StreamParser(version=C.MQTT_V4).feed(
+                    C.serialize(pkt, C.MQTT_V4)):
+                self.ch.handle_in(q)
+
+
+def add_fleet_rules(broker, fired):
+    """Config 4's 100 rules: 99 fleet rules (6 of them not lowerable)
+    with actions that record their calls, and one that republishes."""
+    from emqx_tpu_torch import workload as W
+    from emqx_tpu_torch.rules.engine import FunctionAction, RepublishAction
+
+    for rid, sql in W.make_rules(99, n_fallback=6):
+        broker.rules.add_rule(rid, sql, actions=[FunctionAction(
+            lambda sel, msg, rid=rid: fired.append(
+                (rid, msg.topic, msg.payload, sorted(sel.items()))))])
+    broker.rules.add_rule("republish", REPUBLISH_SQL, actions=[
+        RepublishAction(topic="fleet/alerts/${clientid}",
+                        payload='{"v": ${v}, "from": "${topic}"}')])
+
+
+async def rules_load(results, filters) -> None:
+    """The rules path: the broker with 1M background filters and config
+    4's 100 rules; 4 publishers send 1,000 QoS 1 JSON telemetry messages
+    each over TCP; a subscriber holds the republish topic.  Then the
+    same windows run through a second broker pinned to the scalar
+    interpreter referee: action calls, per-rule counters and the
+    republished bytes must be equal."""
+    import dataclasses
+
+    import numpy as np
+
+    from emqx_tpu_torch import workload as W
+    from emqx_tpu_torch.broker.broker import Broker
+    from emqx_tpu_torch.broker.listener import BrokerServer
+    from emqx_tpu_torch.config import BrokerConfig
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    cfg = BrokerConfig(bind="127.0.0.1", port=0)
+    server = BrokerServer(cfg)
+    broker = server.broker
+    eng = broker.router.engine
+    t0 = time.perf_counter()
+    fired = []
+    add_fleet_rules(broker, fired)
+    # the bulk insert rebuilds the automaton: rule and background
+    # filters go onto the card together
+    eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    if eng._delta:
+        eng.rebuild()
+    # record each publish window as dispatch receives it (republished
+    # messages are published from inside a window: not recorded), and
+    # the time the rule engine takes per window
+    windows, lap = [], [0.0, 0]
+    depth = [0]
+    dispatch, apply_batch = broker.publish_dispatch, broker.rules.apply_batch
+
+    def recording_dispatch(msgs, matched):
+        if depth[0] == 0:
+            windows.append([dataclasses.replace(m) for m in msgs])
+        depth[0] += 1
+        try:
+            return dispatch(msgs, matched)
+        finally:
+            depth[0] -= 1
+
+    def timed_apply_batch(items):
+        t = time.perf_counter()
+        try:
+            return apply_batch(items)
+        finally:
+            lap[0] += time.perf_counter() - t
+            lap[1] += 1
+
+    broker.publish_dispatch = recording_dispatch
+    broker.rules.apply_batch = timed_apply_batch
+    await server.start()
+    try:
+        print(f"rules broker: {len(filters)} background filters + 100 rules "
+              f"({broker.rules.stats()['lowered']} lowered) on the card "
+              f"({eng._aut.n_nodes} nodes) in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        watcher = Client(server.port, "watcher")
+        await watcher.connect()
+        await watcher.subscribe("fleet/alerts/#", 0)
+        pubs = []
+        for p in range(RULES_PUB):
+            cl = Client(server.port, f"rpub{p}")
+            await cl.connect()
+            pubs.append(cl)
+        C = watcher.C
+        rng = np.random.default_rng(3)
+        pops = W.populations(len(filters), 8)
+        work = [list(zip(W.make_topics(rng, RULES_MSG, pops),
+                         W.make_rule_payloads(rng, RULES_MSG)))
+                for _ in pubs]
+
+        async def produce(cl, items):
+            window = asyncio.Semaphore(32)
+            n_acked = 0
+
+            async def acks():
+                nonlocal n_acked
+                while n_acked < len(items):
+                    pkt = await asyncio.wait_for(cl.inbox.get(), 60)
+                    if pkt is None or pkt.type != C.PUBACK:
+                        fail(f"{cl.client_id}: expected PUBACK, got {pkt!r}")
+                    n_acked += 1
+                    window.release()
+
+            task = asyncio.get_running_loop().create_task(acks())
+            for k, (topic, payload) in enumerate(items):
+                await window.acquire()
+                cl.send(C.Publish(topic=topic, payload=payload, qos=1,
+                                  packet_id=k % 65535 + 1))
+                if k % 32 == 0:
+                    await cl.writer.drain()
+            await task
+
+        mk.reset_launches()  # counts of the rules path start here
+        t0 = time.perf_counter()
+        await asyncio.wait_for(asyncio.gather(
+            *(produce(cl, items) for cl, items in zip(pubs, work))), 600)
+        wall = time.perf_counter() - t0
+        launches = mk.launches()
+        await asyncio.sleep(0.5)  # the watcher's last republishes
+        results["launches"]["rules_eval_batch"] = launches[
+            "rules_eval_batch"]
+        n_msgs = sum(len(w) for w in windows)
+        if n_msgs != RULES_PUB * RULES_MSG:
+            fail(f"rules broker: dispatched {n_msgs} messages")
+        st = broker.rules.stats()
+        if launches["rules_eval_batch"] < 1 or st["dev_windows"] < 1:
+            fail(f"rules broker: the rules kernel never launched: "
+                 f"{launches} {st}")
+        counters = {rid: (r.matched, r.passed, r.failed, r.actions_success,
+                          r.actions_failed)
+                    for rid, r in broker.rules.rules.items()}
+        tcp_bytes = bytes(watcher.raw)
+        print(f"rules broker: {n_msgs} QoS 1 messages in {len(windows)} "
+              f"windows in {wall:.3f} s: {n_msgs / wall:.1f} msgs/s in; "
+              f"rules lap {lap[0] * 1e3 / max(lap[1], 1):.3f} ms per window "
+              f"({lap[1]} windows, {lap[0]:.3f} s); {len(fired)} action "
+              f"calls; {sum(c[1] for c in counters.values())} rule passes "
+              f"of {sum(c[0] for c in counters.values())} matches; "
+              f"republished {counters['republish'][3]}; matrix windows "
+              f"{st['matrix_windows']}, fallback rule evals "
+              f"{st['fallback_rule_evals']}; launches {launches} "
+              f"[{results['card']}]", flush=True)
+        for cl in pubs + [watcher]:
+            await cl.close()
+    finally:
+        await server.stop()
+
+    # the referee: the same windows, the same rules, scalar interpreter
+    ref_fired = []
+    ref = Broker()
+    ref.rules.eval_force = "scalar"
+    add_fleet_rules(ref, ref_fired)
+    ref_watch = Capture(ref, "watcher", "fleet/alerts/#")
+    t0 = time.perf_counter()
+    for w in windows:
+        ref.publish_many(w)
+    ref_counters = {rid: (r.matched, r.passed, r.failed, r.actions_success,
+                          r.actions_failed)
+                    for rid, r in ref.rules.rules.items()}
+    if ref.rules.stats()["matrix_windows"]:
+        fail("the referee broker used the matrix path")
+    if ref_counters != counters:
+        bad = [k for k in counters if counters[k] != ref_counters.get(k)]
+        fail(f"rules broker: per-rule counters differ from the scalar "
+             f"referee for {bad[:5]}")
+    if ref_fired != fired:
+        k = next(i for i, (a, b) in enumerate(zip(fired, ref_fired))
+                 if a != b) if len(fired) == len(ref_fired) else -1
+        fail(f"rules broker: action calls differ from the scalar referee "
+             f"({len(fired)} vs {len(ref_fired)}, first at {k})")
+    if bytes(ref_watch.raw) != tcp_bytes:
+        fail(f"rules broker: republished bytes differ from the scalar "
+             f"referee ({len(tcp_bytes)} vs {len(ref_watch.raw)} B)")
+    print(f"rules broker: the scalar referee over the same {len(windows)} "
+          f"windows ({time.perf_counter() - t0:.1f} s) gives the same "
+          f"{len(fired)} action calls in the same order, the same per-rule "
+          f"counters and the same {len(tcp_bytes)} bytes to the republish "
+          f"subscriber", flush=True)
+
+
+def phase_broker(results, filters):
     phase("broker")
     asyncio.run(cli_round_trip())
-    asyncio.run(broker_load(results))
+    asyncio.run(broker_load(results, filters))
+    phase("rules broker")
+    asyncio.run(rules_load(results, filters))
 
 
 def main() -> None:
@@ -604,24 +1013,28 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     t_start = time.perf_counter()
-    results = {"kernels": {}, "launches": {}}
+    results = {"kernels": {}, "launches": {}, "rules_sizes": {}}
     results["card"] = phase_device()
     phase_build()
     phase_kernels(results)
-    phase_engine()
-    phase_broker(results)
+    phase_rules_kernel(results)
+    from emqx_tpu_torch import workload as W
+
+    filters, _pops = W.make_filters(1_000_000, 8)
+    phase_engine(filters)
+    phase_broker(results, filters)
 
     phase("kernels")
     rows = []
-    for name in ("match_batch_compact", "match_batch", "decide_batch"):
+    for name, (source, replaces) in KERNELS.items():
         k = results["kernels"][name]
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
             "launches": results["launches"][name], "max_abs_err": 0,
-            "ms": k["ms"], "plain_ms": k["plain_ms"],
-            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None,
+            "ms": k["ms"], "wrapper_ms": k["wrapper_ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None,
         })
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

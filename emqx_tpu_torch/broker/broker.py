@@ -11,7 +11,10 @@
      QoS, no-local drop and retain flag in one kernel launch;
   3. deliver — one run per subscriber, in publish order, encoded once
      per window (`DispatchEncoder`) and flushed as one corked write per
-     connection.
+     connection;
+  4. rules — the window's rule hits (rule fids the match returned
+     beside the subscriptions) run through `RuleEngine.apply_batch`:
+     one rules x window WHERE matrix kernel launch, then the actions.
 
 `PublishBatcher` is the live front: connections enqueue concurrently,
 a collector closes a window every ``batch_window_ms`` or ``batch_max``
@@ -34,6 +37,7 @@ from ..engine import MatchEngine
 from ..message import Message
 from ..ops.match_kernel import DEC_DROP_BIT, DEC_QMAX_SHIFT, DEC_RETAIN_BIT
 from ..router import Router
+from ..rules.engine import RuleEngine
 from .cm import ConnectionManager
 from .session import Session
 
@@ -63,6 +67,7 @@ class Broker:
         ))
         self.cm = ConnectionManager(self._make_session)
         self.cm.on_discarded = self._session_discarded
+        self.rules = RuleEngine(broker=self)
         # live micro-batcher, installed by the server (needs a loop);
         # without one, channels publish synchronously
         self.batcher: Optional[PublishBatcher] = None
@@ -153,15 +158,24 @@ class Broker:
     def publish_dispatch(
         self, msgs: Sequence[Message], matched: Sequence[Set[str]]
     ) -> List[int]:
-        """Stage 2 (loop thread): decide and deliver the whole window."""
+        """Stage 2 (loop thread): decide and deliver the whole window,
+        then run all its rule hits in one pass."""
         if not msgs:
             return []
-        return self._dispatch_window(msgs, matched)
+        rule_sink: List[Tuple[Message, List[str]]] = []
+        counts = self._dispatch_window(msgs, matched, rule_sink)
+        if rule_sink:
+            try:
+                self.rules.apply_batch(rule_sink)
+            except Exception:
+                log.exception("rule batch failed for window")
+        return counts
 
     # ----------------------------------------------------- dispatch
 
     def _dispatch_window(
-        self, msgs: Sequence[Message], matched: Sequence[Set[str]]
+        self, msgs: Sequence[Message], matched: Sequence[Set[str]],
+        rule_sink: List[Tuple[Message, List[str]]],
     ) -> List[int]:
         """Fan a routed window out to subscriber sessions: CSR-expand,
         group per client with one stable sort (each client's deliveries
@@ -169,11 +183,15 @@ class Broker:
         deliver one run per client.  A connected client's run counts
         every delivery (no-local drops included) toward its message's
         delivery count; a detached persistent session counts what it
-        queued."""
+        queued.  Rule hits go to ``rule_sink`` as ``(message, raw rule
+        ids)``; a message only rules matched counts as dropped for no
+        subscribers, as in the JAX package."""
         router = self.router
         n = len(msgs)
         counts = [0] * n
-        msg_idx, rows, opts_rows = router.expand_window(matched)
+        msg_idx, rows, opts_rows, rules = router.expand_window(matched)
+        for i, rids in rules:
+            rule_sink.append((msgs[i], rids))
         mloc: Counter = Counter()
         if len(rows):
             order = np.lexsort((msg_idx, rows))

@@ -13,6 +13,9 @@ Any topic the kernel flags (frontier overflow, match-cap overflow) is
 re-matched on the `HostTrie`, so results are exact whatever the kernel
 capacity bounds.  A device error propagates: there is no host fallback.
 
+The rule engine's WHERE matrix runs on the same device, through the
+engine's `rules_evaluator` (`rules.evaluator.RulesEvaluator`).
+
 ``device="cuda"`` (the default) runs the kernels and raises without a
 card; ``device="cpu"`` runs their plain PyTorch versions.
 """
@@ -32,6 +35,7 @@ from .ops.automaton import (
 from .ops.dictionary import PAD_TOK, SENTINEL, TokenDict, encode_topics
 from .ops.match_kernel import decide_batch, match_batch, match_batch_compact
 from .ops.trie_host import HostTrie
+from .rules.evaluator import RulesEvaluator
 from .state import DeviceTables, resolve_device, tables_from_reference
 
 
@@ -154,6 +158,7 @@ class MatchEngine:
         # topics; doubles whenever the buffer clips, never shrinks
         self._ccap_mult = 2
         self._dec_cols: Optional[Tuple] = None  # (rev, device columns)
+        self.rules_evaluator = RulesEvaluator(self.device)
         self.counters = {"dev_windows": 0, "host_windows": 0,
                          "clip_reruns": 0, "rows": 0, "ovf_rows": 0,
                          "decide_windows": 0, "rebuilds": 0}
@@ -221,6 +226,9 @@ class MatchEngine:
 
     def __len__(self) -> int:
         return len(self._by_fid)
+
+    def stats(self) -> Dict[str, int]:
+        return {**self.counters, **self.rules_evaluator.counters}
 
     def rebuild(self) -> None:
         """Build a fresh automaton from every wildcard filter and upload

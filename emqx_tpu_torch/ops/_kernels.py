@@ -1,9 +1,10 @@
-"""Build and bind ``csrc/match_kernels.cu``.
+"""Build and bind the CUDA sources in ``csrc/`` (every ``*.cu``).
 
-At first use the source is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, under ``ops/build/`` (named by
-a hash of the source and flags, so a stale library is never loaded),
-and bound with ctypes.  Pointers and the stream pass as
+At first use each source is compiled with ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and the objects are linked
+into one shared library with a plain C interface, under ``ops/build/``
+(named by a hash of the sources and flags, so a stale library is never
+loaded), and bound with ctypes.  Pointers and the stream pass as
 ``ctypes.c_void_p``; each entry point returns ``cudaGetLastError()``
 and a non-zero code raises here.
 
@@ -15,10 +16,12 @@ device, 16-byte aligned table rows) and launches on the current stream.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from typing import Optional
@@ -26,11 +29,11 @@ from typing import Optional
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "match_kernels.cu")
+SOURCES = sorted(glob.glob(os.path.join(_HERE, "csrc", "*.cu")))
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
 _lock = threading.Lock()
@@ -53,35 +56,49 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            digest.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(
-        BUILD_DIR, f"libmatch_kernels-{digest.hexdigest()[:16]}.so"
+        BUILD_DIR, f"libemqx_kernels-{digest.hexdigest()[:16]}.so"
     )
 
 
 def build() -> str:
-    """Compile the kernels unless this source's library exists; returns
-    its path.  Concurrent builds each write a private file and rename
-    it into place."""
+    """Compile the kernels unless these sources' library exists;
+    returns its path.  Each build works in a private directory and
+    renames the library into place, so concurrent builds are safe."""
     path = library_path()
     if os.path.exists(path):
         build_info.update(seconds=0.0, path=path)
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    build_info.update(seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr, path=path)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o")
+                for s in SOURCES]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)
+        ]
+        log = "".join(f"== {os.path.basename(s)}\n{p.communicate()[0]}"
+                      for s, p in zip(SOURCES, procs))
+        lib = os.path.join(tmp, "lib.so")
+        ok = all(p.returncode == 0 for p in procs)
+        if ok:
+            link = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            log += f"== link\n{link.stdout}"
+            ok = link.returncode == 0
+        if not ok:
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        os.replace(lib, path)
+    build_info.update(seconds=time.perf_counter() - t0, log=log, path=path)
     return path
 
 
@@ -103,6 +120,10 @@ def load() -> ctypes.CDLL:
             lib.emqx_compact.restype = _I
             lib.emqx_decide.argtypes = [_P] * 10 + [_I, _P, _P]
             lib.emqx_decide.restype = _I
+            lib.emqx_rules_eval.argtypes = (
+                [_P] * 8 + [_I] + [_P] * 4 + [_I] * 4 + [_P, _P]
+            )
+            lib.emqx_rules_eval.restype = _I
             _lib = lib
         return _lib
 
@@ -171,3 +192,22 @@ def decide(oa_qos, oa_nl, oa_rap, oa_subid, opts_rows, client_rows,
             *(_ptr(t) for t in cols), opts_rows.shape[0], _ptr(out), stream,
         )
     _raise_on(lib, rc, "decide")
+
+
+def rules_eval(code, a0, a1, a2, a3, litn, last, lit_ranks, num, sid, err,
+               prs, out) -> None:
+    """Launch the rules x window program (``out`` is ``[R, W]``, one
+    byte per cell)."""
+    dev = num.device
+    stream = _stream(dev)
+    lib = load()
+    n_rules, n_steps = code.shape
+    n_planes, w_n = num.shape
+    with torch.cuda.device(dev):
+        rc = lib.emqx_rules_eval(
+            _ptr(code), _ptr(a0), _ptr(a1), _ptr(a2), _ptr(a3), _ptr(litn),
+            _ptr(last), _ptr(lit_ranks), lit_ranks.shape[0], _ptr(num),
+            _ptr(sid), _ptr(err), _ptr(prs), n_rules, n_steps, n_planes,
+            w_n, _ptr(out), stream,
+        )
+    _raise_on(lib, rc, "rules_eval")

@@ -1,7 +1,8 @@
 """Batched wildcard match and per-delivery decide: wrappers, CUDA
 launches and their plain PyTorch versions.
 
-Three functions carry the publish path on the device:
+Four functions carry the publish path and the rule engine on the
+device:
 
   * `match_batch_compact` — the frontier scan of a ``[B, L]`` token
     batch through the trie automaton (`automaton.py`), with the match
@@ -11,11 +12,13 @@ Three functions carry the publish path on the device:
   * `decide_batch` — one packed decision byte per delivery: effective
     QoS (both upgrade variants), the no-local drop, retain-as-published
     and subscription-identifier presence.
+  * `rules_eval_batch` — the rule engine's stacked WHERE program over a
+    window's column planes: the ``[R, W]`` pass matrix.
 
 Each wrapper dispatches on the device of the tensors it is given: CPU
 tensors run the plain PyTorch version in this module, CUDA tensors
-launch the hand-written kernel in ``csrc/match_kernels.cu`` (built and
-bound by `_kernels.py`) or raise.  Each wrapper counts its kernel
+launch the hand-written kernel in ``csrc/match_kernels.cu`` or
+``csrc/rules_kernels.cu`` (built and bound by `_kernels.py`) or raise.  Each wrapper counts its kernel
 launches in its ``launches`` attribute.
 
 Match codes: ``node*2 + 1`` = a ``#``-terminal matched at ``node``;
@@ -43,6 +46,11 @@ from typing import List
 
 import torch
 
+from ..rules.predicate import (  # opcode space (compiler-owned)
+    MAX_STEPS, R_BAND, R_BLIT, R_BNOT, R_BOR, R_CGE, R_CGT, R_CLE, R_CLT,
+    R_EQC, R_EQSL, R_EQVL, R_EQVV, R_NADD, R_NDIV, R_NIDV, R_NLIT,
+    R_NLOAD, R_NMOD, R_NMUL, R_NNEG, R_NSUB, R_PRES,
+)
 from .automaton import BUCKET
 from .dictionary import PLUS_TOK, SENTINEL
 
@@ -245,6 +253,175 @@ def decide_batch_plain(oa_qos, oa_nl, oa_rap, oa_subid, opts_rows,
     return packed.to(torch.uint8)
 
 
+# ------------------------------------------------- rules x window eval
+#
+# Step s of each rule's row writes register s; numeric registers are
+# (value, defined) pairs, boolean registers the predicate compiler's
+# (T, F) short-circuit pairs, so the matrix equals the interpreter's
+# verdicts.  The plain version groups rows by opcode per step (indexing
+# just the rules that run that op) like the JAX package's numpy twin
+# `rules_eval_host`, in float64, and equals it bit for bit.
+
+# rule-block size: bounds the [S, R_BLOCK, W] register file (a 10k-rule
+# registry evaluates in slabs, not one 700 MB tensor)
+RULES_HOST_BLOCK = 2048
+
+
+def rules_eval_plain(code, a0, a1, a2, a3, litn, lit_ranks, last, num, sid,
+                     err, prs):
+    """Plain PyTorch version of `rules_eval_batch`: ``code``/``a0..a3``/
+    ``litn`` are ``[R, S]``, ``last`` ``[R]`` (each rule's result
+    register), ``num``/``sid``/``err``/``prs`` ``[P, W]`` column planes,
+    ``lit_ranks`` maps string-literal indices to this window's ranks.
+    Returns the ``[R, W]`` bool pass matrix."""
+    n_rules = code.shape[0]
+    if n_rules > RULES_HOST_BLOCK:
+        return torch.cat([
+            rules_eval_plain(
+                *(t[k:k + RULES_HOST_BLOCK] for t in (code, a0, a1, a2, a3,
+                                                      litn)),
+                lit_ranks, last[k:k + RULES_HOST_BLOCK], num, sid, err, prs,
+            )
+            for k in range(0, n_rules, RULES_HOST_BLOCK)
+        ])
+    r_n, s_n = code.shape
+    w = num.shape[1]
+    dev = num.device
+    code, a0, a1, a2, a3 = (t.to(torch.int64) for t in (code, a0, a1, a2,
+                                                          a3))
+    nv = torch.zeros((s_n, r_n, w), dtype=torch.float64, device=dev)
+    nd = torch.zeros((s_n, r_n, w), dtype=torch.bool, device=dev)
+    bt = torch.zeros((s_n, r_n, w), dtype=torch.bool, device=dev)
+    bf = torch.zeros((s_n, r_n, w), dtype=torch.bool, device=dev)
+    nul = ~err & ~prs  # value is null (lookup ok, nothing there)
+
+    def col(mask):
+        return mask[:, None]
+
+    def put(s, rows, t, f, neg):
+        bt[s, rows] = torch.where(neg, f, t)
+        bf[s, rows] = torch.where(neg, t, f)
+
+    for s in range(s_n):
+        oc = code[:, s]
+        for op in torch.unique(oc).tolist():
+            rows = torch.nonzero(oc == op).flatten()
+            i0, i1, i2 = a0[rows, s], a1[rows, s], a2[rows, s]
+            if op == R_NLOAD:
+                v = num[i0]
+                nv[s, rows] = v
+                nd[s, rows] = ~torch.isnan(v)
+            elif op == R_NLIT:
+                nv[s, rows] = litn[rows, s][:, None].expand(-1, w)
+                nd[s, rows] = True
+            elif op == R_NNEG:
+                nv[s, rows] = -nv[i0, rows]
+                nd[s, rows] = nd[i0, rows]
+            elif op in (R_NADD, R_NSUB, R_NMUL, R_NDIV, R_NIDV, R_NMOD):
+                lv, ld = nv[i0, rows], nd[i0, rows]
+                rv, rd = nv[i1, rows], nd[i1, rows]
+                d = ld & rd
+                if op == R_NADD:
+                    nv[s, rows], nd[s, rows] = lv + rv, d
+                elif op == R_NSUB:
+                    nv[s, rows], nd[s, rows] = lv - rv, d
+                elif op == R_NMUL:
+                    nv[s, rows], nd[s, rows] = lv * rv, d
+                elif op == R_NDIV:
+                    ok = rv != 0
+                    nv[s, rows] = torch.where(
+                        ok, lv / torch.where(ok, rv, torch.ones_like(rv)),
+                        torch.zeros_like(rv),
+                    )
+                    nd[s, rows] = d & ok
+                else:  # div / mod: trunc both, then floor-divide
+                    ta, tb = torch.trunc(lv), torch.trunc(rv)
+                    ok = tb != 0
+                    safe = torch.where(ok, tb, torch.ones_like(tb))
+                    q = torch.floor(ta / safe)
+                    nv[s, rows] = q if op == R_NIDV else ta - q * safe
+                    nd[s, rows] = d & ok
+            elif op == R_BLIT:
+                v = col(i0 == 1).expand(-1, w)
+                bt[s, rows] = v
+                bf[s, rows] = ~v
+            elif op == R_BNOT:
+                bt[s, rows] = bf[i0, rows]
+                bf[s, rows] = bt[i0, rows]
+            elif op in (R_BAND, R_BOR):
+                tl, fl = bt[i0, rows], bf[i0, rows]
+                tr, fr = bt[i1, rows], bf[i1, rows]
+                if op == R_BAND:
+                    bt[s, rows], bf[s, rows] = tl & tr, fl | (tl & fr)
+                else:
+                    bt[s, rows], bf[s, rows] = tl | (fl & tr), fl & fr
+            elif op in (R_CGT, R_CLT, R_CGE, R_CLE):
+                lv, ld = nv[i0, rows], nd[i0, rows]
+                rv, rd = nv[i1, rows], nd[i1, rows]
+                d = ld & rd
+                cmp = _ORDER[op](lv, rv)
+                t, f = d & cmp, d & ~cmp
+                i3 = a3[rows, s]
+                sv = (i2 >= 0) & (i3 >= 0)  # bare-var sides: strings
+                if bool(sv.any()):
+                    zero = torch.zeros_like(i2)
+                    sl = sid[torch.where(sv, i2, zero)]
+                    sr = sid[torch.where(sv, i3, zero)]
+                    ds = col(sv) & (sl >= 0) & (sr >= 0)
+                    cmps = _ORDER[op](sl, sr)
+                    t = t | (ds & cmps)
+                    f = f | (ds & ~cmps)
+                bt[s, rows], bf[s, rows] = t, f
+            elif op == R_EQVV:
+                lp, rp = num[i0], num[i1]
+                eqn = ~torch.isnan(lp) & ~torch.isnan(rp) & (lp == rp)
+                sl, sr = sid[i0], sid[i1]
+                eqs = (sl != -1) & (sl == sr)
+                eqz = nul[i0] & nul[i1]  # null = null is TRUE
+                e = eqn | eqs | eqz
+                ok = ~err[i0] & ~err[i1]
+                put(s, rows, e & ok, ~e & ok, col(i2 == 1))
+            elif op == R_EQVL:
+                v = num[i0]
+                e = ~torch.isnan(v) & (v == litn[rows, s][:, None])
+                ok = ~err[i0]
+                put(s, rows, e & ok, ~e & ok, col(i2 == 1))
+            elif op == R_EQSL:
+                lid = lit_ranks[i1][:, None]
+                ok = ~err[i0]
+                put(s, rows, ok & (sid[i0] == lid), ok & (sid[i0] != lid),
+                    col(i2 == 1))
+            elif op == R_EQC:
+                lv, ld = nv[i0, rows], nd[i0, rows]
+                rv, rd = nv[i1, rows], nd[i1, rows]
+                e = ld & rd & (lv == rv)
+                i3 = a3[rows, s]
+                has_ok = i3 >= 0
+                if bool(has_ok.any()):
+                    ok = torch.where(
+                        col(has_ok),
+                        ~err[torch.where(has_ok, i3, torch.zeros_like(i3))],
+                        torch.ones_like(e),
+                    )
+                else:
+                    # no simple-var side anywhere in this op group: the
+                    # plane space may be empty, so don't gather
+                    ok = torch.ones_like(e)
+                one = torch.ones_like(ld)
+                cd = torch.where(col((i2 & 2) != 0), ld, one)
+                cd = cd & torch.where(col((i2 & 4) != 0), rd, one)
+                put(s, rows, e & ok, cd & ~e & ok, col((i2 & 1) != 0))
+            elif op == R_PRES:
+                ok = ~err[i0]
+                put(s, rows, ok & prs[i0], ok & ~prs[i0], col(i2 == 1))
+    return bt[last.to(torch.int64), torch.arange(r_n, device=dev)]
+
+
+_ORDER = {
+    R_CGT: torch.gt, R_CLT: torch.lt, R_CGE: torch.ge, R_CLE: torch.le,
+}
+
+
 # ------------------------------------------------------------ checks
 
 
@@ -417,10 +594,65 @@ def decide_batch(oa_qos, oa_nl, oa_rap, oa_subid, opts_rows, client_rows,
     return out
 
 
+_RULES_PROGRAM = (
+    ("code", torch.int32), ("a0", torch.int32), ("a1", torch.int32),
+    ("a2", torch.int32), ("a3", torch.int32), ("litn", torch.float64),
+)
+_RULES_PLANES = (
+    ("num", torch.float64), ("sid", torch.int32), ("err", torch.bool),
+    ("prs", torch.bool),
+)
+
+
+def rules_eval_batch(code, a0, a1, a2, a3, litn, lit_ranks, last, num, sid,
+                     err, prs):
+    """The rules x window pass matrix, ``[R, W]`` bool: each rule's
+    stacked WHERE program (``code``/``a0..a3`` int32 and ``litn``
+    float64, ``[R, S]`` with ``S <= MAX_STEPS``; ``last`` int32 ``[R]``)
+    over the window's column planes (``num`` float64, ``sid`` int32,
+    ``err``/``prs`` bool, ``[P, W]``), with ``lit_ranks`` int32 ``[L]``.
+    Computed in float64: equal, bit for bit, to the JAX package's
+    numpy twin on every window.  Operand indices are not range-checked
+    on the card (that would cost a host sync): a program from
+    `predicate.build_stack` is in range by construction.
+
+    Replaces ``emqx_tpu/ops/match_kernel.py`` ``rules_eval_batch``."""
+    dev = num.device
+    prog = (code, a0, a1, a2, a3, litn)
+    for t, (name, dtype) in zip(prog, _RULES_PROGRAM):
+        _check(t, name, dtype, 2, dev)
+    for t, (name, dtype) in zip((num, sid, err, prs), _RULES_PLANES):
+        _check(t, name, dtype, 2, dev)
+    _check(last, "last", torch.int32, 1, dev)
+    _check(lit_ranks, "lit_ranks", torch.int32, 1, dev)
+    r, s = code.shape
+    if any(t.shape != code.shape for t in prog):
+        raise ValueError("code, a0..a3 and litn disagree on [R, S]")
+    if last.shape[0] != r:
+        raise ValueError("last disagrees with code on R")
+    if any(t.shape != num.shape for t in (sid, err, prs)):
+        raise ValueError("num, sid, err and prs disagree on [P, W]")
+    if not 1 <= s <= MAX_STEPS:
+        raise ValueError(f"programs must have 1..{MAX_STEPS} steps, got {s}")
+    if dev.type == "cpu":
+        return rules_eval_plain(code, a0, a1, a2, a3, litn, lit_ranks, last,
+                                num, sid, err, prs)
+    from . import _kernels
+
+    w = num.shape[1]
+    out = torch.empty((r, w), dtype=torch.bool, device=dev)
+    if r and w:
+        _kernels.rules_eval(code, a0, a1, a2, a3, litn, last, lit_ranks,
+                            num, sid, err, prs, out)
+        rules_eval_batch.launches += 1
+    return out
+
+
 match_batch.launches = 0
 match_batch_compact.launches = 0
 decide_batch.launches = 0
-KERNELS = (match_batch_compact, match_batch, decide_batch)
+rules_eval_batch.launches = 0
+KERNELS = (match_batch_compact, match_batch, decide_batch, rules_eval_batch)
 
 
 def reset_launches() -> None:

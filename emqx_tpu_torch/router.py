@@ -10,7 +10,9 @@ each SubOpts to a table slot, and each filter keeps an incrementally
 maintained CSR column of (client_row, opts_row) pairs.  A window's
 matched fid sets expand to flat ``(msg_idx, client_row, opts_row)``
 arrays in one pass (`expand_window`).  The SubOpts attribute columns
-(`opts_columns`) feed the decide kernel.
+(`opts_columns`) feed the decide kernel.  Rule fids
+(``("rule", rule_id, i)``, inserted straight into the engine by the
+rule engine) come back from `expand_window` grouped per message.
 
 Shared subscriptions wait for a later slice; a ``$share/`` filter is
 refused at subscribe.
@@ -235,24 +237,45 @@ class Router:
         for flt in list(self._by_client.get(clientid, ())):
             self.unsubscribe(clientid, flt)
 
+    def subscription_count(self) -> int:
+        """Total (client, filter) subscription pairs (rule fids are not
+        subscriptions and are not counted)."""
+        return sum(len(v) for v in self._subs.values())
+
     # ----------------------------------------------- window expansion
 
     def expand_window(
         self, matched: Sequence[Set]
-    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+               List[Tuple[int, List[str]]]]:
         """CSR-expand one window's matched fid sets to flat delivery
-        columns ``(msg_idx, client_rows, opts_rows)``: three aligned
-        int64 arrays covering every delivery in the window, built by one
-        concatenation over the per-filter CSR columns.  Fids with no
-        local subscribers (e.g. filters preloaded straight into the
-        engine) cost one dict miss each."""
+        columns.
+
+        Returns ``(msg_idx, client_rows, opts_rows, rules)``: three
+        aligned int64 arrays covering every delivery in the window,
+        built by one concatenation over the per-filter CSR columns, and
+        the rule fids grouped per message as ``(msg_idx, [rule_id,
+        ...])`` (RAW: unsorted, a multi-filter rule may repeat; the
+        rule engine dedups).  Fids with no local subscribers (e.g.
+        filters preloaded straight into the engine) cost one dict miss
+        each."""
         seg_rows: List[np.ndarray] = []
         seg_opts: List[np.ndarray] = []
         seg_msg: List[int] = []
         seg_len: List[int] = []
+        rules: List[Tuple[int, List[str]]] = []
         csr = self._csr
+        rule_i = -1
+        rule_ids: List[str] = []
         for i, fids in enumerate(matched):
             for fid in fids:
+                if type(fid) is tuple:  # ("rule", rule_id, i)
+                    if rule_i != i:
+                        rule_i = i
+                        rule_ids = []
+                        rules.append((i, rule_ids))
+                    rule_ids.append(fid[1])
+                    continue
                 bucket = csr.get(fid)
                 if bucket is not None and bucket.rows:
                     r, o = bucket.arrays()
@@ -261,7 +284,7 @@ class Router:
                     seg_msg.append(i)
                     seg_len.append(len(r))
         if not seg_rows:
-            return _EMPTY_I64, _EMPTY_I64, _EMPTY_I64
+            return _EMPTY_I64, _EMPTY_I64, _EMPTY_I64, rules
         if len(seg_rows) == 1:
             client_rows, opts_rows = seg_rows[0], seg_opts[0]
             msg_idx = np.full(seg_len[0], seg_msg[0], dtype=np.int64)
@@ -271,4 +294,4 @@ class Router:
             msg_idx = np.repeat(
                 np.asarray(seg_msg, dtype=np.int64), seg_len
             )
-        return msg_idx, client_rows, opts_rows
+        return msg_idx, client_rows, opts_rows, rules

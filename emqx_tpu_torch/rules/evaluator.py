@@ -1,0 +1,76 @@
+"""The rules x window evaluator: the registry's stacked WHERE program
+over one window's column planes, on one device.
+
+The broker's match engine holds one (its ``rules_evaluator``), so the
+matrix runs on the engine's device; a standalone `RuleEngine` builds
+its own.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+from ..ops.match_kernel import rules_eval_batch
+from ..state import (
+    RulesProgram, columns_from_reference, resolve_device,
+    rules_program_from_reference,
+)
+
+
+class RulesEvaluator:
+    """Evaluates `predicate.StackedRules` over `columns.WindowColumns`
+    on ``device``; the program is cached per rules rev."""
+
+    def __init__(self, device="cuda") -> None:
+        self.device = resolve_device(device)
+        # (rules rev, the stacked WHERE program on the device)
+        self._prog: Optional[Tuple[int, RulesProgram]] = None
+        self.counters = {"rules_host_windows": 0, "rules_dev_windows": 0}
+
+    def eval_window(self, stack, rev: int, cols, rows=None):
+        """``(matrix, path)``: the ``[n_rules, n_msgs]`` bool pass
+        matrix of ``stack`` (``rev``, the rule engine's mutation
+        counter) over ``cols``.
+
+        On the card the program is uploaded once per ``rev``, the planes
+        once per window, and the rules kernel evaluates every row (the
+        JAX engine's device path); ``rows``, the matrix rows whose rules
+        matched this window, is not needed there.  On the CPU the plain
+        version evaluates just ``rows`` and scatters them back, as the
+        JAX engine's host twin does.  Both compute in float64, so no
+        window needs another route."""
+        r_n, w_n = stack.n_rules, cols.n
+        dev = self.device
+        if dev.type == "cpu":
+            self.counters["rules_host_windows"] += 1
+            mat = np.zeros((r_n, w_n), bool)
+            sel = (np.arange(r_n) if rows is None
+                   else np.asarray(rows, dtype=np.int64))
+            if sel.size and w_n:
+                mat[sel] = self._eval(
+                    rules_program_from_reference(
+                        *(a[sel] for a in (stack.code, stack.a0, stack.a1,
+                                           stack.a2, stack.a3, stack.litn,
+                                           stack.last)), dev,
+                    ), cols,
+                )
+            return mat, "host"
+        self.counters["rules_dev_windows"] += 1
+        cache = self._prog
+        if cache is None or cache[0] != rev:
+            cache = self._prog = (rev, rules_program_from_reference(
+                stack.code, stack.a0, stack.a1, stack.a2, stack.a3,
+                stack.litn, stack.last, dev,
+            ))
+        return self._eval(cache[1], cols), "dev"
+
+    def _eval(self, prog: RulesProgram, cols) -> np.ndarray:
+        planes = columns_from_reference(cols.num, cols.sid, cols.err,
+                                        cols.prs, cols.lit_ranks, self.device)
+        return rules_eval_batch(
+            prog.code, prog.a0, prog.a1, prog.a2, prog.a3, prog.litn,
+            planes.lit_ranks, prog.last, planes.num, planes.sid, planes.err,
+            planes.prs,
+        ).cpu().numpy()

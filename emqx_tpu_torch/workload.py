@@ -10,10 +10,17 @@ automaton's build input arrays with numpy, for sizes where a Python
 loop over 10M filters would dominate a run.  Given a `TokenDict`
 seeded by `seed_words`, it yields exactly what
 ``encode_filters(make_filters(...))`` would.
+
+`make_rules` and `make_rule_payloads` add config 4's rule-engine half:
+SQL rules whose FROM filters cover the fleet topic families and whose
+WHERE clauses are the predicate shapes of ``bench.py``'s rules bench,
+plus arithmetic and presence checks, over JSON telemetry payloads that
+carry float32-lossy values (millisecond timestamps, 2**24 + 1).
 """
 
 from __future__ import annotations
 
+import json
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -125,3 +132,77 @@ def fleet_encoded(n_subs: int, fanout: int, tdict: TokenDict,
     mat[alert, 2] = PLUS_TOK
     mat[alert, 3] = PLUS_TOK
     return mat, blen, is_hash, pops
+
+
+# WHERE shapes: bench.py's rules bench (numeric / string / IN /
+# presence, its fixed thresholds replaced by {k}), then arithmetic
+# (div, mod, /, and +, -, * with 0.5 literals) and more presence
+# checks; {k} makes each rule's literals distinct, which defeats the
+# program dedup
+RULE_WHERE = (
+    "payload.v = {k}",
+    "payload.v > {k} AND payload.s = 'x'",
+    "payload.s IN ('q', 'z{k}')",
+    "is_null(payload.w) AND payload.v >= {k}",
+    "payload.v IN ({k}, 31)",
+    "NOT (payload.v < {k}) AND payload.s != 'y'",
+    "payload.v div 3 = {k}",
+    "payload.v mod 7 = {k} mod 7",
+    "payload.v / 4 > {k}.5",
+    "payload.v + 0.5 >= {k} AND payload.v * 0.5 - 0.5 < 20",
+    "payload.ts - timestamp < {k}",
+    "payload.big - 1 = 16777216 + {k} OR is_not_null(payload.w)",
+    "is_not_null(payload.s) AND payload.v <= {k}",
+    "-payload.v < -{k} OR payload.w = payload.v OR false",
+)
+# not lowerable: these rules take the per-rule interpreter fallback
+RULE_WHERE_FALLBACK = (
+    "regex_match(payload.s, '^[xq]')",
+    "topic LIKE 'vehicles/%/sensors/temp'",
+)
+RULE_FROM = (
+    "vehicles/+/sensors/#", "vehicles/v{j}/sensors/#", "dev/+/+/d{d}",
+    "site/+/floor/#", "alerts/#",
+)
+
+
+def make_rules(n: int, n_fallback: int = 0) -> List[Tuple[str, str]]:
+    """``[(rule_id, sql)]``: ``n`` rules over the fleet families, the
+    last ``n_fallback`` of them not lowerable."""
+    out = []
+    for i in range(n):
+        flt = RULE_FROM[i % len(RULE_FROM)].format(j=i % 50, d=i % 7)
+        if i >= n - n_fallback:
+            where = RULE_WHERE_FALLBACK[i % len(RULE_WHERE_FALLBACK)]
+        else:
+            where = RULE_WHERE[i % len(RULE_WHERE)].format(k=i % 61)
+        out.append((f"rule{i}", f'SELECT * FROM "{flt}" WHERE {where}'))
+    return out
+
+
+def make_distinct_wheres(n: int) -> List[str]:
+    """``n`` WHERE clauses, no two of which lower to one program."""
+    return [RULE_WHERE[i % len(RULE_WHERE)].format(k=i) for i in range(n)]
+
+
+def make_rule_payloads(rng: np.random.Generator, n: int,
+                       t0_ms: int = 1752000000000) -> List[bytes]:
+    """``n`` JSON telemetry payloads: a reading ``v`` (integer or
+    fractional), a status string, sometimes a warning field, a
+    millisecond timestamp and ``2**24 + 1``."""
+    v = rng.integers(0, 61, n)
+    frac = rng.random(n) < 0.3
+    s = rng.choice(np.array(["x", "y", "q", "z7"]), n)
+    w = rng.random(n) < 0.2
+    out = []
+    for i in range(n):
+        body = {
+            "v": float(v[i]) + 0.25 if frac[i] else int(v[i]),
+            "s": str(s[i]),
+            "ts": t0_ms + int(i),
+            "big": 16777217,
+        }
+        if w[i]:
+            body["w"] = int(v[i]) % 5
+        out.append(json.dumps(body).encode())
+    return out

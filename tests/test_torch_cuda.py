@@ -121,3 +121,150 @@ def test_engine_on_card_equals_host_trie(cuda):
     for t, g in zip(names, got):
         assert g == trie.match(t) | exact.get(t, set()), t
     assert mk.match_batch_compact.launches >= 1
+
+
+# ------------------------------------------------------- rules (K4)
+
+RULE_CORPUS = [
+    "payload.a > 2", "payload.a >= payload.b", "payload.a = 3",
+    "payload.s = 'x'", "payload.s != 'nowhere'", "payload.s IN ('x', 'q')",
+    "qos IN (1, 2)", "retain != 1", "is_null(payload.a)",
+    "is_not_null(payload.s) AND payload.s != 'z'",
+    "NOT (payload.a > 0) AND payload.b <= 2", "payload.m = payload.n",
+    "payload.s > payload.s2", "topic >= clientid",
+    "payload.a = 1 OR payload.missing > 1", "payload.obj = payload.obj2",
+    "payload.a + 1 >= payload.b * 2", "payload.a div payload.b = 1",
+    "payload.a mod 3 = 0", "payload.a / payload.b > 1",
+    "payload.a - 0.5 < payload.b", "-payload.a > 1",
+    "payload.a * payload.b + payload.c = 0", "payload.a + 1 = payload.b * 2",
+    "1 + 1 = 2", "true",
+]
+TRAP_PAYLOADS = [
+    # FMA contraction: numpy rounds ta - q*safe and a*b + c twice
+    b'{"a": 2633996730456453632}',
+    b'{"a": 9385959.583563903, "b": 2834748.6238531545,'
+    b' "c": -26606836013049.1}',
+    # division by zero, by a missing (NaN) value, infinities
+    b'{"a": 4, "b": 0}', b'{"a": 4}', b'{"a": Infinity, "b": Infinity}',
+    b'{"m": null}', b'{"m": "x", "n": "x"}', b'{"s": "x", "s2": 3}',
+    b'{"obj": {"k": 1}, "obj2": {"k": 1}}', b"not json",
+    b'{"a": 16777217, "b": 0.5, "s": "q"}', b'{"a": 1752000000123}',
+]
+
+
+def _rules_window(seed, n_rules, n_msgs):
+    from emqx_tpu_torch.message import Message
+    from emqx_tpu_torch.rules.columns import WindowColumns
+    from emqx_tpu_torch.rules.predicate import build_stack
+    from emqx_tpu_torch.rules.sql import parse_sql
+
+    rng = random.Random(seed)
+    stack = build_stack([
+        (str(i), parse_sql('SELECT * FROM "t" WHERE '
+                           + rng.choice(RULE_CORPUS)).where)
+        for i in range(n_rules)
+    ] + [(f"t{i}", parse_sql(f'SELECT * FROM "t" WHERE {p}').where)
+         for i, p in enumerate(RULE_CORPUS)])
+    msgs = [Message(topic=rng.choice(["t/1", "t/2", "c1"]), payload=p,
+                    qos=rng.randint(0, 2), retain=bool(k % 2),
+                    from_client=rng.choice(["c1", "t/1"]))
+            for k, p in enumerate(TRAP_PAYLOADS + [
+                b'{"a": %d, "b": %d, "s": "%s"}' % (
+                    rng.randint(-5, 5), rng.randint(0, 3),
+                    rng.choice("xyzq").encode())
+                for _ in range(n_msgs)])]
+    return stack, WindowColumns(msgs, stack.paths, stack.lit_strings)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rules,n_msgs", [(40, 100), (300, 700)])
+def test_rules_kernel_equals_plain(cuda, n_rules, n_msgs):
+    from emqx_tpu_torch.state import (
+        columns_from_reference, rules_program_from_reference,
+    )
+
+    stack, cols = _rules_window(n_rules, n_rules, n_msgs)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = rules_program_from_reference(
+            stack.code, stack.a0, stack.a1, stack.a2, stack.a3, stack.litn,
+            stack.last, dev)
+        c = columns_from_reference(cols.num, cols.sid, cols.err, cols.prs,
+                                   cols.lit_ranks, dev)
+        args = (p.code, p.a0, p.a1, p.a2, p.a3, p.litn, c.lit_ranks, p.last,
+                c.num, c.sid, c.err, c.prs)
+        out[str(dev)] = mk.rules_eval_batch(*args)
+        if dev == cuda:
+            out["plain"] = mk.rules_eval_plain(*args)
+    torch.cuda.synchronize()
+    got = out[str(cuda)]
+    assert got.dtype == torch.bool and got.device.type == "cuda"
+    assert torch.equal(out["cpu"], got.cpu())
+    assert torch.equal(out["plain"], got)
+    # the FMA rows: payload 0 passes "a mod 3 = 0", payload 1 passes
+    # "a * b + c = 0", exactly as numpy computes them
+    row = stack.row_of
+    assert bool(got[row[f"t{RULE_CORPUS.index('payload.a mod 3 = 0')}"], 0])
+    fma = RULE_CORPUS.index("payload.a * payload.b + payload.c = 0")
+    assert bool(got[row[f"t{fma}"], 1])
+
+
+@pytest.mark.cuda
+def test_rules_kernel_empty_planes_and_literals(cuda):
+    from emqx_tpu_torch.message import Message
+    from emqx_tpu_torch.rules.columns import WindowColumns
+    from emqx_tpu_torch.rules.evaluator import RulesEvaluator
+    from emqx_tpu_torch.rules.predicate import build_stack
+    from emqx_tpu_torch.rules.sql import parse_sql
+
+    stack = build_stack([(str(i), parse_sql(
+        f'SELECT * FROM "t" WHERE {p}').where) for i, p in enumerate(
+            ["true", "1 + 1 = 2", "2 > 3"])])
+    cols = WindowColumns([Message(topic="t")] * 3, stack.paths,
+                         stack.lit_strings)
+    mat, path = RulesEvaluator().eval_window(stack, 1, cols)
+    assert path == "dev" and mat.tolist() == [[True] * 3] * 2 + [[False] * 3]
+
+
+@pytest.mark.cuda
+def test_rules_broker_on_card_equals_scalar_referee(cuda):
+    from emqx_tpu_torch.broker.broker import Broker
+    from emqx_tpu_torch.message import Message
+    from emqx_tpu_torch.rules.engine import FunctionAction
+
+    rng = random.Random(5)
+    # the interpreter raises ZeroDivisionError (out of eval_where) on
+    # div by a value in (-1, 1), so the referee's registry has no
+    # "a div b"
+    rules = [(f"r{i}", f'SELECT * FROM "t/#" WHERE {p}')
+             for i, p in enumerate(RULE_CORPUS) if " div " not in p] + [
+        ("rx", "SELECT * FROM \"t/#\" WHERE regex_match(payload.s, 'x')")]
+    # the interpreter raises OverflowError (out of eval_where) on
+    # div/mod of an infinity, and takes mod of integers past 2**53
+    # exactly where the float64 lanes cannot: the referee's windows
+    # carry neither
+    finite = [p for p in TRAP_PAYLOADS
+              if b"Infinity" not in p and b"2633996730456453632" not in p]
+    wins = [[(f"t/{rng.randint(0, 3)}", rng.choice(finite))
+             for _ in range(rng.randint(1, 30))] for _ in range(6)]
+    out = []
+    for scalar in (False, True):
+        b = Broker()
+        b.rules.eval_force = "scalar" if scalar else None
+        fired = []
+        for rid, sql in rules:
+            b.rules.add_rule(rid, sql, actions=[FunctionAction(
+                lambda s, m, rid=rid: fired.append((rid, m.payload)))])
+        mk.reset_launches()
+        for k, w in enumerate(wins):
+            if k == 3:  # churn: the device program re-keys on rules_rev
+                b.rules.enable_rule("r0", False)
+            b.publish_many([Message(topic=t, payload=p, mid=bytes(16),
+                                    timestamp=1.0) for t, p in w])
+        out.append((fired, {r: (x.matched, x.passed, x.failed)
+                            for r, x in b.rules.rules.items()}))
+        if not scalar:
+            assert mk.rules_eval_batch.launches == len(wins)
+            ev = b.router.engine.rules_evaluator
+            assert ev._prog[0] == b.rules.rules_rev
+    assert out[0] == out[1]

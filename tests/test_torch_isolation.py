@@ -22,6 +22,15 @@ import emqx_tpu_torch.broker.channel
 import emqx_tpu_torch.broker.listener
 import emqx_tpu_torch.ops.match_kernel
 import emqx_tpu_torch.ops._kernels
+import emqx_tpu_torch.rules
+import emqx_tpu_torch.rules.columns
+import emqx_tpu_torch.rules.engine
+import emqx_tpu_torch.rules.evaluator
+import emqx_tpu_torch.rules.funcs
+import emqx_tpu_torch.rules.predicate
+import emqx_tpu_torch.rules.runtime
+import emqx_tpu_torch.rules.select
+import emqx_tpu_torch.rules.sql
 bad = sorted(
     n for n in sys.modules
     if n == "jax" or n.startswith("jax.")
@@ -48,11 +57,23 @@ def test_default_device_raises_without_cuda():
         pytest.skip("a CUDA device is present")
     from emqx_tpu_torch.broker.broker import Broker
     from emqx_tpu_torch.engine import MatchEngine
+    from emqx_tpu_torch.rules.engine import RuleEngine
+    from emqx_tpu_torch.state import rules_program_from_reference
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         MatchEngine()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Broker()
+    code = torch.full((1, 1), 10, dtype=torch.int32).numpy()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rules_program_from_reference(code, code, code, code, code,
+                                     code.astype("float64"), [0], "cuda")
+    eng = RuleEngine()  # standalone: the matrix runs on the card
+    eng.add_rule("r", 'SELECT * FROM "t" WHERE payload.v > 1')
+    from emqx_tpu_torch.message import Message
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        eng.apply_batch([(Message(topic="t", payload=b'{"v": 2}'), ["r"])])
 
 
 def test_cli_default_device_fails_without_cuda():
