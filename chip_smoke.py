@@ -8,21 +8,32 @@ the hand-written kernels from ``emqx_tpu_torch/ops/csrc``, holds each
 one against its plain PyTorch version at the real sizes (10M wildcard
 subscriptions, publish windows of 32,768 topics; rule registries of 100
 and 10,000 programs over windows of 4,096 messages), times them, drives
-the match engine with 1M subscriptions, and drives the broker — over
-TCP, as a user would — with 1M background subscriptions: first the
-publish path, then the publish path with config 4's 100 rules, whose
-kernel launches it counts.  Phases:
+the match engine with 1M subscriptions, the sharded match engine with
+the same subscriptions split over 4 shards of one card, and the broker
+— over TCP, as a user would — with 1M background subscriptions: first
+the publish path, then the publish path with config 4's 100 rules,
+whose kernel launches it counts.  Phases:
 
-  device        the card's name and power limit (nvidia-smi)
-  build         nvcc of the kernel sources, with its seconds
-  kernel_parity K1/K2/K3 against their plain versions, exactly
-  kernel_times  CUDA-event times, plain times, bytes and bounds
-  rules kernel  K4 against its plain version, exactly, and its times
-  engine        MatchEngine on the card vs the host trie, 1M filters
-  broker        CLI round trip, then the in-process broker under load
-  rules broker  the broker with 100 rules under load, against a second
-                broker pinned to the scalar interpreter referee
-  kernels       one JSON line per kernel (launches from the broker runs)
+  device          the card's name and power limit (nvidia-smi)
+  build           nvcc of the kernel sources, with its seconds
+  kernel_parity   K1/K2/K3 against their plain versions, exactly
+  kernel_times    CUDA-event times, plain times, bytes and bounds
+  sharded kernel  K5 on the 10M filters split over 4 shards against its
+                  plain version, exactly, and its union of fids per
+                  topic against K1's on the unsharded table; times
+  rules kernel    K4 against its plain version, exactly, and its times
+  predicate kernel  K6 for each of config 4's rules that compiles, over
+                  4,096 messages, against its plain version and the
+                  rule interpreter (`eval_where`), exactly; times
+  engine          MatchEngine on the card vs the host trie, 1M filters
+  sharded engine  ShardedMatchEngine on a one-card 4-shard mesh vs the
+                  host trie, 1M filters, before and after churn and a
+                  rebuild (and on a 2-card mesh where there are two)
+  broker          CLI round trip, then the in-process broker under load
+  rules broker    the broker with 100 rules under load, against a second
+                  broker pinned to the scalar interpreter referee
+  kernels         one JSON line per kernel (launches from the runs of
+                  each kernel's path)
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.  Without CUDA, or without the package beside this
@@ -45,13 +56,19 @@ FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor rate, proxy for int32 ALU
 FP64_OPS_PER_S = 34e12  # H100 SXM non-tensor float64 (data sheet)
 MATCH_SOURCE = "emqx_tpu_torch/ops/csrc/match_kernels.cu"
 RULES_SOURCE = "emqx_tpu_torch/ops/csrc/rules_kernels.cu"
+PRED_SOURCE = "emqx_tpu_torch/ops/csrc/predicate_kernels.cu"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "match_batch_compact": (MATCH_SOURCE,
                             "emqx_tpu/ops/match_kernel.py:190"),
     "match_batch": (MATCH_SOURCE, "emqx_tpu/ops/match_kernel.py:159"),
     "decide_batch": (MATCH_SOURCE, "emqx_tpu/ops/match_kernel.py:270"),
     "rules_eval_batch": (RULES_SOURCE, "emqx_tpu/ops/match_kernel.py:502"),
+    # the wrapper is ops.match_kernel.sharded_match_local
+    "sharded_match": (MATCH_SOURCE, "emqx_tpu/parallel/sharded.py:180"),
+    "predicate_eval_batch": (PRED_SOURCE,
+                             "emqx_tpu/rules/predicate.py:106"),
 }
+N_SHARDS = 4  # the sharded phases: sub = 4 on one card
 N_FILTERS = 10_000_000
 BATCH = 32_768
 SHAPES = ((4, 16), (16, 128))  # (f_width, m_cap): bench, broker
@@ -245,7 +262,7 @@ def build_tables(n_filters: int):
           f"{len(aut.fp_rows)} buckets, {mb:.1f} MiB on the card, salt "
           f"{aut.salt}, levels {aut.kernel_levels}, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return tab, tok, ln, dol
+    return tab, tok, ln, dol, (mat, blen, ish)
 
 
 def match_bytes(tab, batch, f_width, c_cap=None, m_cap=None):
@@ -289,7 +306,7 @@ def phase_kernels(results):
     from emqx_tpu_torch.ops import match_kernel as mk
 
     phase("kernel_parity")
-    tab, tok, ln, dol = build_tables(N_FILTERS)
+    tab, tok, ln, dol, enc = build_tables(N_FILTERS)
     batch = tuple(torch.from_numpy(a).cuda() for a in (tok, ln, dol))
     args = (tab.fp_rows, tab.node_rows, tab.salt, *batch)
     timing = {}
@@ -314,6 +331,19 @@ def phase_kernels(results):
             if c_cap == BATCH // 8 and total <= c_cap:
                 fail("the forced clip did not clip")
         timing[(f, m)] = ovf
+    # K1's fid set per topic at the broker's shape: what the sharded
+    # match must reproduce from its shards (the fid is the position)
+    from emqx_tpu_torch.ops.automaton import expand_codes_flat
+
+    flat, counts16, total = mk.match_batch_compact(
+        *args, f_width=16, m_cap=128, c_cap=8 * BATCH)
+    if int(total.item()) > 8 * BATCH:
+        fail("K1's codes do not fit 8 x B")
+    counts = counts16.cpu().numpy().astype(np.int64)
+    k1_ovf = counts < 0
+    k1_rows, k1_fids = expand_codes_flat(
+        tab.code_off, tab.code_idx, flat.cpu().numpy(),
+        np.where(k1_ovf, -counts - 1, counts), np.arange(BATCH))
 
     rng = np.random.default_rng(1)
     r, b = 1 << 16, 4096
@@ -395,6 +425,136 @@ def phase_kernels(results):
         ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by)
     del tab, batch, args, dec
+    torch.cuda.empty_cache()
+    return enc, (tok, ln, dol), (k1_rows, k1_fids, k1_ovf)
+
+
+def sharded_bytes(fp_rows, node_rows, salts, batch, f_width, m_cap):
+    """Bytes K5 must move for this batch: the tokens, lengths and dollar
+    flags once, each shard's salt and the distinct bucket and node rows
+    its scan touches, and each output once (codes, counts, overflow
+    flags per shard, the total); operations: ~64 integer ones per live
+    lane-level (as `match_bytes`) and one atomic add per row and shard."""
+    import torch
+
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    tok, ln, dol = batch
+    k = fp_rows.shape[0]
+    b, levels = tok.shape
+    n_bytes = b * levels * 4 + b * 4 + b + k * 4
+    lanes = 0
+    for j, salt in enumerate(salts.cpu().to(torch.int64).tolist()):
+        touched = ([], [])
+        mk._match_core(fp_rows[j], node_rows[j], salt, tok, ln, dol,
+                       f_width, touched)
+        buckets = torch.unique(torch.cat(touched[0])).numel()
+        nodes = torch.unique(torch.cat(touched[1]).clamp(
+            0, node_rows.shape[1] - 1)).numel() + 1  # + the root row
+        n_bytes += buckets * 64 + nodes * 32
+        lanes += sum(t.numel() for t in touched[0])
+    n_bytes += k * b * (m_cap * 4 + 4 + 1) + b * 4
+    return n_bytes, lanes * 64 + k * b, lanes
+
+
+def phase_sharded_kernel(results, enc, batch_np, k1) -> None:
+    """K5 on config 4's 10M filters split by `shard_of` into N_SHARDS
+    shards of one card, against its plain version, and its union of
+    fids per topic against K1's on the unsharded table."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.ops import _kernels
+    from emqx_tpu_torch.ops import match_kernel as mk
+    from emqx_tpu_torch.ops.automaton import expand_codes_host
+    from emqx_tpu_torch.parallel.sharded import (
+        assemble_sharded, make_mesh, shard_of, sharded_match,
+    )
+    from emqx_tpu_torch.state import sharded_tables_from_reference
+
+    phase("sharded kernel")
+    card = results["card"]
+    mat, blen, ish = enc
+    t0 = time.perf_counter()
+    fids = np.arange(N_FILTERS)
+    if any(shard_of(int(f), N_SHARDS) != f % N_SHARDS for f in fids[:1000]):
+        fail("shard_of of an int fid is not fid % shards")
+    parts = [fids[fids % N_SHARDS == k] for k in range(N_SHARDS)]
+    index = assemble_sharded([(mat[p], blen[p], ish[p], p) for p in parts],
+                             max_levels=16)
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * N_SHARDS,
+                     sub=N_SHARDS)
+    placed = sharded_tables_from_reference(*index.tables, mesh)
+    tok, ln, dol = batch_np
+    if index.kernel_levels != tok.shape[1]:
+        fail(f"shards scan {index.kernel_levels} levels, the unsharded "
+             f"table {tok.shape[1]}")
+    mb = sum(t.nbytes for t in index.tables[:2]) / 2**20
+    print(f"sharded tables: {N_FILTERS} filters over {N_SHARDS} shards of "
+          f"one card ({[len(p) for p in parts]} filters, "
+          f"{[a.n_nodes for a in index.shards]} nodes, common geometry "
+          f"{index.tables[0].shape[1]} buckets x {index.tables[1].shape[1]} "
+          f"node rows, {mb:.1f} MiB), built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    (key,) = placed.fp_rows
+    tabs = (placed.fp_rows[key], placed.node_rows[key], placed.salts[key])
+    batch = tuple(torch.from_numpy(a).cuda() for a in batch_np)
+    f, m = SHAPES[1]
+    got = mk.sharded_match_local(*tabs, *batch, f_width=f, m_cap=m)
+    want = mk.sharded_match_plain(*tabs, *batch, f_width=f, m_cap=m)
+    torch.cuda.synchronize()
+    exact_equal(f"sharded_match K={N_SHARDS} F={f} M={m}", got, want)
+    entry = sharded_match(mesh, *placed, tok, ln, dol, f_width=f, m_cap=m)
+    exact_equal("sharded_match entry point", entry, got)
+    # the sharding itself: per topic, the union of the shards' fids
+    # equals K1's on the unsharded table (rows either flags excepted)
+    codes, _, ovf, total = (t.cpu().numpy() for t in got)
+    k1_rows, k1_fids, k1_ovf = k1
+    skip = k1_ovf | ovf.any(axis=0)
+    pairs = []
+    for k, (aut, p) in enumerate(zip(index.shards, parts)):
+        r, pos = expand_codes_host(aut.code_off, aut.code_idx, codes[k])
+        pairs.append(r * N_FILTERS + p[pos])
+    k5 = np.sort(np.concatenate(pairs))
+    k5 = k5[~skip[k5 // N_FILTERS]]
+    k1s = np.sort(k1_rows * N_FILTERS + k1_fids)
+    k1s = k1s[~skip[k1s // N_FILTERS]]
+    if not np.array_equal(k5, k1s):
+        fail(f"sharded fid sets differ from K1's ({k5.size} vs {k1s.size} "
+             f"pairs)")
+    print(f"parity sharded K={N_SHARDS} F={f} M={m} B={BATCH}: K5 equals its "
+          f"plain version and the entry point; per topic the union of the "
+          f"shards' fids equals K1's on the unsharded table ({k5.size} "
+          f"(topic, fid) pairs; {int(skip.sum())} overflow rows skipped); "
+          f"total codes {int(total.sum())}", flush=True)
+
+    b = BATCH
+    codes_b = torch.empty((N_SHARDS, b, m), dtype=torch.int32, device="cuda")
+    counts_b = torch.empty((N_SHARDS, b), dtype=torch.int32, device="cuda")
+    ovf_b = torch.empty((N_SHARDS, b), dtype=torch.bool, device="cuda")
+    total_b = torch.empty(b, dtype=torch.int32, device="cuda")
+
+    def bare():
+        total_b.zero_()
+        _kernels.sharded_match_rows(*tabs, *batch, f, m, codes_b, counts_b,
+                                    ovf_b, total_b)
+
+    ms = cuda_ms(bare, 50, 10)
+    wrap_ms = cuda_ms(lambda: mk.sharded_match_local(
+        *tabs, *batch, f_width=f, m_cap=m), 50, 10)
+    plain_ms = cuda_ms(lambda: mk.sharded_match_plain(
+        *tabs, *batch, f_width=f, m_cap=m), 3, 1)
+    n_bytes, ops, lanes = sharded_bytes(*tabs, batch, f, m)
+    b_ms, b_by = bound(n_bytes, ops)
+    print(f"time sharded_match K={N_SHARDS} F={f} M={m} B={b}: kernel "
+          f"{ms:.4f} ms (with its total zeroed; wrapper {wrap_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
+          f"({n_bytes} B; {lanes} live lane-levels; {ops} ops), no library "
+          f"call [{card}]", flush=True)
+    results["kernels"]["sharded_match"] = dict(
+        ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by)
+    del placed, tabs, batch, got, want, entry
     torch.cuda.empty_cache()
 
 
@@ -542,6 +702,206 @@ def phase_rules_kernel(results):
             results["kernels"]["rules_eval_batch"] = row
         del prog, pl, args, got, want, out
         torch.cuda.empty_cache()
+
+
+PRED_OPS = {  # K6 opcode -> (float64 ops, int32 ops) per message
+    "P_NLOAD": (1, 0), "P_NNEG": (1, 0), "P_NADD": (1, 0),
+    "P_NSUB": (1, 0), "P_NMUL": (1, 0),
+    "P_NDIV": (2, 0),  # zero test, divide
+    "P_NIDV": (5, 0),  # zero test, 2 truncs, divide, floor
+    "P_NMOD": (7, 0),  # div's 5, multiply, subtract
+    "P_BNOT": (0, 1), "P_BAND": (0, 2), "P_BOR": (0, 2),
+    "P_CGT": (1, 0), "P_CLT": (1, 0), "P_CGE": (1, 0), "P_CLE": (1, 0),
+    "P_EQN": (1, 2),  # equal; error lanes, id lanes
+    "P_EQS": (0, 2),  # error lane, id equal
+}
+
+
+def predicate_work(code, n_vars, n_lits, w):
+    """What K6 must do for one rule over ``w`` messages: the bytes it
+    must move (the program, the var lanes, the literal ids and the
+    verdicts, each once) and its float64 and int32 operations (loads
+    and literals count as bytes only)."""
+    from emqx_tpu_torch.rules import predicate as P
+
+    n_bytes = (code.steps.nbytes + code.lit.nbytes + n_vars * w * (8 + 4 + 1)
+               + n_lits * 4 + w)
+    per_op = {getattr(P, k): v for k, v in PRED_OPS.items()}
+    fp = it = 0
+    for op in code.steps[:, 0].tolist():
+        f, i = per_op.get(op, (0, 0))
+        fp, it = fp + f * w, it + i * w
+    return n_bytes, fp, it
+
+
+def phase_predicate_kernel(results) -> None:
+    """K6, one launch per rule: every rule of config 4's 100 that
+    `compile_where` accepts, over one window of RULES_W JSON telemetry
+    messages (millisecond timestamps and 2**24 + 1 among the values)."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch import workload as W
+    from emqx_tpu_torch.message import Message
+    from emqx_tpu_torch.ops import _kernels
+    from emqx_tpu_torch.ops import match_kernel as mk
+    from emqx_tpu_torch.rules import predicate as P
+    from emqx_tpu_torch.rules.runtime import build_env, eval_where
+    from emqx_tpu_torch.rules.sql import parse_sql
+    from emqx_tpu_torch.state import (
+        predicate_columns_from_reference, predicate_program_from_code,
+    )
+
+    phase("predicate kernel")
+    card = results["card"]
+    t0 = time.perf_counter()
+    progs = [(rid, P.compile_where(parse_sql(q).where))
+             for rid, q in W.make_rules(RULES_SIZES[0])]
+    progs = [(rid, p) for rid, p in progs if p is not None]
+    rng = np.random.default_rng(5)
+    pops = W.populations(1_000_000, 8)
+    envs = [build_env(Message(topic=t, payload=p, qos=1,
+                              from_client=f"pub{k % 4}",
+                              timestamp=1752000000.0 + k / 1000))
+            for k, (t, p) in enumerate(zip(
+                W.make_topics(rng, RULES_W, pops),
+                W.make_rule_payloads(rng, RULES_W)))]
+    built = time.perf_counter() - t0
+    mk.reset_launches()  # counts of the K6 path start here
+    t0 = time.perf_counter()
+    got = {rid: p.eval_batch(envs, device="cuda") for rid, p in progs}
+    wall = time.perf_counter() - t0
+    launches = mk.launches()["predicate_eval_batch"]
+    results["launches"]["predicate_eval_batch"] = launches
+    if launches != len(progs):
+        fail(f"predicate kernel: {launches} launches for {len(progs)} rules")
+    longest, n_pass, ops = None, 0, set()
+    for rid, p in progs:
+        if not np.array_equal(got[rid], [eval_where(p.where, e)
+                                         for e in envs]):
+            fail(f"predicate kernel: {rid} differs from the interpreter")
+        cols, sdict = p.extract_columns(envs)
+        lit_ids = P._literal_ids(p.where, sdict)
+        pc = predicate_columns_from_reference(cols, lit_ids, "cuda")
+        code = P.lower_predicate(p.where, p.var_paths)
+        dc = predicate_program_from_code(code, "cuda")
+        args = (dc.steps, dc.lit, dc.result, pc.num, pc.sid, pc.err,
+                pc.lit_ids)
+        exact_equal(f"predicate_eval_batch {rid}",
+                    (mk.predicate_eval_batch(*args),),
+                    (mk.predicate_eval_plain(*args),))
+        n_pass += int(got[rid].sum())
+        ops |= set(code.steps[:, 0].tolist())
+        if longest is None or len(code.steps) > len(longest[1].steps):
+            longest = (rid, code, cols, lit_ids, args)
+    print(f"parity predicate: {len(progs)} of {RULES_SIZES[0]} rules compile; "
+          f"K6 equals its plain version and the interpreter for each "
+          f"over W={RULES_W} ({n_pass} passes; opcodes {sorted(ops)}; "
+          f"window built in {built:.1f} s; the {len(progs)} device "
+          f"evaluations took {wall:.3f} s with column extraction)",
+          flush=True)
+    rid, code, cols, lit_ids, args = longest
+    out = torch.empty(RULES_W, dtype=torch.bool, device="cuda")
+    ms = cuda_ms(lambda: _kernels.predicate_eval(*args, out), 50, 5)
+
+    def wrapper():
+        pc = predicate_columns_from_reference(cols, lit_ids, "cuda")
+        return mk.predicate_eval_batch(
+            *args[:3], pc.num, pc.sid, pc.err, pc.lit_ids).cpu().numpy()
+
+    wrap_ms = host_ms(wrapper, 20, 3)
+    plain_ms = cuda_ms(lambda: mk.predicate_eval_plain(*args), 5, 1)
+    n_bytes, fp_ops, int_ops = predicate_work(
+        code, len(code.names), len(code.lits), RULES_W)
+    b_ms, b_by = max(bound(n_bytes, fp_ops, FP64_OPS_PER_S),
+                     bound(n_bytes, int_ops, FP32_OPS_PER_S))
+    print(f"time predicate_eval_batch {rid} S={len(code.steps)} "
+          f"V={len(code.names)} W={RULES_W}: kernel {ms:.4f} ms, wrapper "
+          f"(columns up, kernel, verdicts down) {wrap_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({n_bytes} B; "
+          f"{fp_ops} float64 and {int_ops} int32 ops), no library call "
+          f"[{card}]", flush=True)
+    results["kernels"]["predicate_eval_batch"] = dict(
+        ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by)
+
+
+def sharded_engine_run(mesh, filters, pops, label):
+    """A ShardedMatchEngine on ``mesh`` with ``filters``: 20 windows of
+    4,096 Zipf topics, churn (one insert, 2,048 insert_many, two
+    deletes), a rebuild; every window against the host trie."""
+    import numpy as np
+
+    from emqx_tpu_torch import topic as T
+    from emqx_tpu_torch import workload as W
+    from emqx_tpu_torch.ops import match_kernel as mk
+    from emqx_tpu_torch.parallel.sharded import ShardedMatchEngine
+
+    eng = ShardedMatchEngine(mesh, rebuild_threshold=10**9)
+    t0 = time.perf_counter()
+    eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    eng.rebuild()
+    idx = eng.index
+    print(f"{label}: {len(filters)} filters over mesh {mesh.shape} "
+          f"({[len(a.filters) for a in idx.shards]} per shard, "
+          f"{idx.tables[0].shape[1]} buckets x {idx.tables[1].shape[1]} "
+          f"node rows each) inserted and built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(4)
+    windows = [W.make_topics(rng, 4096, pops) for _ in range(20)]
+    churn_topics = ([f"churn/{i % 101}/x/c{i}" for i in range(0, 2048, 4)]
+                    + ["no/x/here", "no/here"] + windows[0][:1024])
+
+    def check(wins, what):
+        t = time.perf_counter()
+        res = [eng.match_batch(w) for w in wins]
+        wall = time.perf_counter() - t
+        bad = sum(got != eng.match_host(T.words(topic))
+                  for w, r in zip(wins, res) for topic, got in zip(w, r))
+        if bad:
+            fail(f"{label}: {bad} topics differ from the host trie {what}")
+        return wall, sum(len(w) for w in wins)
+
+    mk.reset_launches()  # counts of the sharded path start here
+    wall, n = check(windows, "before churn")
+    eng.insert("no/+/here", 9_000_001)
+    eng.insert_many([(f"churn/{i % 101}/+/c{i}", 9_100_000 + i)
+                     for i in range(2048)])
+    eng.delete(filters[0][0])
+    eng.delete(filters[7][0])
+    check([churn_topics] + windows[:2], "after churn")
+    eng.rebuild()
+    check([churn_topics] + windows[:2], "after the rebuild")
+    launches = mk.launches()["sharded_match_local"]
+    if launches < 1:
+        fail(f"{label}: the sharded kernel never launched")
+    c = eng.counters
+    print(f"{label}: 20 windows x 4096 topics, then churn (1 insert, 2,048 "
+          f"insert_many, 2 deletes) and a rebuild, equal the host trie; "
+          f"K5 launches {launches} (one per window and device); overflow rows "
+          f"{c['ovf_rows']} of {c['rows']}; {n / wall:.0f} topics/s "
+          f"match_batch end to end before churn (sequential windows)",
+          flush=True)
+    return launches
+
+
+def phase_sharded_engine(results, filters) -> None:
+    import torch
+
+    from emqx_tpu_torch import workload as W
+    from emqx_tpu_torch.parallel.sharded import make_mesh
+
+    phase("sharded engine")
+    pops = W.populations(len(filters), 8)
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * N_SHARDS,
+                     sub=N_SHARDS)
+    results["launches"]["sharded_match"] = sharded_engine_run(
+        mesh, filters, pops, "sharded engine")
+    if torch.cuda.device_count() >= 2:
+        sharded_engine_run(make_mesh(2, sub=2), filters, pops,
+                           "sharded engine, 2 cards")
+    else:
+        print("multi-card: skipped, 1 card", flush=True)
 
 
 def phase_engine(filters):
@@ -758,7 +1118,9 @@ async def broker_load(results, filters) -> None:
         ), 600)
         wall = time.perf_counter() - t0
         launches = mk.launches()
-        results["launches"] = launches
+        results["launches"].update(
+            (k, launches[k]) for k in ("match_batch_compact", "match_batch",
+                                       "decide_batch"))
         for j in range(len(subs)):
             if len(seen[j]) != expected:
                 fail(f"sub{j} got {len(seen[j])} of {expected}")
@@ -1016,12 +1378,16 @@ def main() -> None:
     results = {"kernels": {}, "launches": {}, "rules_sizes": {}}
     results["card"] = phase_device()
     phase_build()
-    phase_kernels(results)
+    enc, batch_np, k1 = phase_kernels(results)
+    phase_sharded_kernel(results, enc, batch_np, k1)
+    del enc, batch_np, k1
     phase_rules_kernel(results)
+    phase_predicate_kernel(results)
     from emqx_tpu_torch import workload as W
 
     filters, _pops = W.make_filters(1_000_000, 8)
     phase_engine(filters)
+    phase_sharded_engine(results, filters)
     phase_broker(results, filters)
 
     phase("kernels")

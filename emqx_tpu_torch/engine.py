@@ -238,19 +238,23 @@ class MatchEngine:
                 (fid, ws) for fid, ws in self._wild.filters()
                 if fid not in self._deep
             ]
-            aut = build_automaton(filters, self._tdict,
-                                  max_levels=self.max_levels)
-            _pad_nodes_pow2(aut)
-            self._tables = tables_from_reference(
-                aut.fp_rows, aut.node_rows, aut.salt, aut.code_off,
-                aut.code_idx, self.device,
-            )
-            self._fid_arr = make_fid_arr([fid for fid, _ in filters])
-            self._aut = aut
+            self._aut, self._tables, self._fid_arr = self._build(filters)
             self._delta = {}
             self._watermark = self._wild.last_seq()
             self._deleted_base = set()
             self.counters["rebuilds"] += 1
+
+    def _build(self, filters):
+        """``(automaton, device tables, position -> fid)`` for the
+        wildcard ``filters``."""
+        aut = build_automaton(filters, self._tdict,
+                              max_levels=self.max_levels)
+        _pad_nodes_pow2(aut)
+        tables = tables_from_reference(
+            aut.fp_rows, aut.node_rows, aut.salt, aut.code_off,
+            aut.code_idx, self.device,
+        )
+        return aut, tables, make_fid_arr([fid for fid, _ in filters])
 
     # --------------------------------------------------------------- match
 
@@ -270,20 +274,10 @@ class MatchEngine:
         """Phase 1: tokenize the window, dedup it, and launch the
         compact match kernel without waiting for its results."""
         words = [T.words(t) for t in topics]
-        with self._mlock:
-            snap = (
-                self._aut, self._tables, self._fid_arr,
-                _ResidualView(self._wild, self._watermark), self._deep,
-                self._deleted_base,
-            )
+        snap = self._snapshot()
         aut, tables = snap[0], snap[1]
         if aut is None or aut.n_nodes <= 1:
-            out = []
-            for ws in words:
-                with self._mlock:
-                    out.append(self.match_host(ws))
-            self.counters["host_windows"] += 1
-            return ("host", out)
+            return ("host", self._match_host_window(words))
         # publish windows are Zipf-heavy: match each distinct topic once
         index: Dict[T.Words, int] = {}
         inv = np.fromiter(
@@ -306,6 +300,24 @@ class MatchEngine:
         )
         return ("dev", snap, topics, words,
                 (flat, counts, total, enc, len(index), inv))
+
+    def _snapshot(self):
+        """What one window matches against: the built automaton, its
+        tables and fids, and the host tiers as of now."""
+        with self._mlock:
+            return (
+                self._aut, self._tables, self._fid_arr,
+                _ResidualView(self._wild, self._watermark), self._deep,
+                self._deleted_base,
+            )
+
+    def _match_host_window(self, words) -> List[Set[Hashable]]:
+        out = []
+        for ws in words:
+            with self._mlock:
+                out.append(self.match_host(ws))
+        self.counters["host_windows"] += 1
+        return out
 
     def match_batch_finish(self, pending) -> List[Set[Hashable]]:
         """Phase 2: wait for the kernel, expand codes to filters on the

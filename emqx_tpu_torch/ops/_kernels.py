@@ -124,6 +124,15 @@ def load() -> ctypes.CDLL:
                 [_P] * 8 + [_I] + [_P] * 4 + [_I] * 4 + [_P, _P]
             )
             lib.emqx_rules_eval.restype = _I
+            lib.emqx_sharded_match_rows.argtypes = [
+                _P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                _P, _P, _P,
+            ]
+            lib.emqx_sharded_match_rows.restype = _I
+            lib.emqx_predicate_eval.argtypes = [
+                _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P,
+            ]
+            lib.emqx_predicate_eval.restype = _I
             _lib = lib
         return _lib
 
@@ -211,3 +220,42 @@ def rules_eval(code, a0, a1, a2, a3, litn, last, lit_ranks, num, sid, err,
             w_n, _ptr(out), stream,
         )
     _raise_on(lib, rc, "rules_eval")
+
+
+def sharded_match_rows(fp_rows, node_rows, salts, tokens, lengths, dollar,
+                       f_width, m_cap, codes, counts, ovf, total) -> None:
+    """Launch the sharded frontier scan: a (row, shard) grid over the
+    stacked tables, dense codes per shard, and the count total summed
+    into ``total`` (which the caller zeroed)."""
+    dev = tokens.device
+    stream = _stream(dev)
+    for name, t in (("fp_rows", fp_rows), ("node_rows", node_rows)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    lib = load()
+    k, nb, _ = fp_rows.shape
+    b, levels = tokens.shape
+    with torch.cuda.device(dev):
+        rc = lib.emqx_sharded_match_rows(
+            _ptr(fp_rows), nb, _ptr(node_rows), node_rows.shape[1],
+            _ptr(salts), k, _ptr(tokens), _ptr(lengths), _ptr(dollar), b,
+            levels, f_width, m_cap, _ptr(codes), _ptr(counts), _ptr(ovf),
+            _ptr(total), stream,
+        )
+    _raise_on(lib, rc, "sharded_match_rows")
+
+
+def predicate_eval(steps, lit, result, num, sid, err, lit_ids, out) -> None:
+    """Launch one rule's predicate program over a batch (``out`` is
+    ``[W]``, one byte per message)."""
+    dev = num.device
+    stream = _stream(dev)
+    lib = load()
+    n_vars, w_n = num.shape
+    with torch.cuda.device(dev):
+        rc = lib.emqx_predicate_eval(
+            _ptr(steps), _ptr(lit), steps.shape[0], result, _ptr(num),
+            _ptr(sid), _ptr(err), n_vars, _ptr(lit_ids), lit_ids.shape[0],
+            w_n, _ptr(out), stream,
+        )
+    _raise_on(lib, rc, "predicate_eval")

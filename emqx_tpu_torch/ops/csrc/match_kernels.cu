@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the broker's publish path:
-// the trie-automaton frontier scan (dense and compact outputs) and the
-// per-delivery decide pass.  Plain C entry points, bound with ctypes by
+// the trie-automaton frontier scan (dense, compact and sharded outputs)
+// and the per-delivery decide pass.  Plain C entry points, bound with ctypes by
 // emqx_tpu_torch/ops/_kernels.py; every launch goes on the caller's
 // stream and each entry point returns cudaGetLastError().
 //
@@ -14,6 +14,10 @@
 //                                clipped counts, scatter into flat,
 //                                int16 counts, total)
 //   decide_kernel                :270 decide_batch
+//   sharded_match_rows_kernel    emqx_tpu/parallel/sharded.py:176-230
+//                                sharded_match: the shard_map of
+//                                match_batch over the (sub, pub) mesh
+//                                and its psum of counts over sub
 //
 // What bounds them on this card.  The match scan is bound by random
 // gathers: per live frontier lane per level one 64 B bucket row
@@ -26,6 +30,15 @@
 // them by insertion: simple and exactly the reference semantics; the
 // latency of the dependent gathers is hidden only by the number of rows
 // in flight.  decide is a streaming gather-and-pack, bound by its bytes.
+//
+// The sharded match runs the same per-row scan (scan_row) for every
+// (row, shard) pair of a grid whose y axis is the shard: the shards
+// that live on one device share one launch, each reading its own slice
+// of the stacked tables and its own salt from the device array
+// salts[K].  The TPU version reduces the per-shard counts with a psum
+// over the sub axis; here each (row, shard) thread adds its clipped
+// count into total[row] with an integer atomicAdd, exact in any order.
+// Across devices the caller adds the per-device partial totals.
 //
 // Semantics that must hold bit for bit (see match_kernel.py):
 //   - candidates: F literal lookups then F '+' children, sorted
@@ -64,23 +77,16 @@ __device__ __forceinline__ int clamp_node(int c, int n_nodes) {
   return c < 0 ? 0 : (c >= n_nodes ? n_nodes - 1 : c);
 }
 
-// One thread per topic row.  Writes the row's first m_cap codes
-// (-1 padded) to codes[row], the clipped count to counts[row] and the
-// overflow flag (frontier overflow or count > m_cap) to ovf[row].
-__global__ void match_rows_kernel(
+// The frontier scan of one topic row through one automaton (the body
+// K2 and K5 share, so the two cannot drift apart).  Writes the row's
+// first m_cap codes (-1 padded) to out and returns the clipped count;
+// *ovf_out is the overflow flag (frontier overflow or count > m_cap).
+__device__ __forceinline__ int scan_row(
     const int* __restrict__ fp_rows, int nb,
     const int* __restrict__ node_rows, int n_nodes, uint32_t salt,
-    const int* __restrict__ tokens, const int* __restrict__ lengths,
-    const uint8_t* __restrict__ dollar, int n_rows, int levels,
-    int f_width, int m_cap,
-    int* __restrict__ codes, int* __restrict__ counts,
-    uint8_t* __restrict__ ovf) {
-  int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n_rows) return;
-  const bool is_dollar = dollar[row] != 0;
+    const int* __restrict__ toks, int len, bool is_dollar, int f_width,
+    int m_cap, int* __restrict__ out, bool* ovf_out) {
   const uint32_t s2 = salt * 0x9E3779B1u;
-  int* out = codes + (size_t)row * m_cap;
-
   int frontier[kFMax];
   int plus_child[kFMax];  // node row col 0 of each lane's node
   int exact_flag[kFMax];  // node row col 2
@@ -97,9 +103,6 @@ __global__ void match_rows_kernel(
     if (count < m_cap) out[count] = 1;
     ++count;
   }
-  int len = lengths[row];
-  if (len > levels) len = levels;
-  const int* toks = tokens + (size_t)row * levels;
   for (int i = 0; i < len; ++i) {
     const int tok = toks[i];
     const bool root_dollar = is_dollar && i == 0;
@@ -180,8 +183,59 @@ __global__ void match_rows_kernel(
   }
   const int count_c = count < m_cap ? count : m_cap;
   for (int j = count_c; j < m_cap; ++j) out[j] = -1;
-  counts[row] = count_c;
-  ovf[row] = (over || count > m_cap) ? 1 : 0;
+  *ovf_out = over || count > m_cap;
+  return count_c;
+}
+
+// K2: one thread per topic row.  Writes the row's codes to codes[row],
+// the clipped count to counts[row] and the overflow flag to ovf[row].
+__global__ void match_rows_kernel(
+    const int* __restrict__ fp_rows, int nb,
+    const int* __restrict__ node_rows, int n_nodes, uint32_t salt,
+    const int* __restrict__ tokens, const int* __restrict__ lengths,
+    const uint8_t* __restrict__ dollar, int n_rows, int levels,
+    int f_width, int m_cap,
+    int* __restrict__ codes, int* __restrict__ counts,
+    uint8_t* __restrict__ ovf) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n_rows) return;
+  const int len = lengths[row] < levels ? lengths[row] : levels;
+  bool over;
+  counts[row] = scan_row(fp_rows, nb, node_rows, n_nodes, salt,
+                         tokens + (size_t)row * levels, len,
+                         dollar[row] != 0, f_width, m_cap,
+                         codes + (size_t)row * m_cap, &over);
+  ovf[row] = over ? 1 : 0;
+}
+
+// K5: the (row, shard) grid of the sharded match.  Shard k (blockIdx.y)
+// scans row against its slice of the stacked tables fp_rows [K, nb,
+// 2*kBucket] and node_rows [K, n_nodes, 8] with its own salt salts[k],
+// writes codes [K, B, m_cap], counts [K, B] and ovf [K, B], and adds its
+// clipped count into total[row] (zeroed by the caller): the psum over
+// the sub axis, exact in any order because it is an integer sum.
+__global__ void sharded_match_rows_kernel(
+    const int* __restrict__ fp_rows, int nb,
+    const int* __restrict__ node_rows, int n_nodes,
+    const uint32_t* __restrict__ salts, const int* __restrict__ tokens,
+    const int* __restrict__ lengths, const uint8_t* __restrict__ dollar,
+    int n_rows, int levels, int f_width, int m_cap,
+    int* __restrict__ codes, int* __restrict__ counts,
+    uint8_t* __restrict__ ovf, int* __restrict__ total) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n_rows) return;
+  const int k = blockIdx.y;
+  const size_t kr = (size_t)k * n_rows + row;
+  const int len = lengths[row] < levels ? lengths[row] : levels;
+  bool over;
+  const int n = scan_row(
+      fp_rows + (size_t)k * nb * (2 * kBucket), nb,
+      node_rows + (size_t)k * n_nodes * 8, n_nodes, salts[k],
+      tokens + (size_t)row * levels, len, dollar[row] != 0, f_width, m_cap,
+      codes + kr * m_cap, &over);
+  counts[kr] = n;
+  ovf[kr] = over ? 1 : 0;
+  if (n) atomicAdd(total + row, n);
 }
 
 // Exclusive scan of the clipped counts by one block walking the rows in
@@ -290,6 +344,21 @@ int emqx_match_rows(const int* fp_rows, int nb, const int* node_rows,
                       (cudaStream_t)stream>>>(
       fp_rows, nb, node_rows, n_nodes, salt, tokens, lengths, dollar,
       n_rows, levels, f_width, m_cap, codes, counts, ovf);
+  return (int)cudaGetLastError();
+}
+
+int emqx_sharded_match_rows(const int* fp_rows, int nb,
+                            const int* node_rows, int n_nodes,
+                            const uint32_t* salts, int n_shards,
+                            const int* tokens, const int* lengths,
+                            const uint8_t* dollar, int n_rows, int levels,
+                            int f_width, int m_cap, int* codes, int* counts,
+                            uint8_t* ovf, int* total, void* stream) {
+  if (n_shards < 1 || n_shards > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(blocks_for(n_rows, kRowThreads), n_shards);
+  sharded_match_rows_kernel<<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
+      fp_rows, nb, node_rows, n_nodes, salts, tokens, lengths, dollar,
+      n_rows, levels, f_width, m_cap, codes, counts, ovf, total);
   return (int)cudaGetLastError();
 }
 

@@ -14,11 +14,18 @@ device:
     and subscription-identifier presence.
   * `rules_eval_batch` — the rule engine's stacked WHERE program over a
     window's column planes: the ``[R, W]`` pass matrix.
+  * `sharded_match_local` — `match_batch` over the K shards of a
+    sharded index that live on one device, with the per-topic count
+    summed over the shards (`parallel.sharded.sharded_match` launches it
+    once per device).
+  * `predicate_eval_batch` — one rule's WHERE register program
+    (`rules.predicate.lower_predicate`) over its var columns.
 
 Each wrapper dispatches on the device of the tensors it is given: CPU
 tensors run the plain PyTorch version in this module, CUDA tensors
-launch the hand-written kernel in ``csrc/match_kernels.cu`` or
-``csrc/rules_kernels.cu`` (built and bound by `_kernels.py`) or raise.  Each wrapper counts its kernel
+launch the hand-written kernel in ``csrc/match_kernels.cu``,
+``csrc/rules_kernels.cu`` or ``csrc/predicate_kernels.cu`` (built and
+bound by `_kernels.py`) or raise.  Each wrapper counts its kernel
 launches in its ``launches`` attribute.
 
 Match codes: ``node*2 + 1`` = a ``#``-terminal matched at ``node``;
@@ -46,6 +53,7 @@ from typing import List
 
 import torch
 
+from ..rules import predicate as P
 from ..rules.predicate import (  # opcode space (compiler-owned)
     MAX_STEPS, R_BAND, R_BLIT, R_BNOT, R_BOR, R_CGE, R_CGT, R_CLE, R_CLT,
     R_EQC, R_EQSL, R_EQVL, R_EQVV, R_NADD, R_NDIV, R_NIDV, R_NLIT,
@@ -231,6 +239,20 @@ def match_batch_compact_plain(fp_rows, node_rows, salt, tokens, lengths,
     counts_out = torch.where(ovf, -count_c - 1, count_c).to(torch.int16)
     total = count_c.sum().to(torch.int32).reshape(1)
     return flat[:c_cap].to(torch.int32), counts_out, total
+
+
+def sharded_match_plain(fp_rows, node_rows, salts, tokens, lengths, dollar,
+                        *, f_width: int, m_cap: int):
+    """Plain PyTorch version of `sharded_match_local`: `match_batch`'s
+    plain version per shard, with that shard's salt, and the counts
+    summed over the shards."""
+    outs = [
+        match_batch_plain(fp_rows[k], node_rows[k], salt, tokens, lengths,
+                          dollar, f_width=f_width, m_cap=m_cap)
+        for k, salt in enumerate(salts.cpu().to(torch.int64).tolist())
+    ]
+    codes, counts, ovf = (torch.stack(t) for t in zip(*outs))
+    return codes, counts, ovf, counts.sum(dim=0).to(torch.int32)
 
 
 def decide_batch_plain(oa_qos, oa_nl, oa_rap, oa_subid, opts_rows,
@@ -420,6 +442,107 @@ def rules_eval_plain(code, a0, a1, a2, a3, litn, lit_ranks, last, num, sid,
 _ORDER = {
     R_CGT: torch.gt, R_CLT: torch.lt, R_CGE: torch.ge, R_CLE: torch.le,
 }
+
+
+# ------------------------------------------------- one rule's predicate
+#
+# K6's register program (`rules.predicate.lower_predicate`): numeric
+# registers are (value, defined) pairs, boolean ones (T, F), as in the
+# JAX package's `_eval`, whose numpy path this equals bit for bit
+# (float64; each arithmetic step rounds once, as numpy does).
+
+_P_ORDER = {
+    P.P_CGT: torch.gt, P.P_CLT: torch.lt, P.P_CGE: torch.ge,
+    P.P_CLE: torch.le,
+}
+
+
+def predicate_eval_plain(steps, lit, result: int, num, sid, err, lit_ids):
+    """Plain PyTorch version of `predicate_eval_batch`: ``steps`` is
+    ``[S, 8]`` (op, dst, a, b, c, d, flags, 0), ``lit`` ``[S]``,
+    ``num``/``sid``/``err`` the ``[V, W]`` var lanes, ``lit_ids`` the
+    ``[L]`` string-literal ids.  Returns the ``[W]`` bool verdicts."""
+    w, dev = num.shape[1], num.device
+    hv, nl, top = num.shape[0] - 1, lit_ids.shape[0], P.PRED_REGS - 1
+    ids = lit_ids.tolist()
+    zero = torch.zeros(w, dtype=torch.float64, device=dev)
+    false = torch.zeros(w, dtype=torch.bool, device=dev)
+    nv, nd = [zero] * P.PRED_REGS, [false] * P.PRED_REGS
+    bt, bf = [false] * P.PRED_REGS, [false] * P.PRED_REGS
+
+    def reg(x):
+        return min(max(x, 0), top)
+
+    def lane(x):
+        return min(max(x, 0), hv)
+
+    def put(dst, t, f, neg):
+        bt[dst], bf[dst] = (f, t) if neg else (t, f)
+
+    for (op, dst, a, b, c, d, flags, _), lv in zip(steps.tolist(),
+                                                  lit.tolist()):
+        dst, ra, rb = reg(dst), reg(a), reg(b)
+        if op == P.P_NLOAD:
+            v = num[lane(a)]
+            nv[dst], nd[dst] = v, ~torch.isnan(v)
+        elif op == P.P_NLIT:
+            nv[dst] = torch.full((w,), lv, dtype=torch.float64, device=dev)
+            nd[dst] = ~false
+        elif op == P.P_NNEG:
+            nv[dst], nd[dst] = -nv[ra], nd[ra]
+        elif P.P_NADD <= op <= P.P_NMOD:
+            x, y, ok = nv[ra], nv[rb], nd[ra] & nd[rb]
+            if op == P.P_NADD:
+                v = x + y
+            elif op == P.P_NSUB:
+                v = x - y
+            elif op == P.P_NMUL:
+                v = x * y
+            elif op == P.P_NDIV:
+                nz = y != 0
+                v = torch.where(nz, x / torch.where(nz, y, 1.0), 0.0)
+                ok = ok & nz
+            else:  # div / mod: trunc both, then floor-divide
+                ta, tb = torch.trunc(x), torch.trunc(y)
+                nz = tb != 0
+                safe = torch.where(nz, tb, 1.0)
+                q = torch.floor(ta / safe)
+                v = q if op == P.P_NIDV else ta - q * safe
+                ok = ok & nz
+            nv[dst], nd[dst] = v, ok
+        elif op == P.P_BLIT:
+            bt[dst], bf[dst] = (~false, false) if a == 1 else (false, ~false)
+        elif op == P.P_BNOT:
+            bt[dst], bf[dst] = bf[ra], bt[ra]
+        elif op in (P.P_BAND, P.P_BOR):
+            tl, fl, tr, fr = bt[ra], bf[ra], bt[rb], bf[rb]
+            if op == P.P_BAND:
+                bt[dst], bf[dst] = tl & tr, fl | (tl & fr)
+            else:
+                bt[dst], bf[dst] = tl | (fl & tr), fl & fr
+        elif op in _P_ORDER:
+            ok = nd[ra] & nd[rb]
+            cmp = _P_ORDER[op](nv[ra], nv[rb])
+            bt[dst], bf[dst] = ok & cmp, ok & ~cmp
+        elif op == P.P_EQN:
+            ld, rd = nd[ra], nd[rb]
+            e = ld & rd & (nv[ra] == nv[rb])
+            ok = ~false
+            if c >= 0:
+                ok = ok & ~err[lane(c)]
+            if d >= 0:
+                ok = ok & ~err[lane(d)]
+            if c >= 0 and d >= 0:
+                li = sid[lane(c)]
+                e = e | ((li >= 0) & (li == sid[lane(d)]))
+            cd = (ld if flags & 2 else ~false) & (rd if flags & 4 else ~false)
+            put(dst, e & ok, cd & ~e & ok, flags & 1)
+        elif op == P.P_EQS:
+            lid = ids[min(max(b, 0), nl - 1)] if nl else -2
+            ok = ~err[lane(a)]
+            v = sid[lane(a)]
+            put(dst, ok & (v == lid), ok & (v != lid), flags & 1)
+    return bt[reg(result)].clone()
 
 
 # ------------------------------------------------------------ checks
@@ -648,11 +771,93 @@ def rules_eval_batch(code, a0, a1, a2, a3, litn, lit_ranks, last, num, sid,
     return out
 
 
+def sharded_match_local(fp_rows, node_rows, salts, tokens, lengths, dollar,
+                        *, f_width: int, m_cap: int):
+    """Match a topic batch against K automaton shards on one device:
+    stacked ``fp_rows [K, nb, 2*BUCKET]`` and ``node_rows [K, N, 8]``
+    int32 of one common geometry, ``salts [K]`` uint32.  Returns
+    ``(codes [K, B, m_cap] int32, counts [K, B] int32, overflow [K, B]
+    bool, total [B] int32)``: shard k's `match_batch` outputs, and each
+    topic's count summed over the shards.
+
+    Replaces the per-device body of ``emqx_tpu/parallel/sharded.py``
+    ``sharded_match`` (its shard_map of ``match_batch`` and the psum of
+    the counts over the ``sub`` axis)."""
+    dev = tokens.device
+    _check(fp_rows, "fp_rows", torch.int32, 3, dev)
+    _check(node_rows, "node_rows", torch.int32, 3, dev)
+    _check(salts, "salts", torch.uint32, 1, dev)
+    k = fp_rows.shape[0]
+    if k < 1 or node_rows.shape[0] != k or salts.shape[0] != k:
+        raise ValueError("fp_rows, node_rows and salts disagree on K >= 1")
+    _check_match(fp_rows[0], node_rows[0], 0, tokens, lengths, dollar,
+                 f_width, m_cap)
+    if dev.type == "cpu":
+        return sharded_match_plain(fp_rows, node_rows, salts, tokens,
+                                   lengths, dollar, f_width=f_width,
+                                   m_cap=m_cap)
+    from . import _kernels
+
+    b = tokens.shape[0]
+    codes = torch.empty((k, b, m_cap), dtype=torch.int32, device=dev)
+    counts = torch.empty((k, b), dtype=torch.int32, device=dev)
+    ovf = torch.empty((k, b), dtype=torch.bool, device=dev)
+    total = torch.zeros(b, dtype=torch.int32, device=dev)
+    _kernels.sharded_match_rows(fp_rows, node_rows, salts, tokens, lengths,
+                                dollar, f_width, m_cap, codes, counts, ovf,
+                                total)
+    sharded_match_local.launches += 1
+    return codes, counts, ovf, total
+
+
+def predicate_eval_batch(steps, lit, result: int, num, sid, err, lit_ids):
+    """One rule's WHERE over a batch: the register program ``steps``
+    (int32 ``[S, 8]``) and ``lit`` (float64 ``[S]``) of
+    `rules.predicate.lower_predicate`, result register ``result``, over
+    the var lanes ``num`` (float64), ``sid`` (int32) and ``err`` (bool),
+    ``[V, W]``, with the string-literal ids ``lit_ids`` (int32 ``[L]``).
+    Returns the ``[W]`` bool verdicts.  Computed in float64: equal, bit
+    for bit, to the JAX package's numpy path.  Operand indices are not
+    range-checked on the card (that would cost a host sync):
+    `state.predicate_program_from_code` checks a program on upload.
+
+    Replaces ``emqx_tpu/rules/predicate.py``
+    ``PredicateProgram.eval_batch(use_jax=True)``."""
+    dev = num.device
+    _check(steps, "steps", torch.int32, 2, dev)
+    _check(lit, "lit", torch.float64, 1, dev)
+    _check(num, "num", torch.float64, 2, dev)
+    _check(sid, "sid", torch.int32, 2, dev)
+    _check(err, "err", torch.bool, 2, dev)
+    _check(lit_ids, "lit_ids", torch.int32, 1, dev)
+    s = steps.shape[0]
+    if s < 1 or steps.shape[1] != 8 or lit.shape[0] != s:
+        raise ValueError("steps must be [S>=1, 8] with a [S] literal row")
+    if sid.shape != num.shape or err.shape != num.shape or num.shape[0] < 1:
+        raise ValueError("num, sid and err must share one [V>=1, W] shape")
+    if not 0 <= result < P.PRED_REGS:
+        raise ValueError(f"result must be a register in [0, {P.PRED_REGS})")
+    if dev.type == "cpu":
+        return predicate_eval_plain(steps, lit, result, num, sid, err,
+                                    lit_ids)
+    from . import _kernels
+
+    out = torch.empty(num.shape[1], dtype=torch.bool, device=dev)
+    if out.numel():
+        _kernels.predicate_eval(steps, lit, result, num, sid, err, lit_ids,
+                                out)
+        predicate_eval_batch.launches += 1
+    return out
+
+
 match_batch.launches = 0
 match_batch_compact.launches = 0
 decide_batch.launches = 0
 rules_eval_batch.launches = 0
-KERNELS = (match_batch_compact, match_batch, decide_batch, rules_eval_batch)
+sharded_match_local.launches = 0
+predicate_eval_batch.launches = 0
+KERNELS = (match_batch_compact, match_batch, decide_batch, rules_eval_batch,
+           sharded_match_local, predicate_eval_batch)
 
 
 def reset_launches() -> None:

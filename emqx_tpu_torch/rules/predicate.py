@@ -6,9 +6,11 @@ each rule's WHERE per message (emqx_rule_runtime.erl:60-100).  Here a
 WHERE AST compiles — when its node set allows — into a column program
 evaluated over the whole publish micro-batch at once.  Two forms:
 
-  * `PredicateProgram`: ONE rule over a batch of envs, evaluated with
-    numpy.  (The JAX package also jits it for its device; that kernel,
-    K6, is not ported yet and ``eval_batch(use_jax=True)`` raises.)
+  * `PredicateProgram`: ONE rule over a batch of envs
+    (``eval_batch(envs, device="cuda")``): the tree flattens into a
+    small register program (`lower_predicate`) that
+    `ops.match_kernel.predicate_eval_batch` (K6: the CUDA kernel, or its
+    plain PyTorch version for CPU tensors) runs over the rule's columns.
   * `StackedRules` (`lower_where` + `build_stack`): the whole registry
     lowered to opcode/operand matrices that
     `ops.match_kernel.rules_eval_batch` (K4) evaluates as one
@@ -45,7 +47,9 @@ falls back to the interpreter.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
+from typing import (
+    Any, Dict, List, NamedTuple, Optional, Sequence, Set, Tuple,
+)
 
 import numpy as np
 
@@ -67,6 +71,8 @@ class PredicateProgram:
     def __init__(self, where: tuple, var_paths: List[Tuple[str, ...]]):
         self.where = where
         self.var_paths = var_paths
+        self._code: Optional[PredicateCode] = None
+        self._dev_code: Dict[str, Any] = {}  # device -> program tensors
 
     # ---------------------------------------------------- extraction
 
@@ -109,18 +115,34 @@ class PredicateProgram:
 
     # ---------------------------------------------------- evaluation
 
-    def eval_batch(
-        self, envs: Sequence[Dict[str, Any]], use_jax: bool = False
-    ) -> np.ndarray:
-        if use_jax:
-            raise NotImplementedError(
-                "K6 not yet ported: PredicateProgram.eval_batch runs on "
-                "the host only"
-            )
+    def eval_batch(self, envs: Sequence[Dict[str, Any]],
+                   device="cuda") -> np.ndarray:
+        """The WHERE's verdict per env, computed by K6 on ``device``
+        (CUDA launches the kernel; the CPU runs its plain version), in
+        float64.  A WHERE that reads no var raises StopIteration, as the
+        JAX package's does (``_batch_len`` has no column to take the
+        batch length from)."""
+        from ..ops.match_kernel import predicate_eval_batch
+        from ..state import (
+            predicate_columns_from_reference, predicate_program_from_code,
+        )
+
         cols, sdict = self.extract_columns(envs)
+        _batch_len(cols)
         lit_ids = _literal_ids(self.where, sdict)
-        t, _ = _eval(self.where, cols, lit_ids, np)
-        return np.asarray(t)
+        if self._code is None:
+            self._code = lower_predicate(self.where, self.var_paths)
+        pc = predicate_columns_from_reference(cols, lit_ids, device)
+        if (pc.names, pc.lits) != (self._code.names, self._code.lits):
+            raise ValueError("columns do not belong to this predicate")
+        key = str(pc.num.device)
+        prog = self._dev_code.get(key)
+        if prog is None:
+            prog = self._dev_code[key] = predicate_program_from_code(
+                self._code, pc.num.device)
+        out = predicate_eval_batch(prog.steps, prog.lit, prog.result,
+                                   pc.num, pc.sid, pc.err, pc.lit_ids)
+        return out.cpu().numpy()
 
 
 def _string_literals(expr: tuple, out: Set[str]) -> None:
@@ -243,141 +265,214 @@ def _check_val(expr: tuple) -> str:
     raise _Unsupported(kind)
 
 
-def _eval(expr: tuple, cols, lit_ids, xp):
-    """Boolean-position evaluation -> (T, F) masks."""
-    kind = expr[0]
-    if kind == "op" and expr[1] in ("and", "or"):
-        tl, fl = _eval(expr[2], cols, lit_ids, xp)
-        tr, fr = _eval(expr[3], cols, lit_ids, xp)
-        if expr[1] == "and":
-            return tl & tr, fl | (tl & fr)
-        return tl | (fl & tr), fl & fr
-    if kind == "not":
-        t, f = _eval(expr[1], cols, lit_ids, xp)
-        return f, t
-    if kind == "lit":  # bool literal (validated)
-        n = _batch_len(cols)
-        full = xp.full(n, bool(expr[1]))
-        return full, ~full
-    if kind == "in":
-        ts = fs = None
-        for e in expr[2]:
-            t, f = _eval(("op", "=", expr[1], e), cols, lit_ids, xp)
-            ts = t if ts is None else (ts | (fs & t))
-            fs = f if fs is None else (fs & f)
-        return ts, fs
-    if kind == "op":
-        return _eval_cmp(expr, cols, lit_ids, xp)
-    raise AssertionError(f"non-boolean node at boolean position: {kind}")
-
-
 def _is_simple(expr: tuple) -> bool:
     return expr[0] in ("lit", "var")
 
 
-def _eval_cmp(expr: tuple, cols, lit_ids, xp):
-    sym, le, re_ = expr[1], expr[2], expr[3]
-    lstr = le[0] == "lit" and isinstance(le[1], str)
-    rstr = re_[0] == "lit" and isinstance(re_[1], str)
-    if lstr or rstr:
-        # string-literal equality against a var's id lane; TOTAL except
-        # when the var lookup itself ERRORED (interpreter: WHERE false)
-        lit, var = (le, re_) if lstr else (re_, le)
-        ids = cols["s:" + "/".join(var[1])]
-        erv = cols["e:" + "/".join(var[1])]
-        lid = lit_ids[lit[1]]
-        eq = ~erv & (ids == lid)
-        ne = ~erv & (ids != lid)
-        return (eq, ne) if sym == "=" else (ne, eq)
-
-    if sym in ("=", "!="):
-        lv, ld = _num_eval_pair(le, cols, lit_ids, xp)
-        rv, rd = _num_eval_pair(re_, cols, lit_ids, xp)
-        eq = ld & rd & (lv == rv)
-        if le[0] == "var" and re_[0] == "var":
-            # var-var equality also matches on the id lanes
-            li = cols["s:" + "/".join(le[1])]
-            ri = cols["s:" + "/".join(re_[1])]
-            eq = eq | ((li >= 0) & (li == ri))
-        # equality itself is total; but a lookup ERROR on a simple var
-        # (vs merely undefined) poisons the row, and a COMPOUND side
-        # contributes its own error semantics (sub-expression may fail)
-        ok = None
-        for side in (le, re_):
-            if side[0] == "var":
-                e = cols["e:" + "/".join(side[1])]
-                ok = ~e if ok is None else (ok & ~e)
-        if ok is None:
-            ok = xp.full(_batch_len(cols), True)
-        cd = None
-        for side, d in ((le, ld), (re_, rd)):
-            if not _is_simple(side):
-                cd = d if cd is None else (cd & d)
-        if cd is None:
-            return (
-                (eq & ok, ~eq & ok) if sym == "=" else (~eq & ok, eq & ok)
-            )
-        return (
-            (eq & ok, cd & ~eq & ok)
-            if sym == "="
-            else (cd & ~eq & ok, eq & ok)
-        )
-
-    # ordering: error semantics
-    lv, ld = _num_eval_pair(le, cols, lit_ids, xp)
-    rv, rd = _num_eval_pair(re_, cols, lit_ids, xp)
-    d = ld & rd
-    cmp = {
-        ">": lv > rv,
-        "<": lv < rv,
-        ">=": lv >= rv,
-        "<=": lv <= rv,
-    }[sym]
-    return d & cmp, d & ~cmp
-
-
-def _num_eval_pair(expr: tuple, cols, lit_ids, xp):
-    """Numeric (value, defined) evaluation."""
-    kind = expr[0]
-    if kind == "lit":
-        n = _batch_len(cols)
-        v = xp.full(n, float(expr[1]), np.float64)
-        return v, xp.full(n, True)
-    if kind == "var":
-        v = cols["n:" + "/".join(expr[1])]
-        return v, ~xp.isnan(v)
-    if kind == "neg":
-        v, d = _num_eval_pair(expr[1], cols, lit_ids, xp)
-        return -v, d
-    if kind == "op":
-        sym = expr[1]
-        lv, ld = _num_eval_pair(expr[2], cols, lit_ids, xp)
-        rv, rd = _num_eval_pair(expr[3], cols, lit_ids, xp)
-        d = ld & rd
-        if sym == "+":
-            return lv + rv, d
-        if sym == "-":
-            return lv - rv, d
-        if sym == "*":
-            return lv * rv, d
-        if sym == "/":
-            ok = rv != 0
-            return xp.where(ok, lv / xp.where(ok, rv, 1), 0), d & ok
-        # div/mod: the interpreter truncates BOTH operands to int
-        # first (int(a) // int(b), int(a) % int(b)), then floor-divides
-        ta = xp.trunc(lv)
-        tb = xp.trunc(rv)
-        ok = tb != 0
-        safe = xp.where(ok, tb, 1)
-        q = xp.floor(ta / safe)
-        if sym == "div":
-            return q, d & ok
-        return ta - q * safe, d & ok
-    raise AssertionError(f"bad numeric node {kind}")
-
-
 def _batch_len(cols) -> int:
     return next(iter(cols.values())).shape[0]
+
+
+# ===================================================================
+# One rule's WHERE as a register program (K6)
+#
+# `lower_predicate` flattens a PredicateProgram's tree in post-order
+# into steps that one thread per message walks
+# (``ops/csrc/predicate_kernels.cu``; the plain version is
+# `ops.match_kernel.predicate_eval_plain`).  The semantics are the JAX
+# package's `_eval`'s exactly (the (T, F) algebra above; the tests hold
+# them bit for bit) — not K4's `lower_where`, whose var = var equality
+# holds for null = null.  Registers are allocated in Sethi-Ullman order (the
+# child that needs more registers first), so a tree of n nodes needs
+# about log2(n) of them.  A step is ``(op, dst, a, b, c, d, flags, 0)``
+# with a float64 literal beside it:
+#
+#   numeric registers (value, defined):
+#     P_NLOAD  a = var lane            P_NLIT  the literal
+#     P_NNEG   a = reg                 P_NADD..P_NMOD  a, b = regs
+#   boolean registers (T, F):
+#     P_BLIT   a = 0/1                 P_BNOT  a = reg
+#     P_BAND / P_BOR  a, b = regs      P_CGT..P_CLE  a, b = num regs
+#     P_EQN    a, b = num regs; c, d = the var lanes of simple var sides
+#              (-1: not a var; both set: the id lanes match too);
+#              flags = negate | left compound << 1 | right compound << 2
+#     P_EQS    a = var lane, b = string-literal index; flags = negate
+#
+# ``IN`` unrolls as the reference's `_eval` does: one equality per
+# item, folded with the ``or`` algebra.
+# ===================================================================
+
+P_NLOAD = 1
+P_NLIT = 2
+P_NNEG = 3
+P_NADD = 4
+P_NSUB = 5
+P_NMUL = 6
+P_NDIV = 7
+P_NIDV = 8
+P_NMOD = 9
+P_BLIT = 10
+P_BNOT = 11
+P_BAND = 12
+P_BOR = 13
+P_CGT = 14
+P_CLT = 15
+P_CGE = 16
+P_CLE = 17
+P_EQN = 18
+P_EQS = 19
+PRED_REGS = 16  # the kernel's per-thread register file
+
+_P_ARITH = {"+": P_NADD, "-": P_NSUB, "*": P_NMUL, "/": P_NDIV,
+            "div": P_NIDV, "mod": P_NMOD}
+_P_ORDER = {">": P_CGT, "<": P_CLT, ">=": P_CGE, "<=": P_CLE}
+
+
+class PredicateCode(NamedTuple):
+    steps: np.ndarray  # [S, 8] int32: op, dst, a, b, c, d, flags, 0
+    lit: np.ndarray  # [S] float64 numeric literals
+    result: int  # register holding the WHERE's (T, F)
+    names: Tuple[str, ...]  # var lanes: "/".join(path), var_paths order
+    lits: Tuple[str, ...]  # string literals, sorted
+
+
+def _in_chain(expr: tuple) -> tuple:
+    """``x IN (e1, e2, ...)`` as the reference's `_eval` computes it:
+    ``((x = e1) or (x = e2)) or ...``."""
+    acc = ("op", "=", expr[1], expr[2][0])
+    for e in expr[2][1:]:
+        acc = ("op", "or", acc, ("op", "=", expr[1], e))
+    return acc
+
+
+def _su(nl: int, nr: int) -> int:
+    return max(nl, nr) if nl != nr else nl + 1
+
+
+def _need_num(expr: tuple) -> int:
+    if expr[0] == "neg":
+        return _need_num(expr[1])
+    if expr[0] == "op":
+        return _su(_need_num(expr[2]), _need_num(expr[3]))
+    return 1
+
+
+def _is_str_lit(expr: tuple) -> bool:
+    return expr[0] == "lit" and isinstance(expr[1], str)
+
+
+def _need_bool(expr: tuple) -> int:
+    kind = expr[0]
+    if kind == "not":
+        return _need_bool(expr[1])
+    if kind == "in":
+        return _need_bool(_in_chain(expr))
+    if kind == "op" and expr[1] in ("and", "or"):
+        return _su(_need_bool(expr[2]), _need_bool(expr[3]))
+    if kind == "op" and not (_is_str_lit(expr[2]) or _is_str_lit(expr[3])):
+        return _su(_need_num(expr[2]), _need_num(expr[3]))
+    return 1
+
+
+class _PredLowering:
+    def __init__(self, names: Tuple[str, ...], lits: Tuple[str, ...]):
+        self.names = names
+        self.lits = lits
+        self.steps: List[Tuple[int, ...]] = []
+        self.lit: List[float] = []
+
+    def emit(self, op, dst, a=-1, b=-1, c=-1, d=-1, flags=0, lit=0.0):
+        if dst >= PRED_REGS:  # operands were an earlier step's dst
+            raise ValueError(
+                f"WHERE needs more than {PRED_REGS} registers")
+        self.steps.append((op, dst, a, b, c, d, flags, 0))
+        self.lit.append(float(lit))
+
+    def lane(self, path, kind: str) -> int:
+        # looked up by name, as the reference looks up cols[kind + name]
+        name = "/".join(path)
+        if name not in self.names:
+            raise KeyError(kind + name)
+        return self.names.index(name)
+
+    def pair(self, x, y, r, lower, need):
+        """Lower x and y into two registers from r on, the one that
+        needs more registers first; returns (x's register, y's)."""
+        if need(x) >= need(y):
+            lower(x, r)
+            lower(y, r + 1)
+            return r, r + 1
+        lower(y, r)
+        lower(x, r + 1)
+        return r + 1, r
+
+    def bool_(self, expr: tuple, r: int) -> None:
+        kind = expr[0]
+        if kind == "op" and expr[1] in ("and", "or"):
+            a, b = self.pair(expr[2], expr[3], r, self.bool_, _need_bool)
+            self.emit(P_BAND if expr[1] == "and" else P_BOR, r, a, b)
+        elif kind == "not":
+            self.bool_(expr[1], r)
+            self.emit(P_BNOT, r, r)
+        elif kind == "lit":  # bool literal (validated)
+            self.emit(P_BLIT, r, 1 if expr[1] else 0)
+        elif kind == "in":
+            self.bool_(_in_chain(expr), r)
+        elif kind == "op":
+            self.cmp(expr, r)
+        else:
+            raise AssertionError(
+                f"non-boolean node at boolean position: {kind}")
+
+    def cmp(self, expr: tuple, r: int) -> None:
+        sym, le, re_ = expr[1], expr[2], expr[3]
+        if _is_str_lit(le) or _is_str_lit(re_):
+            lit, var = (le, re_) if _is_str_lit(le) else (re_, le)
+            self.emit(P_EQS, r, self.lane(var[1], "s:"),
+                      self.lits.index(lit[1]),
+                      flags=1 if sym == "!=" else 0)
+            return
+        a, b = self.pair(le, re_, r, self.num, _need_num)
+        if sym in ("=", "!="):
+            c = self.lane(le[1], "e:") if le[0] == "var" else -1
+            d = self.lane(re_[1], "e:") if re_[0] == "var" else -1
+            flags = ((1 if sym == "!=" else 0)
+                     | (0 if _is_simple(le) else 2)
+                     | (0 if _is_simple(re_) else 4))
+            self.emit(P_EQN, r, a, b, c, d, flags)
+        else:
+            self.emit(_P_ORDER[sym], r, a, b)
+
+    def num(self, expr: tuple, r: int) -> None:
+        kind = expr[0]
+        if kind == "lit":
+            self.emit(P_NLIT, r, lit=float(expr[1]))
+        elif kind == "var":
+            self.emit(P_NLOAD, r, self.lane(expr[1], "n:"))
+        elif kind == "neg":
+            self.num(expr[1], r)
+            self.emit(P_NNEG, r, r)
+        elif kind == "op":
+            a, b = self.pair(expr[2], expr[3], r, self.num, _need_num)
+            self.emit(_P_ARITH[expr[1]], r, a, b)
+        else:
+            raise AssertionError(f"bad numeric node {kind}")
+
+
+def lower_predicate(where: tuple,
+                    var_paths: Sequence[Tuple[str, ...]]) -> PredicateCode:
+    """One compiled WHERE (`compile_where`'s tree and var paths) as K6's
+    register program; the result is register 0."""
+    lits: Set[str] = set()
+    _string_literals(where, lits)
+    low = _PredLowering(tuple("/".join(p) for p in var_paths),
+                        tuple(sorted(lits)))
+    low.bool_(where, 0)
+    return PredicateCode(
+        steps=np.array(low.steps, np.int32).reshape(-1, 8),
+        lit=np.array(low.lit, np.float64),
+        result=0, names=low.names, lits=low.lits,
+    )
 
 
 # ===================================================================

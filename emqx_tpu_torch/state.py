@@ -9,20 +9,31 @@ positions.  The port's own build (`ops.automaton`) produces the same
 arrays as the JAX package's, so the same function serves tables built
 by either package.
 
+`sharded_tables_from_reference` places the stacked tables of a sharded
+index (``ShardedIndex.tables`` of either package) on a mesh
+(`parallel.sharded.Mesh`): each device gets the slices of the shards
+of its block stacked there, as `ops.match_kernel.sharded_match_local`
+takes them.
+
 `rules_program_from_reference` and `columns_from_reference` do the same
 for the rule engine: a stacked WHERE program (`StackedRules` arrays of
 either package) and one window's column planes (`WindowColumns`
 arrays) become the tensors `ops.match_kernel.rules_eval_batch` takes.
+`predicate_program_from_code` and `predicate_columns_from_reference`
+do it for one rule's predicate (K6): its register program and the
+columns `PredicateProgram.extract_columns` pulls (a dict of either
+package's, with `_literal_ids`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from .ops.automaton import BUCKET
+from .rules import predicate as P
 from .rules.predicate import MAX_STEPS, R_PRES
 
 
@@ -65,6 +76,49 @@ def tables_from_reference(fp_rows, node_rows, salt, code_off, code_idx,
         code_off=np.asarray(code_off),
         code_idx=np.asarray(code_idx),
     )
+
+
+class ShardedTables(NamedTuple):
+    """Per device of a mesh, the stacked slices of the shards of its
+    block (`Mesh.blocks`) on that device."""
+
+    fp_rows: Dict[torch.device, torch.Tensor]  # [k, nb, 2*BUCKET] int32
+    node_rows: Dict[torch.device, torch.Tensor]  # [k, N, 8] int32
+    salts: Dict[torch.device, torch.Tensor]  # [k] uint32
+
+
+def sharded_tables_from_reference(fp_rows, node_rows, salts,
+                                  mesh) -> ShardedTables:
+    """Place stacked shard tables (``fp_rows [K, nb, 2*BUCKET]``,
+    ``node_rows [K, N, 8]``, ``salts [K]`` uint32) on ``mesh``: each
+    device gets the shards of its block, stacked."""
+    fp = np.ascontiguousarray(fp_rows, dtype=np.int32)
+    nodes = np.ascontiguousarray(node_rows, dtype=np.int32)
+    sl = np.asarray(salts)
+    if sl.ndim != 1 or ((sl < 0) | (sl > 0xFFFFFFFF)).any():
+        raise ValueError("salts must be [K] uint32 values")
+    sl = sl.astype(np.uint32)
+    k = mesh.shape["sub"]
+    nb = fp.shape[1] if fp.ndim == 3 else 0
+    if fp.shape[:1] != (k,) or fp.ndim != 3 or fp.shape[2] != 2 * BUCKET \
+            or nb < 1 or nb & (nb - 1):
+        raise ValueError(f"fp_rows must be [{k}, power of two, "
+                         f"{2 * BUCKET}], got {fp.shape}")
+    if nodes.ndim != 3 or nodes.shape[0] != k or nodes.shape[2] != 8 \
+            or nodes.shape[1] < 1:
+        raise ValueError(f"node_rows must be [{k}, N>=1, 8], got "
+                         f"{nodes.shape}")
+    if sl.shape != (k,):
+        raise ValueError(f"salts must be [{k}], got {sl.shape}")
+    out = ShardedTables({}, {}, {})
+    for dev, shards, _ in mesh.blocks:
+        out.fp_rows[dev] = torch.from_numpy(
+            np.ascontiguousarray(fp[shards])).to(dev)
+        out.node_rows[dev] = torch.from_numpy(
+            np.ascontiguousarray(nodes[shards])).to(dev)
+        out.salts[dev] = torch.from_numpy(
+            np.ascontiguousarray(sl[shards])).to(dev)
+    return out
 
 
 class RulesProgram(NamedTuple):
@@ -131,3 +185,74 @@ def columns_from_reference(num, sid, err, prs, lit_ranks,
         torch.from_numpy(
             np.ascontiguousarray(lit_ranks, dtype=np.int32)).to(dev),
     )
+
+
+class PredicateColumns(NamedTuple):
+    num: torch.Tensor  # [V, W] float64, NaN = not a number
+    sid: torch.Tensor  # [V, W] int32 batch string id, -1 = not a string
+    err: torch.Tensor  # [V, W] bool lookup raised
+    lit_ids: torch.Tensor  # [L] int32 literal ids, -2 = not in the batch
+    names: Tuple[str, ...]  # var lanes, in the columns' order
+    lits: Tuple[str, ...]  # string literals, sorted
+
+
+def predicate_columns_from_reference(cols, lit_ids,
+                                     device) -> PredicateColumns:
+    """One predicate's columns on ``device``: ``cols`` is a
+    ``PredicateProgram.extract_columns`` dict (``n:``/``s:``/``e:``
+    lanes per var, in var order) and ``lit_ids`` its `_literal_ids`."""
+    names = tuple(k[2:] for k in cols if k.startswith("n:"))
+    if not names:
+        raise ValueError("a predicate's columns need at least one var")
+    num = np.stack([np.asarray(cols["n:" + n], np.float64) for n in names])
+    sid = np.stack([np.asarray(cols["s:" + n], np.int32) for n in names])
+    err = np.stack([np.asarray(cols["e:" + n], bool) for n in names])
+    lits = tuple(sorted(lit_ids))
+    ids = np.array([lit_ids[s] for s in lits], np.int32)
+    dev = resolve_device(device)
+    return PredicateColumns(
+        *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+          for a in (num, sid, err, ids)),
+        names, lits,
+    )
+
+
+class PredicateDeviceCode(NamedTuple):
+    steps: torch.Tensor  # [S, 8] int32
+    lit: torch.Tensor  # [S] float64
+    result: int
+
+
+def predicate_program_from_code(code, device) -> PredicateDeviceCode:
+    """A `rules.predicate.PredicateCode` on ``device``.  Checks what
+    the kernel relies on: known opcodes, registers inside the file, var
+    lanes and literal indices inside their tables."""
+    steps = np.ascontiguousarray(code.steps, dtype=np.int32)
+    lit = np.ascontiguousarray(code.lit, dtype=np.float64)
+    if steps.ndim != 2 or steps.shape[1] != 8 or len(steps) < 1 \
+            or lit.shape != (len(steps),):
+        raise ValueError("steps must be [S>=1, 8] with a [S] literal row")
+    op, v = steps[:, 0], len(code.names)
+    if op.min() < P.P_NLOAD or op.max() > P.P_EQS:
+        raise ValueError("unknown opcode in steps")
+    two = (P.P_NADD, P.P_NSUB, P.P_NMUL, P.P_NDIV, P.P_NIDV, P.P_NMOD,
+           P.P_BAND, P.P_BOR, P.P_CGT, P.P_CLT, P.P_CGE, P.P_CLE, P.P_EQN)
+    regs = np.concatenate([
+        steps[:, 1], [code.result],
+        steps[np.isin(op, two + (P.P_NNEG, P.P_BNOT)), 2],
+        steps[np.isin(op, two), 3],
+    ])
+    if ((regs < 0) | (regs >= P.PRED_REGS)).any():
+        raise ValueError(f"registers must be in [0, {P.PRED_REGS})")
+    eqn = steps[op == P.P_EQN]
+    lanes = steps[np.isin(op, (P.P_NLOAD, P.P_EQS)), 2]
+    if ((lanes < 0) | (lanes >= v)).any() or (
+            (eqn[:, 4:6] < -1) | (eqn[:, 4:6] >= v)).any():
+        raise ValueError(f"var lanes must be in [0, {v})")
+    li = steps[op == P.P_EQS, 3]
+    if ((li < 0) | (li >= len(code.lits))).any():
+        raise ValueError("string-literal index outside the literal table")
+    dev = resolve_device(device)
+    return PredicateDeviceCode(torch.from_numpy(steps).to(dev),
+                               torch.from_numpy(lit).to(dev),
+                               int(code.result))

@@ -268,3 +268,189 @@ def test_rules_broker_on_card_equals_scalar_referee(cuda):
             ev = b.router.engine.rules_evaluator
             assert ev._prog[0] == b.rules.rules_rev
     assert out[0] == out[1]
+
+
+# -------------------------------------------- sharded match (K5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f_width,m_cap", [(8, 64), (2, 4)])
+def test_sharded_kernel_equals_plain(cuda, f_width, m_cap):
+    from emqx_tpu_torch.parallel import sharded as sh
+    from emqx_tpu_torch.state import sharded_tables_from_reference
+
+    filters, topics = _world(f_width, 1200, 500)
+    # no fid in shard 3: an empty, all-padding partition
+    filters = [(fid, ws) for fid, ws in filters
+               if fid % 4 != 3 and ("+" in ws or "#" in ws)]
+    td = TokenDict()
+    idx = sh.build_sharded_index(filters, td, 4, max_levels=8)
+    tok, ln, dol = encode_topics(td, topics[:496], idx.kernel_levels)
+    mesh = sh.make_mesh(devices=[cuda] * 4, sub=4)
+    placed = sharded_tables_from_reference(*idx.tables, mesh)
+    (key,) = placed.fp_rows
+    args = (placed.fp_rows[key], placed.node_rows[key], placed.salts[key],
+            *(torch.from_numpy(a).to(cuda) for a in (tok, ln, dol)))
+    mk.reset_launches()
+    got = sh.sharded_match(mesh, *placed, tok, ln, dol, f_width=f_width,
+                           m_cap=m_cap)
+    assert mk.sharded_match_local.launches == 1  # one card, one launch
+    plain = mk.sharded_match_plain(*args, f_width=f_width, m_cap=m_cap)
+    cpu = sh.sharded_match(sh.make_mesh(devices=["cpu"] * 4, sub=4),
+                           *idx.tables, tok, ln, dol, f_width=f_width,
+                           m_cap=m_cap)
+    torch.cuda.synchronize()
+    for g, p, c in zip(got, plain, cpu):
+        assert g.device.type == "cuda" and g.dtype == c.dtype
+        assert torch.equal(g, p) and torch.equal(g.cpu(), c)
+    assert not got[1][3].any() and int(got[3].sum()) > 0
+    # K2 on each shard's slice gives the same codes (one scan body)
+    for k in range(4):
+        dense = mk.match_batch(args[0][k], args[1][k],
+                               int(idx.tables[2][k]), *args[3:],
+                               f_width=f_width, m_cap=m_cap)
+        for d, g in zip(dense, got[:3]):
+            assert torch.equal(d, g[k])
+
+
+@pytest.mark.cuda
+def test_sharded_engine_on_card_equals_host_trie(cuda):
+    from emqx_tpu_torch import topic as T
+    from emqx_tpu_torch.parallel import sharded as sh
+
+    filters, topics = _world(4, 2000, 800)
+    filters = [(fid, ws) for fid, ws in filters if "/".join(ws)]
+    eng = sh.ShardedMatchEngine(sh.make_mesh(devices=[cuda] * 4, sub=4),
+                                max_levels=8, f_width=8, m_cap=64,
+                                rebuild_threshold=10**9)
+    eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    eng.rebuild()
+    names = ["/".join(t) for t in topics if t]
+
+    def check():
+        for t, g in zip(names, eng.match_batch(names)):
+            assert g == eng.match_host(T.words(t)), t
+
+    mk.reset_launches()
+    check()
+    eng.insert("a/+/x", 10**6)
+    eng.insert_many([(f"b/{i % 7}/+", 10**6 + 1 + i) for i in range(300)])
+    eng.delete(filters[0][0])
+    eng.delete(filters[5][0])
+    check()
+    eng.rebuild()
+    check()
+    assert mk.sharded_match_local.launches == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cards,sub", [(2, 2), (4, 2), (4, 4)])
+def test_sharded_match_across_cards_equals_one_card(cuda, n_cards, sub):
+    """Each card its own block of the mesh: one launch per card, the
+    outputs and partial totals added on the first card, equal to the
+    same grid on one card; the sharded engine there equals the host
+    trie before and after churn."""
+    from emqx_tpu_torch import topic as T
+    from emqx_tpu_torch.parallel import sharded as sh
+
+    if torch.cuda.device_count() < n_cards:
+        pytest.skip(f"needs {n_cards} CUDA devices")
+    filters, topics = _world(n_cards + sub, 1200, 496)
+    filters = [(fid, ws) for fid, ws in filters if "+" in ws or "#" in ws]
+    td = TokenDict()
+    idx = sh.build_sharded_index(filters, td, sub, max_levels=8)
+    tok, ln, dol = encode_topics(td, topics, idx.kernel_levels)
+    mesh = sh.make_mesh(n_cards, sub=sub)
+    assert len(mesh.blocks) == n_cards
+    one = sh.make_mesh(devices=[cuda] * n_cards, sub=sub)
+    mk.reset_launches()
+    got = sh.sharded_match(mesh, *idx.tables, tok, ln, dol, f_width=4,
+                           m_cap=16)
+    assert mk.sharded_match_local.launches == n_cards
+    want = sh.sharded_match(one, *idx.tables, tok, ln, dol, f_width=4,
+                            m_cap=16)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.device == torch.device("cuda", 0) and torch.equal(g, w)
+    assert int(got[3].sum()) > 0 and bool(got[2].any())
+
+    eng = sh.ShardedMatchEngine(mesh, max_levels=8, f_width=8, m_cap=64,
+                                rebuild_threshold=10**9)
+    eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    eng.rebuild()
+    names = ["/".join(t) for t in topics if t]
+
+    def check():
+        for t, g in zip(names, eng.match_batch(names)):
+            assert g == eng.match_host(T.words(t)), t
+
+    check()
+    eng.insert_many([(f"b/{i % 7}/+", 10**6 + i) for i in range(300)])
+    eng.delete(filters[0][0])
+    check()
+    eng.rebuild()
+    check()
+
+
+# ------------------------------------------------ one predicate (K6)
+
+PRED_CORPUS = [
+    "payload.a > 2", "payload.a >= payload.b", "payload.a = 3",
+    "payload.s = 'x'", "payload.s != 'nowhere'", "payload.s IN ('x', 'q')",
+    "qos IN (1, 2)", "retain != 1", "NOT (payload.a > 0) AND payload.b <= 2",
+    "payload.m = payload.n", "payload.s = payload.s2",
+    "payload.a = 1 OR payload.missing > 1", "payload.obj = payload.obj2",
+    "payload.a + 1 >= payload.b * 2", "payload.a div payload.b = 1",
+    "payload.a mod 3 = 0", "payload.a / payload.b > 1",
+    "payload.a - 0.5 < payload.b", "-payload.a > 1",
+    "payload.a * payload.b + payload.c = 0", "payload.a + 1 = payload.b * 2",
+    "payload.s != qos + 1", "payload.x IN (1, 'y', payload.a)",
+    "'x' IN (payload.s, payload.s2)", "true AND payload.a < 9 OR false",
+    "payload.a < 1 OR payload.b <= 1 AND payload.c >= 0",
+]
+
+
+@pytest.mark.cuda
+def test_predicate_kernel_equals_plain(cuda):
+    from emqx_tpu_torch.message import Message
+    from emqx_tpu_torch.rules import predicate as P
+    from emqx_tpu_torch.rules.runtime import build_env
+    from emqx_tpu_torch.rules.sql import parse_sql
+    from emqx_tpu_torch.state import (
+        predicate_columns_from_reference, predicate_program_from_code,
+    )
+
+    rng = random.Random(6)
+    payloads = TRAP_PAYLOADS + [
+        b'{"a": %d, "b": %d, "s": "%s", "s2": "%s", "x": %s}' % (
+            rng.randint(-5, 5), rng.randint(0, 3), rng.choice("xyzq").encode(),
+            rng.choice("xy").encode(), rng.choice([b"1", b'"y"', b"2"]))
+        for _ in range(700)]
+    envs = [build_env(Message(topic="t/1", payload=p, qos=k % 3,
+                              retain=bool(k % 2), from_client="c1"))
+            for k, p in enumerate(payloads)]
+    seen = set()
+    mk.reset_launches()
+    for src in PRED_CORPUS:
+        prog = P.compile_where(parse_sql(
+            f'SELECT * FROM "t" WHERE {src}').where)
+        got = prog.eval_batch(envs, device=cuda)
+        assert np.array_equal(got, prog.eval_batch(envs, device="cpu")), src
+        cols, sdict = prog.extract_columns(envs)
+        pc = predicate_columns_from_reference(
+            cols, P._literal_ids(prog.where, sdict), cuda)
+        code = P.lower_predicate(prog.where, prog.var_paths)
+        seen |= set(code.steps[:, 0].tolist())
+        dc = predicate_program_from_code(code, cuda)
+        args = (dc.steps, dc.lit, dc.result, pc.num, pc.sid, pc.err,
+                pc.lit_ids)
+        kern = mk.predicate_eval_batch(*args)
+        plain = mk.predicate_eval_plain(*args)
+        torch.cuda.synchronize()
+        assert kern.device.type == "cuda" and torch.equal(kern, plain), src
+        if src == "payload.a mod 3 = 0":  # the FMA payloads, as numpy
+            assert bool(kern[0])
+        if src == "payload.a * payload.b + payload.c = 0":
+            assert bool(kern[1])
+    assert seen == set(range(P.P_NLOAD, P.P_EQS + 1))  # every opcode
+    assert mk.predicate_eval_batch.launches == 2 * len(PRED_CORPUS)

@@ -22,6 +22,8 @@ import emqx_tpu_torch.broker.channel
 import emqx_tpu_torch.broker.listener
 import emqx_tpu_torch.ops.match_kernel
 import emqx_tpu_torch.ops._kernels
+import emqx_tpu_torch.parallel
+import emqx_tpu_torch.parallel.sharded
 import emqx_tpu_torch.rules
 import emqx_tpu_torch.rules.columns
 import emqx_tpu_torch.rules.engine

@@ -423,7 +423,7 @@ def test_parser_and_templates_equal_reference():
         ref_engine.render_template(t, data)) == "2/x/3/true/undefined/[1]/%s"
 
 
-def test_predicate_program_numpy_path_and_k6_not_ported():
+def test_predicate_program_device_path_equals_reference():
     rng = random.Random(4)
     msgs = [dict(topic="t/1", payload=_rand_payload(rng), qos=q,
                  retain=bool(q % 2), from_client="c1",
@@ -437,8 +437,11 @@ def test_predicate_program_numpy_path_and_k6_not_ported():
         if ref is None:
             assert prog is None
             continue
-        assert np.array_equal(prog.eval_batch(penvs), ref.eval_batch(renvs))
-    with pytest.raises(NotImplementedError, match="K6"):
-        prog.eval_batch(penvs, use_jax=True)
+        want = ref.eval_batch(renvs)
+        # K6 (its plain version on the CPU) against the reference's
+        # numpy and jit paths
+        got = prog.eval_batch(penvs, device="cpu")
+        assert np.array_equal(got, want)
+        assert np.array_equal(got, ref.eval_batch(renvs, use_jax=True))
     with pytest.raises(RuntimeError, match="schema registry"):
         FUNCS["schema_decode"]("s", b"{}")
