@@ -15,9 +15,15 @@ the publish path, then the publish path with config 4's 100 rules,
 whose kernel launches it counts.  Phases:
 
   device          the card's name and power limit (nvidia-smi)
-  build           nvcc of the kernel sources, with its seconds
-  kernel_parity   K1/K2/K3 against their plain versions, exactly
-  kernel_times    CUDA-event times, plain times, bytes and bounds
+  build           nvcc of the kernel sources, with its seconds, and each
+                  kernel's ptxas registers, stack frame and spills;
+                  fails if a lane-group scan kernel (K1, K2, K5, every
+                  group width) has a stack frame or spills
+  kernel_parity   K1/K2/K3 against their plain versions, exactly; K1,
+                  K2 and K5 also on `workload.full_frontier`, whose
+                  frontiers fill and overflow 16 lanes
+  kernel_times    CUDA-event times (K1: its one launch and two memsets),
+                  plain times, bytes and bounds
   sharded kernel  K5 on the 10M filters split over 4 shards against its
                   plain version, exactly, and its union of fids per
                   topic against K1's on the unsharded table; times
@@ -46,6 +52,7 @@ import asyncio
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -88,8 +95,17 @@ def phase(name: str) -> None:
 
 # --------------------------------------------------------------- timing
 
+# the spin that holds the card while the host issues a timed loop: about
+# 50 ms at the H100's clock, far more than 50 launches take to issue
+QUEUE_SPIN_CYCLES = 100_000_000
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+
+def cuda_ms(fn, iters: int, warmup: int = 2, queued: bool = False) -> float:
+    """CUDA-event time per call of ``fn`` over ``iters`` calls issued back
+    to back.  A launch shorter than the host's issue time per call reads
+    as that issue time.  With ``queued`` the calls wait behind a spin
+    kernel until the host has issued them all, so the events time the
+    card's work alone (the device time)."""
     import torch
 
     for _ in range(warmup):
@@ -97,6 +113,8 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -222,7 +240,41 @@ def phase_device():
     return card
 
 
-def phase_build():
+SCAN_KERNELS = ("match_rows_kernel", "sharded_match_rows_kernel",
+                "match_compact_kernel")  # K2, K5, K1: the lane-group body
+GROUP_WIDTHS = (1, 2, 4, 8, 16)
+
+
+def ptxas_table(log: str) -> dict:
+    """(kernel, template width or None) -> registers, stack frame and
+    spill bytes, from the ``-Xptxas=-v`` lines of the build."""
+    names = sorted(SCAN_KERNELS + ("decide_kernel", "rules_eval_kernel",
+                                   "predicate_eval_kernel"),
+                   key=len, reverse=True)
+    table, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            mangled = m.group(1)
+            name = next((n for n in names if f"{len(n)}{n}" in mangled),
+                        mangled)
+            g = re.search(rf"{len(name)}{name}ILi(\d+)EE", mangled)
+            cur = table.setdefault((name, int(g.group(1)) if g else None),
+                                   {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)),
+                       spill=int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["regs"] = int(m.group(1))
+    return table
+
+
+def phase_build(results):
     from emqx_tpu_torch.ops import _kernels
 
     phase("build")
@@ -231,9 +283,23 @@ def phase_build():
     print(f"build: nvcc {_kernels.build_info['seconds']:.2f} s, load "
           f"{time.perf_counter() - t0:.2f} s -> {_kernels.build_info['path']}",
           flush=True)
-    for line in _kernels.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    table = ptxas_table(_kernels.build_info["log"])
+    for (name, g), row in sorted(table.items(), key=str):
+        print(f"  ptxas: {name}{'' if g is None else f'<G={g}>'}: "
+              f"{row.get('regs')} registers, {row.get('stack')} B stack "
+              f"frame, {row.get('spill')} B spills", flush=True)
+    for name in SCAN_KERNELS:
+        for g in GROUP_WIDTHS:
+            row = table.get((name, g))
+            if row is None or "stack" not in row:
+                fail(f"ptxas printed nothing for {name}<G={g}>")
+            if row["stack"] or row["spill"]:
+                fail(f"{name}<G={g}> keeps a {row['stack']} B stack frame "
+                     f"and {row['spill']} B of spills: the lane-group scan "
+                     f"must live in registers")
+    results["ptxas"] = table
+    print(f"ptxas: the {len(SCAN_KERNELS) * len(GROUP_WIDTHS)} scan kernel "
+          f"instantiations have no stack frame and no spills", flush=True)
 
 
 def build_tables(n_filters: int):
@@ -299,6 +365,64 @@ def bound(n_bytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def full_frontier_parity() -> None:
+    """K1, K2 and K5 against their plain versions, exactly, on
+    `workload.full_frontier` (every filter over +/a/b/c up to 5 levels):
+    a topic's frontier doubles each level, so it fills all 16 lanes at
+    level 4 and overflows at level 5; B = BATCH topics."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch import workload as W
+    from emqx_tpu_torch.ops import match_kernel as mk
+    from emqx_tpu_torch.ops.automaton import build_automaton
+    from emqx_tpu_torch.ops.dictionary import TokenDict, encode_topics
+    from emqx_tpu_torch.parallel.sharded import (
+        build_sharded_index, make_mesh,
+    )
+    from emqx_tpu_torch.state import sharded_tables_from_reference
+
+    flts, tops = W.full_frontier(np.random.default_rng(6), BATCH)
+    items = [(fid, tuple(f.split("/"))) for fid, f in enumerate(flts)]
+    words = [tuple(t.split("/")) for t in tops]
+    td = TokenDict()
+    aut = build_automaton(items, td, max_levels=16)
+    batch = tuple(torch.from_numpy(a).cuda() for a in encode_topics(
+        td, words, aut.kernel_levels))
+    args = (torch.from_numpy(aut.fp_rows).cuda(),
+            torch.from_numpy(aut.node_rows).cuda(), aut.salt, *batch)
+    f = 16
+    for m, c_cap in ((128, 8 * BATCH), (16, BATCH)):
+        dense = mk.match_batch(*args, f_width=f, m_cap=m)
+        exact_equal(f"full frontier match_batch F={f} M={m}", dense,
+                    mk.match_batch_plain(*args, f_width=f, m_cap=m))
+        got = mk.match_batch_compact(*args, f_width=f, m_cap=m, c_cap=c_cap)
+        exact_equal(f"full frontier match_batch_compact F={f} M={m} "
+                    f"c_cap={c_cap}", got, mk.match_batch_compact_plain(
+                        *args, f_width=f, m_cap=m, c_cap=c_cap))
+        print(f"parity full frontier F={f} M={m} c_cap={c_cap} B={BATCH}: "
+              f"K1 and K2 equal their plain versions; {len(flts)} filters, "
+              f"overflow rows {int(dense[2].sum())}, total codes "
+              f"{int(got[2].item())}", flush=True)
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * N_SHARDS,
+                     sub=N_SHARDS)
+    std = TokenDict()
+    idx = build_sharded_index(items, std, N_SHARDS, max_levels=16)
+    sbatch = tuple(torch.from_numpy(a).cuda() for a in encode_topics(
+        std, words, idx.kernel_levels))
+    placed = sharded_tables_from_reference(*idx.tables, mesh)
+    (key,) = placed.fp_rows
+    tabs = (placed.fp_rows[key], placed.node_rows[key], placed.salts[key])
+    for f in (16, 8):  # a shard holds a quarter: F=8 overflows there
+        got = mk.sharded_match_local(*tabs, *sbatch, f_width=f, m_cap=128)
+        exact_equal(f"full frontier sharded_match K={N_SHARDS} F={f}", got,
+                    mk.sharded_match_plain(*tabs, *sbatch, f_width=f,
+                                           m_cap=128))
+        print(f"parity full frontier sharded K={N_SHARDS} F={f} M=128: K5 "
+              f"equals its plain version; overflow (row, shard) pairs "
+              f"{int(got[2].sum())}", flush=True)
+
+
 def phase_kernels(results):
     import numpy as np
     import torch
@@ -361,6 +485,7 @@ def phase_kernels(results):
                 (mk.decide_batch_plain(*dec),))
     print(f"parity decide N={DECIDE_N}: K3 equals its plain version",
           flush=True)
+    full_frontier_parity()
 
     phase("kernel_times")
     from emqx_tpu_torch.ops import _kernels
@@ -371,19 +496,20 @@ def phase_kernels(results):
         codes = torch.empty((BATCH, m), dtype=torch.int32, device="cuda")
         counts = torch.empty(BATCH, dtype=torch.int32, device="cuda")
         ovf = torch.empty(BATCH, dtype=torch.bool, device="cuda")
-        row_start = torch.empty(BATCH, dtype=torch.int32, device="cuda")
         flat = torch.empty(BATCH, dtype=torch.int32, device="cuda")
         counts16 = torch.empty(BATCH, dtype=torch.int16, device="cuda")
         total = torch.empty(1, dtype=torch.int32, device="cuda")
+        scratch = torch.empty(_kernels.compact_scratch_words(
+            BATCH, tok.shape[1], f, m), dtype=torch.int64, device="cuda")
 
         def rows_only(f=f, m=m):
             _kernels.match_rows(tab.fp_rows, tab.node_rows, tab.salt,
                                 *batch, f, m, codes, counts, ovf)
 
-        def compact_only(f=f, m=m):
-            rows_only(f, m)
-            _kernels.compact(codes, counts, ovf, m, BATCH, row_start, total,
-                             flat, counts16)
+        def compact_only(f=f, m=m):  # one launch and its two memsets
+            _kernels.match_compact(tab.fp_rows, tab.node_rows, tab.salt,
+                                   *batch, f, m, BATCH, flat, counts16,
+                                   total, scratch)
 
         for name, fn, plain, kw, c_cap, bare in (
             ("match_batch_compact", mk.match_batch_compact,
@@ -393,6 +519,7 @@ def phase_kernels(results):
              rows_only),
         ):
             ms = cuda_ms(bare, 50, 10)
+            dev_ms = cuda_ms(bare, 50, 10, queued=True)
             wrap_ms = cuda_ms(
                 lambda: fn(*args, f_width=f, m_cap=m, **kw), 50, 10)
             plain_ms = cuda_ms(
@@ -401,29 +528,32 @@ def phase_kernels(results):
                 tab, batch, f, c_cap=c_cap, m_cap=m)
             b_ms, b_by = bound(n_bytes, ops)
             print(f"time {name} F={f} M={m} B={BATCH}: kernel {ms:.4f} ms "
-                  f"(wrapper {wrap_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                  f"(device {dev_ms:.4f} ms, wrapper {wrap_ms:.4f} ms), "
+                  f"plain {plain_ms:.4f} ms, "
                   f"bound {b_ms:.5f} ms by {b_by} ({n_bytes} B: {buckets} "
                   f"bucket rows, {nodes} node rows, {lanes} live "
                   f"lane-levels; {ops} ops), no library call [{card}]",
                   flush=True)
             if (f, m) == SHAPES[1]:
                 results["kernels"][name] = dict(
-                    ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by)
+                    ms=ms, device_ms=dev_ms, wrapper_ms=wrap_ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     out = torch.empty(DECIDE_N, dtype=torch.uint8, device="cuda")
     ms = cuda_ms(lambda: _kernels.decide(*dec, out), 50, 5)
+    dev_ms = cuda_ms(lambda: _kernels.decide(*dec, out), 50, 5, queued=True)
     wrap_ms = cuda_ms(lambda: mk.decide_batch(*dec), 50, 5)
     plain_ms = cuda_ms(lambda: mk.decide_batch_plain(*dec), 10)
     n = DECIDE_N
     n_bytes = n * 12 + n + r * 4 + b * 6
     b_ms, b_by = bound(n_bytes, n * 12)
-    print(f"time decide_batch N={n}: kernel {ms:.4f} ms (wrapper with its "
-          f"index range check {wrap_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+    print(f"time decide_batch N={n}: kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms, wrapper with its index range check "
+          f"{wrap_ms:.4f} ms), plain {plain_ms:.4f} ms, "
           f"bound {b_ms:.5f} ms by {b_by} ({n_bytes} B), no library call "
           f"[{card}]", flush=True)
     results["kernels"]["decide_batch"] = dict(
-        ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by)
+        ms=ms, device_ms=dev_ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by)
     del tab, batch, args, dec
     torch.cuda.empty_cache()
     return enc, (tok, ln, dol), (k1_rows, k1_fids, k1_ovf)
@@ -540,6 +670,7 @@ def phase_sharded_kernel(results, enc, batch_np, k1) -> None:
                                     ovf_b, total_b)
 
     ms = cuda_ms(bare, 50, 10)
+    dev_ms = cuda_ms(bare, 50, 10, queued=True)
     wrap_ms = cuda_ms(lambda: mk.sharded_match_local(
         *tabs, *batch, f_width=f, m_cap=m), 50, 10)
     plain_ms = cuda_ms(lambda: mk.sharded_match_plain(
@@ -547,13 +678,14 @@ def phase_sharded_kernel(results, enc, batch_np, k1) -> None:
     n_bytes, ops, lanes = sharded_bytes(*tabs, batch, f, m)
     b_ms, b_by = bound(n_bytes, ops)
     print(f"time sharded_match K={N_SHARDS} F={f} M={m} B={b}: kernel "
-          f"{ms:.4f} ms (with its total zeroed; wrapper {wrap_ms:.4f} ms), "
+          f"{ms:.4f} ms (with its total zeroed; device {dev_ms:.4f} ms, "
+          f"wrapper {wrap_ms:.4f} ms), "
           f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
           f"({n_bytes} B; {lanes} live lane-levels; {ops} ops), no library "
           f"call [{card}]", flush=True)
     results["kernels"]["sharded_match"] = dict(
-        ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by)
+        ms=ms, device_ms=dev_ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by)
     del placed, tabs, batch, got, want, entry
     torch.cuda.empty_cache()
 
@@ -668,10 +800,13 @@ def phase_rules_kernel(results):
               f"opcodes {ops_used}; stack and window built in "
               f"{built:.1f} s)", flush=True)
         out = torch.empty((r, RULES_W), dtype=torch.bool, device="cuda")
-        ms = cuda_ms(lambda: _kernels.rules_eval(
-            prog.code, prog.a0, prog.a1, prog.a2, prog.a3, prog.litn,
-            prog.last, pl.lit_ranks, pl.num, pl.sid, pl.err, pl.prs, out),
-            20, 3)
+        def bare():
+            _kernels.rules_eval(
+                prog.code, prog.a0, prog.a1, prog.a2, prog.a3, prog.litn,
+                prog.last, pl.lit_ranks, pl.num, pl.sid, pl.err, pl.prs, out)
+
+        ms = cuda_ms(bare, 20, 3)
+        dev_ms = cuda_ms(bare, 20, 3, queued=True)
 
         def wrapper():
             # what the engine does per window: planes up, matrix down
@@ -689,14 +824,15 @@ def phase_rules_kernel(results):
         # bounds the operations
         b_ms, b_by = max(bound(n_bytes, fp_ops, FP64_OPS_PER_S),
                          bound(n_bytes, int_ops, FP32_OPS_PER_S))
-        print(f"time rules_eval_batch R={r} W={RULES_W}: kernel {ms:.4f} ms, "
-              f"wrapper (planes up, kernel, [R, W] down) {wrap_ms:.4f} ms, "
+        print(f"time rules_eval_batch R={r} W={RULES_W}: kernel {ms:.4f} ms "
+              f"(device {dev_ms:.4f} ms), wrapper (planes up, kernel, "
+              f"[R, W] down) {wrap_ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
               f"({n_bytes} B; {fp_ops} float64 and {int_ops} int32 ops), "
               f"no library call [{card}]",
               flush=True)
-        row = dict(ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
-                   bound_ms=b_ms, bound_by=b_by)
+        row = dict(ms=ms, device_ms=dev_ms, wrapper_ms=wrap_ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         results["rules_sizes"][n_rules] = row
         if n_rules == RULES_SIZES[0]:
             results["kernels"]["rules_eval_batch"] = row
@@ -803,6 +939,8 @@ def phase_predicate_kernel(results) -> None:
     rid, code, cols, lit_ids, args = longest
     out = torch.empty(RULES_W, dtype=torch.bool, device="cuda")
     ms = cuda_ms(lambda: _kernels.predicate_eval(*args, out), 50, 5)
+    dev_ms = cuda_ms(lambda: _kernels.predicate_eval(*args, out), 50, 5,
+                     queued=True)
 
     def wrapper():
         pc = predicate_columns_from_reference(cols, lit_ids, "cuda")
@@ -816,14 +954,15 @@ def phase_predicate_kernel(results) -> None:
     b_ms, b_by = max(bound(n_bytes, fp_ops, FP64_OPS_PER_S),
                      bound(n_bytes, int_ops, FP32_OPS_PER_S))
     print(f"time predicate_eval_batch {rid} S={len(code.steps)} "
-          f"V={len(code.names)} W={RULES_W}: kernel {ms:.4f} ms, wrapper "
+          f"V={len(code.names)} W={RULES_W}: kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms), wrapper "
           f"(columns up, kernel, verdicts down) {wrap_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({n_bytes} B; "
           f"{fp_ops} float64 and {int_ops} int32 ops), no library call "
           f"[{card}]", flush=True)
     results["kernels"]["predicate_eval_batch"] = dict(
-        ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by)
+        ms=ms, device_ms=dev_ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by)
 
 
 def sharded_engine_run(mesh, filters, pops, label):
@@ -1377,7 +1516,7 @@ def main() -> None:
     t_start = time.perf_counter()
     results = {"kernels": {}, "launches": {}, "rules_sizes": {}}
     results["card"] = phase_device()
-    phase_build()
+    phase_build(results)
     enc, batch_np, k1 = phase_kernels(results)
     phase_sharded_kernel(results, enc, batch_np, k1)
     del enc, batch_np, k1
@@ -1398,7 +1537,8 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": results["launches"][name], "max_abs_err": 0,
-            "ms": k["ms"], "wrapper_ms": k["wrapper_ms"],
+            "ms": k["ms"], "device_ms": k["device_ms"],
+            "wrapper_ms": k["wrapper_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
         })

@@ -4,7 +4,8 @@ At first use each source is compiled with ``nvcc`` for ``sm_90a`` (one
 ``nvcc`` per source, all started together) and the objects are linked
 into one shared library with a plain C interface, under ``ops/build/``
 (named by a hash of the sources and flags, so a stale library is never
-loaded), and bound with ctypes.  Pointers and the stream pass as
+loaded, with the compiler's output beside it in ``<library>.log``), and
+bound with ctypes.  Pointers and the stream pass as
 ``ctypes.c_void_p``; each entry point returns ``cudaGetLastError()``
 and a non-zero code raises here.
 
@@ -71,7 +72,11 @@ def build() -> str:
     renames the library into place, so concurrent builds are safe."""
     path = library_path()
     if os.path.exists(path):
-        build_info.update(seconds=0.0, path=path)
+        log = ""
+        if os.path.exists(path + ".log"):
+            with open(path + ".log") as f:
+                log = f.read()
+        build_info.update(seconds=0.0, log=log, path=path)
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
@@ -97,6 +102,9 @@ def build() -> str:
             ok = link.returncode == 0
         if not ok:
             raise RuntimeError(f"nvcc failed:\n{log}")
+        with open(os.path.join(tmp, "log"), "w") as f:
+            f.write(log)
+        os.replace(os.path.join(tmp, "log"), path + ".log")
         os.replace(lib, path)
     build_info.update(seconds=time.perf_counter() - t0, log=log, path=path)
     return path
@@ -114,10 +122,13 @@ def load() -> ctypes.CDLL:
                 _I, _P, _P, _P, _P,
             ]
             lib.emqx_match_rows.restype = _I
-            lib.emqx_compact.argtypes = [
-                _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+            lib.emqx_match_compact_scratch.argtypes = [_I, _I, _I, _I]
+            lib.emqx_match_compact_scratch.restype = ctypes.c_longlong
+            lib.emqx_match_compact.argtypes = [
+                _P, _I, _P, _I, ctypes.c_uint32, _P, _P, _P, _I, _I, _I,
+                _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _P,
             ]
-            lib.emqx_compact.restype = _I
+            lib.emqx_match_compact.restype = _I
             lib.emqx_decide.argtypes = [_P] * 10 + [_I, _P, _P]
             lib.emqx_decide.restype = _I
             lib.emqx_rules_eval.argtypes = (
@@ -173,19 +184,42 @@ def match_rows(fp_rows, node_rows, salt, tokens, lengths, dollar,
     _raise_on(lib, rc, "match_rows")
 
 
-def compact(codes, counts, ovf, m_cap, c_cap, row_start, total, flat,
-            counts_out) -> None:
-    """Launch the count scan and the scatter into the flat buffer."""
-    dev = codes.device
+def compact_scratch_words(n_rows, levels, f_width, m_cap) -> int:
+    """The int64 words of the look-back scratch `match_compact` needs
+    for this batch; raises when a block's staged codes cannot fit the
+    card's shared memory (a topic depth far past any automaton's)."""
+    words = load().emqx_match_compact_scratch(n_rows, levels, f_width,
+                                              m_cap)
+    if words < 0:
+        raise ValueError(
+            f"no compact match shape for B={n_rows}, L={levels}, "
+            f"F={f_width}, M={m_cap}")
+    return words
+
+
+def match_compact(fp_rows, node_rows, salt, tokens, lengths, dollar,
+                  f_width, m_cap, c_cap, flat, counts_out, total,
+                  scratch) -> None:
+    """Launch the one-pass compact scan: flat codes (-1 filled past the
+    total), int16 counts (negative on overflow) and the total.  The
+    entry point fills ``flat`` and zeroes ``scratch`` (int64, at least
+    `compact_scratch_words`) before the launch, so both may be reused."""
+    dev = tokens.device
     stream = _stream(dev)
+    for name, t in (("fp_rows", fp_rows), ("node_rows", node_rows)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     lib = load()
+    b, levels = tokens.shape
     with torch.cuda.device(dev):
-        rc = lib.emqx_compact(
-            _ptr(codes), _ptr(counts), _ptr(ovf), codes.shape[0], m_cap,
-            c_cap, _ptr(row_start), _ptr(total), _ptr(flat),
-            _ptr(counts_out), stream,
+        rc = lib.emqx_match_compact(
+            _ptr(fp_rows), fp_rows.shape[0], _ptr(node_rows),
+            node_rows.shape[0], salt, _ptr(tokens), _ptr(lengths),
+            _ptr(dollar), b, levels, f_width, m_cap, c_cap, _ptr(flat),
+            _ptr(counts_out), _ptr(total), _ptr(scratch), scratch.numel(),
+            stream,
         )
-    _raise_on(lib, rc, "compact")
+    _raise_on(lib, rc, "match_compact")
 
 
 def decide(oa_qos, oa_nl, oa_rap, oa_subid, opts_rows, client_rows,

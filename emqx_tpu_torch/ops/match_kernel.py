@@ -63,7 +63,7 @@ from .automaton import BUCKET
 from .dictionary import PLUS_TOK, SENTINEL
 
 SENT = int(SENTINEL)
-F_MAX = 16  # frontier width the kernel's per-thread arrays hold
+F_MAX = 16  # frontier width: the widest lane group of the kernels
 M_MAX = 32767  # largest m_cap whose counts fit the compact int16 column
 _M32 = 0xFFFFFFFF
 
@@ -646,19 +646,17 @@ def match_batch_compact(fp_rows, node_rows, salt, tokens, lengths, dollar,
         )
     from . import _kernels
 
-    b = tokens.shape[0]
+    b, levels = tokens.shape
     dev = tokens.device
-    codes = torch.empty((b, m_cap), dtype=torch.int32, device=dev)
-    counts = torch.empty(b, dtype=torch.int32, device=dev)
-    ovf = torch.empty(b, dtype=torch.bool, device=dev)
-    row_start = torch.empty(b, dtype=torch.int32, device=dev)
     flat = torch.empty(c_cap, dtype=torch.int32, device=dev)
     counts_out = torch.empty(b, dtype=torch.int16, device=dev)
     total = torch.empty(1, dtype=torch.int32, device=dev)
-    _kernels.match_rows(fp_rows, node_rows, salt, tokens, lengths, dollar,
-                        f_width, m_cap, codes, counts, ovf)
-    _kernels.compact(codes, counts, ovf, m_cap, c_cap, row_start, total,
-                     flat, counts_out)
+    scratch = torch.empty(
+        _kernels.compact_scratch_words(b, levels, f_width, m_cap),
+        dtype=torch.int64, device=dev)
+    _kernels.match_compact(fp_rows, node_rows, salt, tokens, lengths,
+                           dollar, f_width, m_cap, c_cap, flat, counts_out,
+                           total, scratch)
     match_batch_compact.launches += 1
     return flat, counts_out, total
 

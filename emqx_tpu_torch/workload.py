@@ -11,6 +11,9 @@ loop over 10M filters would dominate a run.  Given a `TokenDict`
 seeded by `seed_words`, it yields exactly what
 ``encode_filters(make_filters(...))`` would.
 
+`full_frontier` is the match kernels' worst case: a filter set whose
+frontier doubles every level, to fill and overflow the widest frontier.
+
 `make_rules` and `make_rule_payloads` add config 4's rule-engine half:
 SQL rules whose FROM filters cover the fleet topic families and whose
 WHERE clauses are the predicate shapes of ``bench.py``'s rules bench,
@@ -206,3 +209,26 @@ def make_rule_payloads(rng: np.random.Generator, n: int,
             body["w"] = int(v[i]) % 5
         out.append(json.dumps(body).encode())
     return out
+
+
+def full_frontier(rng: np.random.Generator, n_topics: int,
+                  depth: int = 5) -> Tuple[List[str], List[str]]:
+    """Every filter over ``+``, ``a``, ``b`` and ``c`` of 1..``depth``
+    levels, those of up to ``depth - 2`` levels also with a trailing
+    ``#``; and ``n_topics`` topics of 0..``depth + 2`` levels over
+    ``a``..``d`` (``d`` matches only ``+``), a ``$``-topic and a topic
+    deeper than any filter among them.  A topic over ``a``..``c`` has
+    2**i frontier nodes at level i: 16 at level 4, 32 (an overflow of
+    the widest frontier) at level 5."""
+    filters: List[str] = []
+    level = [[]]
+    for d in range(1, depth + 1):
+        level = [ws + [w] for ws in level for w in ("+", "a", "b", "c")]
+        filters += ["/".join(ws) for ws in level]
+        if d <= depth - 2:
+            filters += ["/".join(ws + ["#"]) for ws in level]
+    words = np.array(["a", "b", "c", "d"])
+    topics = ["/".join(rng.choice(words, int(rng.integers(0, depth + 3))))
+              for _ in range(max(n_topics - 2, 0))]
+    topics += ["$SYS/a/b", "/".join(["a"] * (3 * depth))][:n_topics]
+    return filters, topics

@@ -48,17 +48,50 @@ def _world(seed, n_filters=400, n_topics=300):
     return filters, topics
 
 
+def _full_world(n_topics=70):
+    """`workload.full_frontier`: frontiers that fill and overflow every
+    width up to 16."""
+    from emqx_tpu_torch import workload as W
+
+    flts, tops = W.full_frontier(np.random.default_rng(9), n_topics)
+    return ([(fid, tuple(f.split("/"))) for fid, f in enumerate(flts)],
+            [tuple(t.split("/")) for t in tops])
+
+
+def _rows(topics, b, seed):
+    """``b`` topic rows drawn from ``topics``: ragged last groups and
+    blocks, and many blocks for the compact look-back."""
+    rng = random.Random(seed)
+    return topics[:b] + [rng.choice(topics) for _ in range(b - len(topics))]
+
+
+# (world, f_width, m_cap, c_cap, B); B None: the world's own topics
+MATCH_CASES = (
+    [("random", 8, 64, 1024, None), ("random", 2, 4, 64, None),
+     ("random", 16, 128, 37, None)]
+    # every group width and every F that is not a power of two, on
+    # frontiers that fill and overflow; the m_cap and c_cap clips
+    + [("full", f, 128, 4096, None) for f in range(1, 17)]
+    + [("full", 16, 8, 37, None), ("full", 5, 3, 50, None)]
+    + [("full", 16, 128, b * 4, b) for b in (1, 33, 4097, 65537)]
+    + [("random", 3, 16, b, b) for b in (33, 65537)]
+)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("f_width,m_cap,c_cap", [(8, 64, 1024), (2, 4, 64),
-                                                 (16, 128, 37)])
-def test_match_kernels_equal_plain(cuda, f_width, m_cap, c_cap):
-    filters, topics = _world(f_width)
+@pytest.mark.parametrize("world,f_width,m_cap,c_cap,b", MATCH_CASES)
+def test_match_kernels_equal_plain(cuda, world, f_width, m_cap, c_cap, b):
+    filters, topics = (_full_world() if world == "full"
+                       else _world(f_width))
+    if b is not None:
+        topics = _rows(topics, b, f_width)
     td = TokenDict()
     aut = build_automaton(filters, td, max_levels=8)
     tok, ln, dol = encode_topics(td, topics, aut.kernel_levels)
     cpu = [torch.from_numpy(a) for a in (aut.fp_rows, aut.node_rows, tok,
                                          ln, dol)]
     gpu = [t.to(cuda) for t in cpu]
+    mk.reset_launches()
     for fn, extra in ((mk.match_batch, {}),
                       (mk.match_batch_compact, {"c_cap": c_cap})):
         want = fn(cpu[0], cpu[1], aut.salt, *cpu[2:], f_width=f_width,
@@ -74,6 +107,68 @@ def test_match_kernels_equal_plain(cuda, f_width, m_cap, c_cap):
             assert g.device.type == "cuda" and g.dtype == w.dtype
             assert torch.equal(w, g.cpu())
             assert torch.equal(w, p.cpu())
+        if fn is mk.match_batch and world == "full" and b is None:
+            assert bool(want[2].any())  # some frontier overflowed
+    assert mk.launches()["match_batch"] == 1
+    assert mk.launches()["match_batch_compact"] == 1
+
+
+@pytest.mark.cuda
+def test_compact_kernel_reuses_its_outputs(cuda):
+    """One-pass K1 launched again and again into the same flat, counts,
+    total and look-back scratch, on batches of other sizes: the entry
+    point refills flat and resets the scratch (ticket counter and
+    status words) every time."""
+    from emqx_tpu_torch.ops import _kernels
+
+    filters, topics = _full_world()
+    td = TokenDict()
+    aut = build_automaton(filters, td, max_levels=8)
+    fp, nodes = (torch.from_numpy(a).to(cuda)
+                 for a in (aut.fp_rows, aut.node_rows))
+    big, c_cap = 20_000, 60_000
+    flat = torch.empty(c_cap, dtype=torch.int32, device=cuda)
+    counts = torch.empty(big, dtype=torch.int16, device=cuda)
+    total = torch.empty(1, dtype=torch.int32, device=cuda)
+    runs = ((big, 16, 128), (5_000, 4, 16), (big, 1, 128), (big, 16, 128))
+    scratch = torch.empty(max(
+        _kernels.compact_scratch_words(b, aut.kernel_levels, f, m)
+        for b, f, m in runs), dtype=torch.int64, device=cuda)
+    for b, f, m in runs:
+        tok, ln, dol = (torch.from_numpy(a).to(cuda) for a in encode_topics(
+            td, _rows(topics, b, b + f), aut.kernel_levels))
+        _kernels.match_compact(fp, nodes, aut.salt, tok, ln, dol, f, m,
+                               c_cap, flat, counts[:b], total, scratch)
+        want = mk.match_batch_compact_plain(
+            fp, nodes, aut.salt, tok, ln, dol, f_width=f, m_cap=m,
+            c_cap=c_cap)
+        torch.cuda.synchronize()
+        for g, w in zip((flat, counts[:b], total), want):
+            assert torch.equal(g, w), (b, f, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [40, 400])
+def test_compact_kernel_stages_deep_rows(cuda, levels):
+    """K1 on token rows far wider than the automaton: a row may then
+    record up to 1 + (L + 1) * F codes, so at L = 400 a block's staged
+    codes pass 48 KB of shared memory and the launch asks for more."""
+    filters, topics = _full_world()
+    td = TokenDict()
+    aut = build_automaton(filters, td, max_levels=8)
+    tok, ln, dol = encode_topics(td, _rows(topics, 3000, levels), levels)
+    args = [torch.from_numpy(a).to(cuda) for a in (aut.fp_rows,
+                                                   aut.node_rows)]
+    batch = [torch.from_numpy(a).to(cuda) for a in (tok, ln, dol)]
+    for f, m in ((16, mk.M_MAX), (3, 200)):
+        got = mk.match_batch_compact(args[0], args[1], aut.salt, *batch,
+                                     f_width=f, m_cap=m, c_cap=50_000)
+        want = mk.match_batch_compact_plain(
+            args[0], args[1], aut.salt, *batch, f_width=f, m_cap=m,
+            c_cap=50_000)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (levels, f, m)
 
 
 @pytest.mark.cuda
@@ -274,19 +369,26 @@ def test_rules_broker_on_card_equals_scalar_referee(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("f_width,m_cap", [(8, 64), (2, 4)])
-def test_sharded_kernel_equals_plain(cuda, f_width, m_cap):
+@pytest.mark.parametrize("world,f_width,m_cap,n_shards", [
+    ("random", 8, 64, 4), ("random", 2, 4, 4), ("random", 5, 16, 1),
+    ("full", 16, 128, 4), ("full", 16, 24, 1), ("full", 7, 128, 4),
+])
+def test_sharded_kernel_equals_plain(cuda, world, f_width, m_cap, n_shards):
     from emqx_tpu_torch.parallel import sharded as sh
     from emqx_tpu_torch.state import sharded_tables_from_reference
 
-    filters, topics = _world(f_width, 1200, 500)
-    # no fid in shard 3: an empty, all-padding partition
-    filters = [(fid, ws) for fid, ws in filters
-               if fid % 4 != 3 and ("+" in ws or "#" in ws)]
+    if world == "full":
+        filters, topics = _full_world(496)
+        filters = [(fid, ws) for fid, ws in filters if fid % 4 != 3]
+    else:
+        filters, topics = _world(f_width, 1200, 500)
+        # no fid in shard 3: an empty, all-padding partition
+        filters = [(fid, ws) for fid, ws in filters
+                   if fid % 4 != 3 and ("+" in ws or "#" in ws)]
     td = TokenDict()
-    idx = sh.build_sharded_index(filters, td, 4, max_levels=8)
+    idx = sh.build_sharded_index(filters, td, n_shards, max_levels=8)
     tok, ln, dol = encode_topics(td, topics[:496], idx.kernel_levels)
-    mesh = sh.make_mesh(devices=[cuda] * 4, sub=4)
+    mesh = sh.make_mesh(devices=[cuda] * n_shards, sub=n_shards)
     placed = sharded_tables_from_reference(*idx.tables, mesh)
     (key,) = placed.fp_rows
     args = (placed.fp_rows[key], placed.node_rows[key], placed.salts[key],
@@ -296,16 +398,19 @@ def test_sharded_kernel_equals_plain(cuda, f_width, m_cap):
                            m_cap=m_cap)
     assert mk.sharded_match_local.launches == 1  # one card, one launch
     plain = mk.sharded_match_plain(*args, f_width=f_width, m_cap=m_cap)
-    cpu = sh.sharded_match(sh.make_mesh(devices=["cpu"] * 4, sub=4),
+    cpu = sh.sharded_match(sh.make_mesh(devices=["cpu"] * n_shards,
+                                        sub=n_shards),
                            *idx.tables, tok, ln, dol, f_width=f_width,
                            m_cap=m_cap)
     torch.cuda.synchronize()
     for g, p, c in zip(got, plain, cpu):
         assert g.device.type == "cuda" and g.dtype == c.dtype
         assert torch.equal(g, p) and torch.equal(g.cpu(), c)
-    assert not got[1][3].any() and int(got[3].sum()) > 0
+    assert int(got[3].sum()) > 0
+    if n_shards == 4 and world == "random":
+        assert not got[1][3].any()
     # K2 on each shard's slice gives the same codes (one scan body)
-    for k in range(4):
+    for k in range(n_shards):
         dense = mk.match_batch(args[0][k], args[1][k],
                                int(idx.tables[2][k]), *args[3:],
                                f_width=f_width, m_cap=m_cap)

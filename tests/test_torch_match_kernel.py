@@ -6,7 +6,8 @@ or boolean, so every comparison is exact (tolerance 0).
 The worlds are those of tests/test_match_engine.py (randomized sets
 over a tiny alphabet, '$'-topic rules, '#' matching its parent level,
 empty levels, frontier overflow, topics deeper than the automaton) plus
-a compact buffer that clips (total > c_cap), and the decide cases of
+full frontiers at F=16 and F=5 (`workload.full_frontier`), a compact
+buffer that clips (total > c_cap), and the decide cases of
 tests/test_decide_columns.py."""
 
 import random
@@ -25,6 +26,7 @@ from emqx_tpu_torch.ops import match_kernel as mk
 from emqx_tpu_torch.ops.automaton import build_automaton
 from emqx_tpu_torch.ops.dictionary import TokenDict, encode_topics
 from emqx_tpu_torch.state import tables_from_reference
+from emqx_tpu_torch.workload import full_frontier
 
 WORDS = ["a", "b", "c", "", "dev", "$SYS", "$share-ish", "x"]
 B_PAD = 256  # one padded batch shape keeps the JAX compiles few
@@ -78,6 +80,14 @@ def _overflow():
     return filters, topics, dict(max_levels=8, f_width=2, m_cap=4)
 
 
+def _full_frontier(f_width):
+    """`workload.full_frontier`: every filter over +/a/b/c up to 5
+    levels, so a topic's frontier doubles each level; at F=16 it fills
+    all lanes at level 4 and overflows at level 5."""
+    filters, topics = full_frontier(np.random.default_rng(f_width), 62)
+    return filters, topics, dict(max_levels=8, f_width=f_width, m_cap=128)
+
+
 WORLDS = {
     **{f"randomized{s}": (lambda s=s: _randomized(s)) for s in range(4)},
     "dollar": lambda: (
@@ -103,6 +113,8 @@ WORLDS = {
          "a/b/c/d/e/f/g", "z/b"],
         dict(max_levels=4, f_width=8, m_cap=128),
     ),
+    "full_frontier16": lambda: _full_frontier(16),
+    "full_frontier5": lambda: _full_frontier(5),
 }
 
 
