@@ -18,7 +18,8 @@ whose kernel launches it counts.  Phases:
   build           nvcc of the kernel sources, with its seconds, and each
                   kernel's ptxas registers, stack frame and spills;
                   fails if a lane-group scan kernel (K1, K2, K5, every
-                  group width) has a stack frame or spills
+                  group width), K4 (both instances) or K3 has a stack
+                  frame or spills
   kernel_parity   K1/K2/K3 against their plain versions, exactly; K1,
                   K2 and K5 also on `workload.full_frontier`, whose
                   frontiers fill and overflow 16 lanes
@@ -27,7 +28,9 @@ whose kernel launches it counts.  Phases:
   sharded kernel  K5 on the 10M filters split over 4 shards against its
                   plain version, exactly, and its union of fids per
                   topic against K1's on the unsharded table; times
-  rules kernel    K4 against its plain version, exactly, and its times
+  rules kernel    K4 (the program lowered once, as the engine does)
+                  against its plain version and the stacked program's,
+                  exactly; its times and issue slots a warp-step
   predicate kernel  K6 for each of config 4's rules that compiles, over
                   4,096 messages, against its plain version and the
                   rule interpreter (`eval_where`), exactly; times
@@ -38,6 +41,9 @@ whose kernel launches it counts.  Phases:
   broker          CLI round trip, then the in-process broker under load
   rules broker    the broker with 100 rules under load, against a second
                   broker pinned to the scalar interpreter referee
+  main-path shapes  the N of every K3 launch of the broker run and the
+                  (R, W) of every K4 launch of the rules broker run,
+                  with K3 and K4 timed on their median launch's window
   kernels         one JSON line per kernel (launches from the runs of
                   each kernel's path)
 
@@ -68,6 +74,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "match_batch_compact": (MATCH_SOURCE,
                             "emqx_tpu/ops/match_kernel.py:190"),
     "match_batch": (MATCH_SOURCE, "emqx_tpu/ops/match_kernel.py:159"),
+    # the wrappers that launch K3 and K4 are ops.match_kernel.
+    # decide_packed and rules_eval_lowered
     "decide_batch": (MATCH_SOURCE, "emqx_tpu/ops/match_kernel.py:270"),
     "rules_eval_batch": (RULES_SOURCE, "emqx_tpu/ops/match_kernel.py:502"),
     # the wrapper is ops.match_kernel.sharded_match_local
@@ -243,6 +251,10 @@ def phase_device():
 SCAN_KERNELS = ("match_rows_kernel", "sharded_match_rows_kernel",
                 "match_compact_kernel")  # K2, K5, K1: the lane-group body
 GROUP_WIDTHS = (1, 2, 4, 8, 16)
+# K4's two instances (planes staged in shared memory or read through L1)
+# and K3: their registers must hold the whole state
+REGISTER_KERNELS = (("rules_eval_kernel", 1), ("rules_eval_kernel", 0),
+                    ("decide_kernel", None))
 
 
 def ptxas_table(log: str) -> dict:
@@ -259,7 +271,7 @@ def ptxas_table(log: str) -> dict:
             mangled = m.group(1)
             name = next((n for n in names if f"{len(n)}{n}" in mangled),
                         mangled)
-            g = re.search(rf"{len(name)}{name}ILi(\d+)EE", mangled)
+            g = re.search(rf"{len(name)}{name}IL[ib](\d+)EE", mangled)
             cur = table.setdefault((name, int(g.group(1)) if g else None),
                                    {})
             continue
@@ -297,9 +309,18 @@ def phase_build(results):
                 fail(f"{name}<G={g}> keeps a {row['stack']} B stack frame "
                      f"and {row['spill']} B of spills: the lane-group scan "
                      f"must live in registers")
+    for name, g in REGISTER_KERNELS:
+        row = table.get((name, g))
+        if row is None or "stack" not in row:
+            fail(f"ptxas printed nothing for {name}<{g}>")
+        if row["stack"] or row["spill"]:
+            fail(f"{name}<{g}> keeps a {row['stack']} B stack frame and "
+                 f"{row['spill']} B of spills: its registers must hold "
+                 f"its state")
     results["ptxas"] = table
     print(f"ptxas: the {len(SCAN_KERNELS) * len(GROUP_WIDTHS)} scan kernel "
-          f"instantiations have no stack frame and no spills", flush=True)
+          f"instantiations, K4's two and K3 have no stack frame and no "
+          f"spills", flush=True)
 
 
 def build_tables(n_filters: int):
@@ -423,6 +444,51 @@ def full_frontier_parity() -> None:
               f"{int(got[2].sum())}", flush=True)
 
 
+def decide_bytes(n, r, b):
+    """Bytes K3 must move: per delivery its opts row, client row and
+    message index in and its byte out, each opts row's four option
+    bytes and each message's qos, retain and from row once; 12 integer
+    operations a delivery."""
+    return n * 12 + n + r * 4 + b * 6, n * 12
+
+
+def decide_times(card, oa, cols, wrapper, what, label=""):
+    """K3 held against its plain version on these inputs (``oa`` packed,
+    ``cols`` the six delivery and message columns), then its times: the
+    launch alone (CUDA events, then queued behind a spin: the device
+    time), ``wrapper`` (a call that ends on the host, CUDA events as for
+    the launch), the plain version and the bound."""
+    import torch
+
+    from emqx_tpu_torch.ops import _kernels
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    n, r, b = cols[0].shape[0], oa.shape[0], cols[3].shape[0]
+    out = torch.empty(n, dtype=torch.uint8, device="cuda")
+    err = torch.empty(1, dtype=torch.int32, device="cuda")
+
+    def bare():  # the error word's memset and the launch
+        _kernels.decide(oa, *cols, out, err)
+
+    bare()
+    exact_equal(f"decide_batch{label} N={n}", (out, err),
+                mk.decide_packed_plain(oa, *cols))
+    ms = cuda_ms(bare, 50, 5)
+    dev_ms = cuda_ms(bare, 50, 5, queued=True)
+    wrap_ms = cuda_ms(wrapper, 50, 5)
+    plain_ms = cuda_ms(lambda: mk.decide_packed_plain(oa, *cols), 10)
+    n_bytes, ops = decide_bytes(n, r, b)
+    b_ms, b_by = bound(n_bytes, ops)
+    print(f"parity decide_batch{label} N={n} R={r} B={b}: K3 equals its "
+          f"plain version", flush=True)
+    print(f"time decide_batch{label} N={n} R={r} B={b}: kernel {ms:.4f} ms "
+          f"(device {dev_ms:.4f} ms, wrapper ({what}) {wrap_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} "
+          f"({n_bytes} B), no library call [{card}]", flush=True)
+    return dict(ms=ms, device_ms=dev_ms, wrapper_ms=wrap_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
 def phase_kernels(results):
     import numpy as np
     import torch
@@ -481,8 +547,11 @@ def phase_kernels(results):
         rng.integers(-1, r, b).astype(np.int32),
     )
     dec = tuple(torch.from_numpy(a).cuda() for a in dec_np)
+    oa = mk.pack_opts(*dec[:4])
     exact_equal("decide_batch", (mk.decide_batch(*dec),),
                 (mk.decide_batch_plain(*dec),))
+    exact_equal("decide_packed", mk.decide_packed(oa, *dec[4:]),
+                mk.decide_packed_plain(oa, *dec[4:]))
     print(f"parity decide N={DECIDE_N}: K3 equals its plain version",
           flush=True)
     full_frontier_parity()
@@ -538,22 +607,9 @@ def phase_kernels(results):
                 results["kernels"][name] = dict(
                     ms=ms, device_ms=dev_ms, wrapper_ms=wrap_ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    out = torch.empty(DECIDE_N, dtype=torch.uint8, device="cuda")
-    ms = cuda_ms(lambda: _kernels.decide(*dec, out), 50, 5)
-    dev_ms = cuda_ms(lambda: _kernels.decide(*dec, out), 50, 5, queued=True)
-    wrap_ms = cuda_ms(lambda: mk.decide_batch(*dec), 50, 5)
-    plain_ms = cuda_ms(lambda: mk.decide_batch_plain(*dec), 10)
-    n = DECIDE_N
-    n_bytes = n * 12 + n + r * 4 + b * 6
-    b_ms, b_by = bound(n_bytes, n * 12)
-    print(f"time decide_batch N={n}: kernel {ms:.4f} ms (device "
-          f"{dev_ms:.4f} ms, wrapper with its index range check "
-          f"{wrap_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.5f} ms by {b_by} ({n_bytes} B), no library call "
-          f"[{card}]", flush=True)
-    results["kernels"]["decide_batch"] = dict(
-        ms=ms, device_ms=dev_ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by)
+    results["kernels"]["decide_batch"] = decide_times(
+        card, oa, dec[4:], lambda: mk.decide_batch(*dec),
+        "decide_batch, its range check read with the 4 B error word")
     del tab, batch, args, dec
     torch.cuda.empty_cache()
     return enc, (tok, ln, dol), (k1_rows, k1_fids, k1_ovf)
@@ -765,11 +821,116 @@ def rules_work(stack, cols):
     return n_bytes, fp_ops, int_ops
 
 
-def phase_rules_kernel(results):
+def rules_times(card, stack, cols, low, wrapper, label):
+    """K4 held against the plain version of the lowered program over one
+    window, then its times: the launch alone (CUDA events, then queued
+    behind a spin: the device time), ``wrapper`` (the engine's
+    per-window path, ending on the host), the plain version of the
+    lowered program and of the stacked one, and the bound computed from
+    the stacked program's work (`rules_work`)."""
     import torch
 
     from emqx_tpu_torch.ops import _kernels
     from emqx_tpu_torch.ops import match_kernel as mk
+    from emqx_tpu_torch.state import (
+        columns_from_reference, rules_program_from_reference,
+    )
+
+    r, w = stack.n_rules, cols.n
+    pl = columns_from_reference(cols.num, cols.sid, cols.err, cols.prs,
+                                cols.lit_ranks, "cuda")
+    planes = (pl.lit_ranks, pl.num, pl.sid, pl.err, pl.prs)
+    out = torch.empty((r, w), dtype=torch.bool, device="cuda")
+
+    def bare():
+        _kernels.rules_eval(*low[:3], *planes, out)
+
+    bare()
+    exact_equal(f"rules_eval_batch{label} R={r} W={w}", (out,),
+                (mk.rules_eval_lowered_plain(*low[:3], *planes),))
+    print(f"parity rules_eval_batch{label} R={r} W={w}: K4 equals the "
+          f"plain version of the lowered program", flush=True)
+    ms = cuda_ms(bare, 20, 3)
+    dev_ms = cuda_ms(bare, 20, 3, queued=True)
+    wrap_ms = host_ms(wrapper, 10, 2)
+    plain_ms = cuda_ms(lambda: mk.rules_eval_lowered_plain(*low[:3],
+                                                           *planes), 2, 1)
+    prog = rules_program_from_reference(
+        stack.code, stack.a0, stack.a1, stack.a2, stack.a3, stack.litn,
+        stack.last, "cuda")
+    stacked_ms = cuda_ms(lambda: mk.rules_eval_plain(
+        *prog[:6], pl.lit_ranks, prog.last, pl.num, pl.sid, pl.err, pl.prs),
+        2, 1)
+    n_bytes, fp_ops, int_ops = rules_work(stack, cols)
+    # the float64 and int32 pipes run side by side: the slower one
+    # bounds the operations
+    b_ms, b_by = max(bound(n_bytes, fp_ops, FP64_OPS_PER_S),
+                     bound(n_bytes, int_ops, FP32_OPS_PER_S))
+    print(f"time rules_eval_batch{label} R={r} W={w}: kernel {ms:.4f} ms "
+          f"(device {dev_ms:.4f} ms), wrapper (planes up in one copy, kernel, "
+          f"[R, W] down after one synchronise) {wrap_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (of the stacked program {stacked_ms:.4f} "
+          f"ms), bound {b_ms:.6f} ms by {b_by} ({n_bytes} B; {fp_ops} "
+          f"float64 and {int_ops} int32 ops), no library call [{card}]",
+          flush=True)
+    return dict(ms=ms, device_ms=dev_ms, wrapper_ms=wrap_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def step_cost(card, n_rules, pl, slots_per_ms) -> None:
+    """K4's time against the lowered step count, on ``n_rules`` copies of
+    one synthetic program over the window's planes ``pl``: no step (a
+    constant), one compare of a plane with a literal, and four such
+    compares joined by three ANDs (7 steps); the difference of the last
+    two over 6 is the cost of a step, in ms and in SM issue slots a
+    (rule, 32-message) warp-step."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.ops import _kernels
+    from emqx_tpu_torch.rules import predicate as P
+    from emqx_tpu_torch.state import rules_lowered_from_reference
+
+    def program(k):
+        steps = [(P.R_BLIT, 1, -1)] if k == 0 else []
+        for j in range(k):
+            base = len(steps)
+            steps += [(P.R_NLOAD, j % pl.num.shape[0], -1),
+                      (P.R_NLIT, -1, -1), (P.R_CGT, base, base + 1)]
+            if j:
+                steps.append((P.R_BAND, base - 1, base + 2))
+        arrs = [np.full((n_rules, len(steps)), -1, np.int32)
+                for _ in range(5)]
+        for s, (op, x, y) in enumerate(steps):
+            arrs[0][:, s], arrs[1][:, s], arrs[2][:, s] = op, x, y
+        litn = np.full((n_rules, len(steps)), 30.0)
+        last = np.full(n_rules, len(steps) - 1, np.int32)
+        return rules_lowered_from_reference(*arrs, litn, last, "cuda")
+
+    out = torch.empty((n_rules, pl.num.shape[1]), dtype=torch.bool,
+                      device="cuda")
+    times = {}
+    for k in (0, 1, 4):
+        low = program(k)
+        n = int(low.meta[0].item()) & 0xFF
+        times[n] = cuda_ms(lambda: _kernels.rules_eval(
+            *low[:3], pl.lit_ranks, pl.num, pl.sid, pl.err, pl.prs, out),
+            20, 3, queued=True)
+    per = (times[7] - times[1]) / 6
+    warp_steps = n_rules * -(-pl.num.shape[1] // 32)
+    print(f"K4 cost a lowered step, R={n_rules} W={pl.num.shape[1]}: "
+          f"device {times[0]:.4f} ms with no step, {times[1]:.4f} ms with "
+          f"one compare, {times[7]:.4f} ms with 7 steps: {per:.4f} ms a "
+          f"step, {per * slots_per_ms / warp_steps:.1f} issue slots a "
+          f"warp-step [{card}]", flush=True)
+
+
+def phase_rules_kernel(results):
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.ops import match_kernel as mk
+    from emqx_tpu_torch.rules.evaluator import RulesEvaluator
     from emqx_tpu_torch.state import (
         columns_from_reference, rules_program_from_reference,
     )
@@ -780,63 +941,69 @@ def phase_rules_kernel(results):
         t0 = time.perf_counter()
         stack, cols = rules_window(n_rules)
         built = time.perf_counter() - t0
+        ev = RulesEvaluator("cuda")
+        t0 = time.perf_counter()
+        mat, path = ev.eval_window(stack, 1, cols)  # lowers, uploads
+        lowered = time.perf_counter() - t0
+        low = ev._prog[1]
         prog = rules_program_from_reference(
             stack.code, stack.a0, stack.a1, stack.a2, stack.a3, stack.litn,
             stack.last, "cuda")
         pl = columns_from_reference(cols.num, cols.sid, cols.err, cols.prs,
                                     cols.lit_ranks, "cuda")
-        args = (prog.code, prog.a0, prog.a1, prog.a2, prog.a3, prog.litn,
-                pl.lit_ranks, prog.last, pl.num, pl.sid, pl.err, pl.prs)
-        got = mk.rules_eval_batch(*args)
-        want = mk.rules_eval_plain(*args)
+        planes = (pl.lit_ranks, pl.num, pl.sid, pl.err, pl.prs)
+        got = mk.rules_eval_lowered(low, *planes)
+        want = mk.rules_eval_lowered_plain(*low[:3], *planes)
+        stacked = mk.rules_eval_plain(*prog[:6], pl.lit_ranks, prog.last,
+                                      pl.num, pl.sid, pl.err, pl.prs)
+        batch = mk.rules_eval_batch(*prog[:6], pl.lit_ranks, prog.last,
+                                    pl.num, pl.sid, pl.err, pl.prs)
         torch.cuda.synchronize()
-        exact_equal(f"rules_eval_batch R={n_rules} W={RULES_W}", (got,),
+        exact_equal(f"rules_eval_lowered R={n_rules} W={RULES_W}", (got,),
                     (want,))
+        exact_equal(f"rules_eval_lowered R={n_rules} W={RULES_W} against "
+                    f"the stacked program", (got,), (stacked,))
+        exact_equal(f"rules_eval_batch R={n_rules} W={RULES_W}", (batch,),
+                    (stacked,))
+        if path != "dev" or not np.array_equal(mat, got.cpu().numpy()):
+            fail(f"rules evaluator R={n_rules}: its window differs")
         r, s = stack.code.shape
-        ops_used = sorted(set(stack.code.ravel().tolist()))
+        n = low.meta.cpu().numpy() & 0xFF
         print(f"parity rules R={r} S={s} P={cols.num.shape[0]} "
               f"L={cols.lit_ranks.size} W={RULES_W}: K4 equals its plain "
-              f"version ({int(got.sum())} of {got.numel()} cells pass; "
-              f"opcodes {ops_used}; stack and window built in "
-              f"{built:.1f} s)", flush=True)
-        out = torch.empty((r, RULES_W), dtype=torch.bool, device="cuda")
-        def bare():
-            _kernels.rules_eval(
-                prog.code, prog.a0, prog.a1, prog.a2, prog.a3, prog.litn,
-                prog.last, pl.lit_ranks, pl.num, pl.sid, pl.err, pl.prs, out)
-
-        ms = cuda_ms(bare, 20, 3)
-        dev_ms = cuda_ms(bare, 20, 3, queued=True)
-
-        def wrapper():
-            # what the engine does per window: planes up, matrix down
-            p = columns_from_reference(cols.num, cols.sid, cols.err,
-                                       cols.prs, cols.lit_ranks, "cuda")
-            return mk.rules_eval_batch(
-                prog.code, prog.a0, prog.a1, prog.a2, prog.a3, prog.litn,
-                p.lit_ranks, prog.last, p.num, p.sid, p.err,
-                p.prs).cpu().numpy()
-
-        wrap_ms = host_ms(wrapper, 10, 2)
-        plain_ms = cuda_ms(lambda: mk.rules_eval_plain(*args), 2, 1)
-        n_bytes, fp_ops, int_ops = rules_work(stack, cols)
-        # the float64 and int32 pipes run side by side: the slower one
-        # bounds the operations
-        b_ms, b_by = max(bound(n_bytes, fp_ops, FP64_OPS_PER_S),
-                         bound(n_bytes, int_ops, FP32_OPS_PER_S))
-        print(f"time rules_eval_batch R={r} W={RULES_W}: kernel {ms:.4f} ms "
-              f"(device {dev_ms:.4f} ms), wrapper (planes up, kernel, "
-              f"[R, W] down) {wrap_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
-              f"({n_bytes} B; {fp_ops} float64 and {int_ops} int32 ops), "
-              f"no library call [{card}]",
+              f"version and the stacked program's ({int(got.sum())} of "
+              f"{got.numel()} cells pass; opcodes "
+              f"{sorted(set(stack.code.ravel().tolist()))}; lowered to "
+              f"{low.steps.shape[1]} record columns, {n.mean():.2f} steps a "
+              f"rule on average against "
+              f"{(stack.last + 1).mean():.2f} stacked; stack and window "
+              f"built in {built:.1f} s, lowered in {lowered:.2f} s)",
               flush=True)
-        row = dict(ms=ms, device_ms=dev_ms, wrapper_ms=wrap_ms,
-                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        row = rules_times(card, stack, cols, low,
+                          lambda: ev.eval_window(stack, 1, cols), "")
+        # the device time in SM issue slots a warp-step (a warp runs one
+        # rule's steps over 32 messages)
+        slices = -(-RULES_W // 32)
+        lowered_ws, stacked_ws = (int(n.sum()) * slices,
+                                  int((stack.last + 1).sum()) * slices)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.split()
+        mhz = float(smi[0]) if smi else float("nan")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        slots = row["device_ms"] * 1e-3 * mhz * 1e6 * sms * 4
+        print(f"K4 R={r} W={RULES_W}: {lowered_ws} lowered warp-steps "
+              f"({stacked_ws} stacked); at {mhz:.0f} MHz x {sms} SMs x 4 "
+              f"schedulers the device time is {slots / lowered_ws:.1f} "
+              f"issue slots a lowered warp-step ({slots / stacked_ws:.1f} "
+              f"a stacked one)", flush=True)
         results["rules_sizes"][n_rules] = row
         if n_rules == RULES_SIZES[0]:
             results["kernels"]["rules_eval_batch"] = row
-        del prog, pl, args, got, want, out
+        else:
+            step_cost(card, n_rules, pl, slots / row["device_ms"])
+        del prog, pl, planes, got, want, stacked, batch, low, ev
         torch.cuda.empty_cache()
 
 
@@ -1101,7 +1268,7 @@ def phase_engine(filters):
             fail("engine: decide_window differs from the plain version")
         n_dec += len(fids)
     counts = mk.launches()
-    if counts["decide_batch"] < 50:
+    if counts["decide_packed"] < 50:
         fail(f"engine: decide kernel launched {counts} times")
     c = eng.counters
     print(f"engine: 50 windows x 4096 topics equal the host trie; "
@@ -1154,6 +1321,89 @@ async def cli_round_trip() -> None:
             except asyncio.TimeoutError:
                 proc.kill()
                 await proc.wait()
+
+
+class MainPathLog:
+    """What the main path hands K3 and K4 while installed: the shape of
+    every launch (through `ops._kernels`, whose launch functions the
+    wrappers look up at each call) and the engine-entry call of the same
+    window, so that the shapes can be summarised and the median one
+    timed after the run."""
+
+    def __init__(self, eng) -> None:
+        from emqx_tpu_torch.ops import _kernels
+
+        self.decide, self.rules = [], []  # (shape, (entry, its args))
+        self._undo = []
+        entry = {}
+
+        def hook(obj, name, fn):
+            orig = getattr(obj, name)
+            self._undo.append((obj, name, orig))
+            setattr(obj, name, fn(orig))
+
+        def decide_window(orig):
+            def run(*args):
+                if len(args[2]):  # the window's deliveries
+                    entry["decide"] = (orig, args)
+                return orig(*args)
+            return run
+
+        def eval_window(orig):
+            def run(stack, rev, cols, rows=None):
+                entry["rules"] = (orig, (stack, rev, cols))
+                return orig(stack, rev, cols, rows)
+            return run
+
+        def decide(orig):
+            def run(oa, opts_rows, *rest):
+                self.decide.append(((opts_rows.shape[0], rest[2].shape[0],
+                                     oa.shape[0]), entry.pop("decide", None)))
+                return orig(oa, opts_rows, *rest)
+            return run
+
+        def rules_eval(orig):
+            def run(steps, lits, meta, lit_ranks, num, *rest):
+                self.rules.append(((steps.shape[0], num.shape[1]),
+                                   entry.pop("rules", None)))
+                return orig(steps, lits, meta, lit_ranks, num, *rest)
+            return run
+
+        hook(eng, "decide_window", decide_window)
+        hook(eng.rules_evaluator, "eval_window", eval_window)
+        hook(_kernels, "decide", decide)
+        hook(_kernels, "rules_eval", rules_eval)
+
+    def remove(self) -> None:
+        for obj, name, orig in reversed(self._undo):
+            if isinstance(obj, type(sys)):  # a module
+                setattr(obj, name, orig)
+            else:  # the instance attribute over its method
+                delattr(obj, name)
+
+    @staticmethod
+    def median(log, key):
+        """The entry whose ``key(shape)`` is the (lower) median."""
+        return sorted(log, key=lambda e: key(e[0]))[(len(log) - 1) // 2]
+
+    @staticmethod
+    def launch_args(name, fn, args):
+        """The arguments `ops._kernels.<name>` gets when ``fn(*args)``
+        runs: that window's own inputs, in the engine's buffers."""
+        from emqx_tpu_torch.ops import _kernels
+
+        orig, got = getattr(_kernels, name), []
+
+        def run(*a):
+            got.append(a)
+            return orig(*a)
+
+        setattr(_kernels, name, run)
+        try:
+            fn(*args)
+        finally:
+            setattr(_kernels, name, orig)
+        return got[-1]
 
 
 SUB_FILTERS = ("load/#", "load/+/#", "load/+/+", "+/+/+", "#", "+/#",
@@ -1249,23 +1499,33 @@ async def broker_load(results, filters) -> None:
             await acked.wait()
             await task
 
+        log = MainPathLog(eng)
+        decides = eng.counters["decide_windows"]
         mk.reset_launches()  # counts of the main path start here
         t0 = time.perf_counter()
-        await asyncio.wait_for(asyncio.gather(
-            *(consume(j, cl) for j, cl in enumerate(subs)),
-            *(produce(p, cl) for p, cl in enumerate(pubs)),
-        ), 600)
+        try:
+            await asyncio.wait_for(asyncio.gather(
+                *(consume(j, cl) for j, cl in enumerate(subs)),
+                *(produce(p, cl) for p, cl in enumerate(pubs)),
+            ), 600)
+        finally:
+            log.remove()
         wall = time.perf_counter() - t0
         launches = mk.launches()
         results["launches"].update(
-            (k, launches[k]) for k in ("match_batch_compact", "match_batch",
-                                       "decide_batch"))
+            (k, launches[k]) for k in ("match_batch_compact", "match_batch"))
+        results["launches"]["decide_batch"] = launches["decide_packed"]
+        results["main_path"]["decide"] = log.decide
         for j in range(len(subs)):
             if len(seen[j]) != expected:
                 fail(f"sub{j} got {len(seen[j])} of {expected}")
         if min(launches[k] for k in ("match_batch_compact", "match_batch",
-                                     "decide_batch")) < 1:
+                                     "decide_packed")) < 1:
             fail(f"a kernel of the publish path never launched: {launches}")
+        decides = eng.counters["decide_windows"] - decides
+        if launches["decide_packed"] != decides:
+            fail(f"{launches['decide_packed']} K3 launches for {decides} "
+                 f"decide windows")
         dropped = server.broker.metrics["delivery.dropped"]
         if dropped:
             fail(f"broker dropped {dropped} deliveries")
@@ -1429,22 +1689,32 @@ async def rules_load(results, filters) -> None:
                     await cl.writer.drain()
             await task
 
+        log = MainPathLog(eng)
+        dev_windows = broker.rules.stats().get("dev_windows", 0)
         mk.reset_launches()  # counts of the rules path start here
         t0 = time.perf_counter()
-        await asyncio.wait_for(asyncio.gather(
-            *(produce(cl, items) for cl, items in zip(pubs, work))), 600)
-        wall = time.perf_counter() - t0
-        launches = mk.launches()
-        await asyncio.sleep(0.5)  # the watcher's last republishes
+        try:
+            await asyncio.wait_for(asyncio.gather(
+                *(produce(cl, items) for cl, items in zip(pubs, work))), 600)
+            wall = time.perf_counter() - t0
+            launches = mk.launches()
+            await asyncio.sleep(0.5)  # the watcher's last republishes
+        finally:
+            log.remove()
         results["launches"]["rules_eval_batch"] = launches[
-            "rules_eval_batch"]
+            "rules_eval_lowered"]
+        results["main_path"]["rules"] = log.rules
         n_msgs = sum(len(w) for w in windows)
         if n_msgs != RULES_PUB * RULES_MSG:
             fail(f"rules broker: dispatched {n_msgs} messages")
         st = broker.rules.stats()
-        if launches["rules_eval_batch"] < 1 or st["dev_windows"] < 1:
+        dev_windows = st["dev_windows"] - dev_windows
+        if launches["rules_eval_lowered"] < 1 or dev_windows < 1:
             fail(f"rules broker: the rules kernel never launched: "
                  f"{launches} {st}")
+        if len(log.rules) != dev_windows:
+            fail(f"rules broker: {len(log.rules)} K4 launches for "
+                 f"{dev_windows} rules windows")
         counters = {rid: (r.matched, r.passed, r.failed, r.actions_success,
                           r.actions_failed)
                     for rid, r in broker.rules.rules.items()}
@@ -1497,6 +1767,43 @@ async def rules_load(results, filters) -> None:
           f"subscriber", flush=True)
 
 
+def phase_main_shapes(results) -> None:
+    """K3 and K4 at the shapes the main path gave them: the N of every
+    K3 launch of the broker run and the (R, W) of every K4 launch of the
+    rules broker run, their medians and maxima, and each kernel timed on
+    the window of its median launch, the wrapper through the engine's
+    own entry (`MatchEngine.decide_window`, `RulesEvaluator.
+    eval_window`) on that window's arguments."""
+    import numpy as np
+
+    phase("main-path shapes")
+    card = results["card"]
+    dec, rules = (results["main_path"].pop(k) for k in ("decide", "rules"))
+    n, b = (np.array([e[0][k] for e in dec]) for k in (0, 1))
+    (mn, mb, mr), (fn, entry) = MainPathLog.median(dec, key=lambda sh: sh)
+    print(f"K3 launches in the broker run: {len(dec)}; N (padded) median "
+          f"{int(np.median(n))}, max {int(n.max())}; deliveries median "
+          f"{int(np.median([len(e[1][1][2]) for e in dec]))}; B (padded) "
+          f"median {int(np.median(b))}, max {int(b.max())}; R {mr}",
+          flush=True)
+    args = MainPathLog.launch_args("decide", fn, entry)
+    results["kernels"]["decide_batch"]["main_path"] = dict(
+        decide_times(card, args[0], args[1:7], lambda: fn(*entry),
+                     "MatchEngine.decide_window: columns up in one copy, "
+                     "kernel, decisions and error word down",
+                     " (main path, median launch)"), n=int(mn), b=int(mb))
+    r, w = (np.array([e[0][k] for e in rules]) for k in (0, 1))
+    (rr, ww), (fn, entry) = MainPathLog.median(rules, key=lambda sh: sh[1])
+    print(f"K4 launches in the rules broker run: {len(rules)}; R median "
+          f"{int(np.median(r))}, max {int(r.max())}; W median "
+          f"{int(np.median(w))}, max {int(w.max())}", flush=True)
+    args = MainPathLog.launch_args("rules_eval", fn, entry)
+    stack, _, cols = entry
+    results["kernels"]["rules_eval_batch"]["main_path"] = dict(
+        rules_times(card, stack, cols, args[:3], lambda: fn(*entry),
+                    " (main path, median launch)"), r=int(rr), w=int(ww))
+
+
 def phase_broker(results, filters):
     phase("broker")
     asyncio.run(cli_round_trip())
@@ -1514,7 +1821,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     t_start = time.perf_counter()
-    results = {"kernels": {}, "launches": {}, "rules_sizes": {}}
+    results = {"kernels": {}, "launches": {}, "rules_sizes": {},
+               "main_path": {}}
     results["card"] = phase_device()
     phase_build(results)
     enc, batch_np, k1 = phase_kernels(results)
@@ -1528,6 +1836,7 @@ def main() -> None:
     phase_engine(filters)
     phase_sharded_engine(results, filters)
     phase_broker(results, filters)
+    phase_main_shapes(results)
 
     phase("kernels")
     rows = []
@@ -1541,6 +1850,7 @@ def main() -> None:
             "wrapper_ms": k["wrapper_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
+            **({"main_path": k["main_path"]} if "main_path" in k else {}),
         })
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -33,10 +33,14 @@ from .ops.automaton import (
     Automaton, build_automaton, expand_codes_dedup, expand_codes_flat,
 )
 from .ops.dictionary import PAD_TOK, SENTINEL, TokenDict, encode_topics
-from .ops.match_kernel import decide_batch, match_batch, match_batch_compact
+from .ops.match_kernel import (
+    decide_packed, match_batch, match_batch_compact, pack_opts,
+)
 from .ops.trie_host import HostTrie
 from .rules.evaluator import RulesEvaluator
-from .state import DeviceTables, resolve_device, tables_from_reference
+from .state import (
+    DeviceTables, HostStage, resolve_device, tables_from_reference,
+)
 
 
 def _pad_batch(tokens, lengths, dollar):
@@ -157,7 +161,10 @@ class MatchEngine:
         # compact-buffer capacity, in multiples of the window's unique
         # topics; doubles whenever the buffer clips, never shrinks
         self._ccap_mult = 2
-        self._dec_cols: Optional[Tuple] = None  # (rev, device columns)
+        # (rev, the SubOpts columns packed one word a row, on the device)
+        self._dec_cols: Optional[Tuple[int, torch.Tensor]] = None
+        self._dec_stage = HostStage(self.device)
+        self._dec_lock = threading.Lock()  # the stage, fill to download
         self.rules_evaluator = RulesEvaluator(self.device)
         self.counters = {"dev_windows": 0, "host_windows": 0,
                          "clip_reruns": 0, "rows": 0, "ovf_rows": 0,
@@ -395,19 +402,22 @@ class MatchEngine:
         """One window's packed per-delivery decision column (the bit
         layout of `ops.match_kernel.decide_batch`).  ``cols`` are the
         router's SubOpts attribute columns and ``rev`` their mutation
-        counter (the device copies cache on it).  Delivery and message
-        columns pad to power-of-two buckets: opts row and message index
-        0, client row -1."""
+        counter: the device copy, packed one word a row, caches on it.
+        Delivery and message columns pad to power-of-two buckets: opts
+        row and message index 0, client row -1.  The six padded columns
+        go up in one copy from a pinned buffer; the decisions and the
+        kernel's range-check word come down after one synchronise, and
+        a delivery outside the opts or message columns raises
+        IndexError."""
         n = len(opts_rows)
         if n == 0:
             return np.zeros(0, np.uint8)
-        dev = self.device
         cache = self._dec_cols
         if cache is None or cache[0] != rev:
-            cache = self._dec_cols = (
-                rev, tuple(torch.tensor(np.asarray(c), device=dev)
-                           for c in cols),
-            )
+            cache = self._dec_cols = (rev, pack_opts(*(
+                torch.from_numpy(np.ascontiguousarray(c, dtype=dt))
+                for c, dt in zip(cols, (np.int8, bool, bool, bool)))
+            ).to(self.device))
         npad = 64
         while npad < n:
             npad *= 2
@@ -415,20 +425,20 @@ class MatchEngine:
         bpad = 16
         while bpad < b:
             bpad *= 2
-
-        def pad(a, cap, fill, dtype):
-            out = np.full(cap, fill, dtype=dtype)
-            out[: len(a)] = a
-            return torch.from_numpy(out).to(dev)
-
-        packed = decide_batch(
-            *cache[1],
-            pad(opts_rows, npad, 0, np.int32),
-            pad(client_rows, npad, -1, np.int32),
-            pad(msg_idx, npad, 0, np.int32),
-            pad(m_qos, bpad, 0, np.int8),
-            pad(m_retain, bpad, False, bool),
-            pad(m_from_row, bpad, -1, np.int32),
-        )
+        with self._dec_lock:
+            host = self._dec_stage.views(
+                [(np.int32, (npad,))] * 3
+                + [(np.int32, (bpad,)), (np.int8, (bpad,)), (bool, (bpad,))])
+            for dst, src, fill in zip(host, (
+                    opts_rows, client_rows, msg_idx, m_from_row, m_qos,
+                    m_retain), (0, -1, 0, -1, 0, False)):
+                dst[:len(src)] = src
+                dst[len(src):] = fill
+            o, c, mi, mf, mq, mr = self._dec_stage.upload()
+            packed, error = decide_packed(cache[1], o, c, mi, mq, mr, mf)
+            packed, error = self._dec_stage.download(packed[:n], error)
+        if error[0]:
+            raise IndexError("a delivery indexes outside the opts or "
+                             "message columns")
         self.counters["decide_windows"] += 1
-        return packed.cpu().numpy()[:n]
+        return packed

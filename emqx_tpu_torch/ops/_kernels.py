@@ -16,6 +16,7 @@ device, 16-byte aligned table rows) and launches on the current stream.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -129,11 +130,13 @@ def load() -> ctypes.CDLL:
                 _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _P,
             ]
             lib.emqx_match_compact.restype = _I
-            lib.emqx_decide.argtypes = [_P] * 10 + [_I, _P, _P]
+            lib.emqx_decide.argtypes = [
+                _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+            ]
             lib.emqx_decide.restype = _I
-            lib.emqx_rules_eval.argtypes = (
-                [_P] * 8 + [_I] + [_P] * 4 + [_I] * 4 + [_P, _P]
-            )
+            lib.emqx_rules_eval.argtypes = [
+                _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+            ]
             lib.emqx_rules_eval.restype = _I
             lib.emqx_sharded_match_rows.argtypes = [
                 _P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P,
@@ -158,6 +161,14 @@ def _stream(device: torch.device) -> _P:
     return _P(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _on(device: torch.device):
+    """Makes ``device`` the current card for a launch (nothing to do
+    when it already is)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.emqx_error_string(rc).decode()
@@ -174,7 +185,7 @@ def match_rows(fp_rows, node_rows, salt, tokens, lengths, dollar,
             raise ValueError(f"{name} must be 16-byte aligned")
     lib = load()
     b, levels = tokens.shape
-    with torch.cuda.device(dev):
+    with _on(dev):
         rc = lib.emqx_match_rows(
             _ptr(fp_rows), fp_rows.shape[0], _ptr(node_rows),
             node_rows.shape[0], salt, _ptr(tokens), _ptr(lengths),
@@ -211,7 +222,7 @@ def match_compact(fp_rows, node_rows, salt, tokens, lengths, dollar,
             raise ValueError(f"{name} must be 16-byte aligned")
     lib = load()
     b, levels = tokens.shape
-    with torch.cuda.device(dev):
+    with _on(dev):
         rc = lib.emqx_match_compact(
             _ptr(fp_rows), fp_rows.shape[0], _ptr(node_rows),
             node_rows.shape[0], salt, _ptr(tokens), _ptr(lengths),
@@ -222,36 +233,40 @@ def match_compact(fp_rows, node_rows, salt, tokens, lengths, dollar,
     _raise_on(lib, rc, "match_compact")
 
 
-def decide(oa_qos, oa_nl, oa_rap, oa_subid, opts_rows, client_rows,
-           msg_idx, m_qos, m_retain, m_from_row, out) -> None:
-    """Launch the per-delivery decide pass."""
+def decide(oa, opts_rows, client_rows, msg_idx, m_qos, m_retain,
+           m_from_row, out, error) -> None:
+    """Launch the per-delivery decide pass.  The entry point zeroes
+    ``error`` (int32 [1]) first; the kernel sets it when a delivery
+    indexes outside the opts or message columns."""
     dev = opts_rows.device
     stream = _stream(dev)
     lib = load()
-    cols = (oa_qos, oa_nl, oa_rap, oa_subid, opts_rows, client_rows,
-            msg_idx, m_qos, m_retain, m_from_row)
-    with torch.cuda.device(dev):
+    with _on(dev):
         rc = lib.emqx_decide(
-            *(_ptr(t) for t in cols), opts_rows.shape[0], _ptr(out), stream,
+            _ptr(oa), oa.shape[0], _ptr(opts_rows), _ptr(client_rows),
+            _ptr(msg_idx), _ptr(m_qos), _ptr(m_retain), _ptr(m_from_row),
+            m_qos.shape[0], opts_rows.shape[0], _ptr(out), _ptr(error),
+            stream,
         )
     _raise_on(lib, rc, "decide")
 
 
-def rules_eval(code, a0, a1, a2, a3, litn, last, lit_ranks, num, sid, err,
-               prs, out) -> None:
+def rules_eval(steps, lits, meta, lit_ranks, num, sid, err, prs,
+               out) -> None:
     """Launch the rules x window program (``out`` is ``[R, W]``, one
-    byte per cell)."""
+    byte per cell) over the lowered step records."""
     dev = num.device
     stream = _stream(dev)
+    if steps.data_ptr() % 16:
+        raise ValueError("steps must be 16-byte aligned")
     lib = load()
-    n_rules, n_steps = code.shape
+    n_rules, n_steps, _ = steps.shape
     n_planes, w_n = num.shape
-    with torch.cuda.device(dev):
+    with _on(dev):
         rc = lib.emqx_rules_eval(
-            _ptr(code), _ptr(a0), _ptr(a1), _ptr(a2), _ptr(a3), _ptr(litn),
-            _ptr(last), _ptr(lit_ranks), lit_ranks.shape[0], _ptr(num),
-            _ptr(sid), _ptr(err), _ptr(prs), n_rules, n_steps, n_planes,
-            w_n, _ptr(out), stream,
+            _ptr(steps), _ptr(lits), _ptr(meta), n_rules, n_steps,
+            lits.shape[1], _ptr(lit_ranks), _ptr(num), _ptr(sid), _ptr(err),
+            _ptr(prs), n_planes, w_n, _ptr(out), stream,
         )
     _raise_on(lib, rc, "rules_eval")
 
@@ -269,7 +284,7 @@ def sharded_match_rows(fp_rows, node_rows, salts, tokens, lengths, dollar,
     lib = load()
     k, nb, _ = fp_rows.shape
     b, levels = tokens.shape
-    with torch.cuda.device(dev):
+    with _on(dev):
         rc = lib.emqx_sharded_match_rows(
             _ptr(fp_rows), nb, _ptr(node_rows), node_rows.shape[1],
             _ptr(salts), k, _ptr(tokens), _ptr(lengths), _ptr(dollar), b,
@@ -286,7 +301,7 @@ def predicate_eval(steps, lit, result, num, sid, err, lit_ids, out) -> None:
     stream = _stream(dev)
     lib = load()
     n_vars, w_n = num.shape
-    with torch.cuda.device(dev):
+    with _on(dev):
         rc = lib.emqx_predicate_eval(
             _ptr(steps), _ptr(lit), steps.shape[0], result, _ptr(num),
             _ptr(sid), _ptr(err), n_vars, _ptr(lit_ids), lit_ids.shape[0],

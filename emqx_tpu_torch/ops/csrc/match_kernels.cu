@@ -12,7 +12,9 @@
 //                                and its compaction (:224-234: exclusive
 //                                scan of the clipped counts, scatter into
 //                                flat, int16 counts, total) in one pass
-//   decide_kernel                :270 decide_batch
+//   decide_kernel                :270 decide_batch (with its index
+//                                range check, which the JAX wrapper's
+//                                gathers clamp instead, fused in)
 //   sharded_match_rows_kernel    emqx_tpu/parallel/sharded.py:176-230
 //                                sharded_match: the shard_map of
 //                                match_batch over the (sub, pub) mesh
@@ -25,7 +27,7 @@
 // and every gather is a DRAM transaction.  Each level of a topic row
 // costs two dependent gathers, so the scan is bound by their latency
 // unless many of them are in flight.  decide is a streaming
-// gather-and-pack, bound by its bytes.
+// gather-and-pack, bound by its bytes (see decide_kernel).
 //
 // The lane-group scan (scan_group, shared by the three match kernels).
 // A topic row is walked by a group of G lanes of one warp, G the next
@@ -497,26 +499,86 @@ match_compact_kernel(
   }
 }
 
-// One thread per delivery: five gathers, one packed byte.
-__global__ void decide_kernel(
-    const int8_t* __restrict__ oa_qos, const uint8_t* __restrict__ oa_nl,
-    const uint8_t* __restrict__ oa_rap, const uint8_t* __restrict__ oa_subid,
-    const int* __restrict__ opts_rows, const int* __restrict__ client_rows,
-    const int* __restrict__ msg_idx, const int8_t* __restrict__ m_qos,
-    const uint8_t* __restrict__ m_retain, const int* __restrict__ m_from_row,
-    int n, uint8_t* __restrict__ out) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const int o = opts_rows[t];
-  const int m = msg_idx[t];
-  const int oq = oa_qos[o];
-  const int mq = m_qos[m];
-  const bool drop = oa_nl[o] && client_rows[t] == m_from_row[m];
-  const bool ret = m_retain[m] && oa_rap[o];
-  const int packed = (mq < oq ? mq : oq) | ((mq > oq ? mq : oq) << 2) |
-                     (drop ? 1 << 4 : 0) | (ret ? 1 << 5 : 0) |
-                     (oa_subid[o] ? 1 << 6 : 0);
-  out[t] = (uint8_t)packed;
+// K3, decide.  Each thread takes kDecidePer consecutive deliveries: its
+// opts rows, client rows and message indices come in as 16 B vector
+// loads (a scalar path serves the ragged tail and pointers that are
+// not 16 B aligned), the options as one packed word a row
+// (match_kernel.pack_opts: the qos, no-local, retain-as-published and
+// subscription-id bytes), gathered once a delivery, and each message's
+// from row, qos and retain through L1, where a window's few thousand
+// messages (6 B each) stay.  (Staging them in shared memory first, one
+// copy a block, measured slower: every block then waits for its copy
+// before its first decision.)  The index range check is fused in: a
+// delivery whose opts row is outside [0, n_opts) or whose message is
+// outside [0, n_msgs) reads nothing, gets the byte 0 and sets *err,
+// which the entry point zeroed.  The output leaves as one 8 B store a
+// thread.  Bound by its bytes: ~13 B a delivery in and out, plus the
+// gathered rows.
+constexpr int kDecideThreads = 256;
+constexpr int kDecidePer = 8;
+
+__global__ void __launch_bounds__(kDecideThreads) decide_kernel(
+    const int* __restrict__ oa, int n_opts, const int* __restrict__ opts_rows,
+    const int* __restrict__ client_rows, const int* __restrict__ msg_idx,
+    const int8_t* __restrict__ m_qos, const uint8_t* __restrict__ m_retain,
+    const int* __restrict__ m_from_row, int n_msgs, int n, bool aligned,
+    uint8_t* __restrict__ out, int* __restrict__ err) {
+  const long long first =
+      ((long long)blockIdx.x * kDecideThreads + threadIdx.x) * kDecidePer;
+  const int cnt = (int)max(0LL, min((long long)kDecidePer, n - first));
+  int o[kDecidePer], c[kDecidePer], mi[kDecidePer];
+  if (cnt == kDecidePer && aligned) {
+    const int4* vo = reinterpret_cast<const int4*>(opts_rows + first);
+    const int4* vc = reinterpret_cast<const int4*>(client_rows + first);
+    const int4* vm = reinterpret_cast<const int4*>(msg_idx + first);
+#pragma unroll
+    for (int k = 0; k < kDecidePer / 4; ++k) {
+      const int4 a = vo[k], b = vc[k], d = vm[k];
+      o[4 * k] = a.x; o[4 * k + 1] = a.y; o[4 * k + 2] = a.z;
+      o[4 * k + 3] = a.w;
+      c[4 * k] = b.x; c[4 * k + 1] = b.y; c[4 * k + 2] = b.z;
+      c[4 * k + 3] = b.w;
+      mi[4 * k] = d.x; mi[4 * k + 1] = d.y; mi[4 * k + 2] = d.z;
+      mi[4 * k + 3] = d.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kDecidePer; ++k) {
+      const bool in = k < cnt;
+      o[k] = in ? opts_rows[first + k] : 0;
+      c[k] = in ? client_rows[first + k] : 0;
+      mi[k] = in ? msg_idx[first + k] : 0;
+    }
+  }
+  unsigned bad = 0;
+  uint32_t word[kDecidePer / 4];
+#pragma unroll
+  for (int k = 0; k < kDecidePer / 4; ++k) word[k] = 0;
+#pragma unroll
+  for (int k = 0; k < kDecidePer; ++k) {
+    const bool ok = (unsigned)o[k] < (unsigned)n_opts &&
+                    (unsigned)mi[k] < (unsigned)n_msgs;
+    bad |= (unsigned)(k < cnt && !ok) << k;
+    if (!ok || k >= cnt) continue;  // reads nothing, decides 0
+    const int w = __ldg(oa + o[k]);
+    const int m = mi[k];
+    const int mq = m_qos[m];
+    const int oq = (int)(int8_t)(w & 0xFF);
+    const bool drop = ((w >> 8) & 0xFF) && c[k] == m_from_row[m];
+    const bool rt = m_retain[m] && ((w >> 16) & 0xFF);
+    const int packed = (mq < oq ? mq : oq) | ((mq > oq ? mq : oq) << 2) |
+                       (drop ? 1 << 4 : 0) | (rt ? 1 << 5 : 0) |
+                       (((w >> 24) & 0xFF) ? 1 << 6 : 0);
+    word[k / 4] |= (uint32_t)(packed & 0xFF) << (8 * (k % 4));
+  }
+  if (__any_sync(0xffffffffu, bad != 0) && threadIdx.x % 32 == 0) *err = 1;
+  if (cnt == kDecidePer && aligned) {
+    *reinterpret_cast<uint2*>(out + first) = make_uint2(word[0], word[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kDecidePer; ++k)
+      if (k < cnt) out[first + k] = (uint8_t)(word[k / 4] >> (8 * (k % 4)));
+  }
 }
 
 int blocks_for(long long n, int threads) {
@@ -650,15 +712,25 @@ int emqx_match_compact(const int* fp_rows, int nb, const int* node_rows,
   });
 }
 
-int emqx_decide(const int8_t* oa_qos, const uint8_t* oa_nl,
-                const uint8_t* oa_rap, const uint8_t* oa_subid,
-                const int* opts_rows, const int* client_rows,
-                const int* msg_idx, const int8_t* m_qos,
-                const uint8_t* m_retain, const int* m_from_row, int n,
-                uint8_t* out, void* stream) {
-  decide_kernel<<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-      oa_qos, oa_nl, oa_rap, oa_subid, opts_rows, client_rows, msg_idx,
-      m_qos, m_retain, m_from_row, n, out);
+int emqx_decide(const int* oa, int n_opts, const int* opts_rows,
+                const int* client_rows, const int* msg_idx,
+                const int8_t* m_qos, const uint8_t* m_retain,
+                const int* m_from_row, int n_msgs, int n, uint8_t* out,
+                int* err, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t e = cudaMemsetAsync(err, 0, sizeof(int), s);
+  if (e != cudaSuccess) return (int)e;
+  if (n <= 0) return (int)cudaSuccess;
+  if (n_opts < 1 || n_msgs < 1) return (int)cudaErrorInvalidValue;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(opts_rows) |
+        reinterpret_cast<uintptr_t>(client_rows) |
+        reinterpret_cast<uintptr_t>(msg_idx) |
+        reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const long long threads = (n + kDecidePer - 1) / kDecidePer;
+  decide_kernel<<<blocks_for(threads, kDecideThreads), kDecideThreads, 0,
+                  s>>>(oa, n_opts, opts_rows, client_rows, msg_idx, m_qos,
+                       m_retain, m_from_row, n_msgs, n, aligned, out, err);
   return (int)cudaGetLastError();
 }
 

@@ -9,11 +9,17 @@ device:
     codes compacted into one flat buffer.  Every publish window runs it.
   * `match_batch` — the same scan with a dense ``[B, m_cap]`` output;
     the engine reruns a window on it when the compact buffer clipped.
-  * `decide_batch` — one packed decision byte per delivery: effective
+  * `decide_packed` — one packed decision byte per delivery: effective
     QoS (both upgrade variants), the no-local drop, retain-as-published
-    and subscription-identifier presence.
-  * `rules_eval_batch` — the rule engine's stacked WHERE program over a
+    and subscription-identifier presence, from the subscription options
+    packed one word a row (`pack_opts`), with the range check of the
+    delivery indices fused in.  `decide_batch` takes the four option
+    columns as the JAX package's does.
+  * `rules_eval_lowered` — the rule engine's WHERE programs, lowered
+    once per rules rev (`rules_lowering.lower_rules`), over a
     window's column planes: the ``[R, W]`` pass matrix.
+    `rules_eval_batch` takes the stacked program as the JAX package's
+    does.
   * `sharded_match_local` — `match_batch` over the K shards of a
     sharded index that live on one device, with the per-topic count
     summed over the shards (`parallel.sharded.sharded_match` launches it
@@ -26,7 +32,10 @@ tensors run the plain PyTorch version in this module, CUDA tensors
 launch the hand-written kernel in ``csrc/match_kernels.cu``,
 ``csrc/rules_kernels.cu`` or ``csrc/predicate_kernels.cu`` (built and
 bound by `_kernels.py`) or raise.  Each wrapper counts its kernel
-launches in its ``launches`` attribute.
+launches in its ``launches`` attribute.  `decide_batch` and
+`rules_eval_batch` keep the JAX package's arguments: on the card they
+pack or lower them and call `decide_packed` and `rules_eval_lowered`,
+which launch K3 and K4 and count them.
 
 Match codes: ``node*2 + 1`` = a ``#``-terminal matched at ``node``;
 ``node*2`` = an exact terminal.  A lookup can false-hit a fingerprint
@@ -61,11 +70,16 @@ from ..rules.predicate import (  # opcode space (compiler-owned)
 )
 from .automaton import BUCKET
 from .dictionary import PLUS_TOK, SENTINEL
+from .rules_lowering import (
+    CMP_RANK, EQ_OKP, PLANE_MAX, RULES_BOOL_FALSE, RULES_BOOL_TRUE,
+    RULES_NUM_SLOTS, SRC_LIT, SRC_PLANE, LoweredRules, lower_rules,
+)
 
 SENT = int(SENTINEL)
 F_MAX = 16  # frontier width: the widest lane group of the kernels
 M_MAX = 32767  # largest m_cap whose counts fit the compact int16 column
 _M32 = 0xFFFFFFFF
+_I32_MAX = 0x7FFFFFFF
 
 # packed decision byte (one per delivery)
 DEC_QMAX_SHIFT = 2
@@ -275,6 +289,41 @@ def decide_batch_plain(oa_qos, oa_nl, oa_rap, oa_subid, opts_rows,
     return packed.to(torch.uint8)
 
 
+def pack_opts(oa_qos, oa_nl, oa_rap, oa_subid) -> torch.Tensor:
+    """The four per-opts-row columns (``int8``, ``bool`` x 3, ``[R]``)
+    as one ``int32`` word a row: its bytes, lowest first, are the QoS,
+    no-local, retain-as-published and subscription-identifier bytes."""
+    return torch.stack([c.view(torch.uint8) for c in (
+        oa_qos, oa_nl, oa_rap, oa_subid)], dim=1).view(torch.int32).reshape(-1)
+
+
+def decide_packed_plain(oa, opts_rows, client_rows, msg_idx, m_qos,
+                        m_retain, m_from_row):
+    """Plain PyTorch version of `decide_packed`: ``(decisions, error)``;
+    a delivery whose opts row or message index is out of range gets the
+    byte 0 and sets ``error``."""
+    o = opts_rows.to(torch.int64)
+    mi = msg_idx.to(torch.int64)
+    ok = (o >= 0) & (o < oa.shape[0]) & (mi >= 0) & (mi < m_qos.shape[0])
+    o = torch.where(ok, o, torch.zeros_like(o))
+    mi = torch.where(ok, mi, torch.zeros_like(mi))
+    w = oa[o]
+    oq = ((w & 0xFF) ^ 0x80) - 0x80  # the QoS byte, sign-extended
+    nl, rap, sub = (((w >> k) & 0xFF) != 0 for k in (8, 16, 24))
+    mq = m_qos[mi].to(torch.int32)
+    drop = nl & (client_rows == m_from_row[mi])
+    ret = m_retain[mi] & rap
+    packed = (
+        torch.minimum(mq, oq)
+        | (torch.maximum(mq, oq) << DEC_QMAX_SHIFT)
+        | drop.to(torch.int32) * DEC_DROP_BIT
+        | ret.to(torch.int32) * DEC_RETAIN_BIT
+        | sub.to(torch.int32) * DEC_SUBID_BIT
+    )
+    packed = torch.where(ok, packed, torch.zeros_like(packed))
+    return packed.to(torch.uint8), (~ok).any().to(torch.int32).reshape(1)
+
+
 # ------------------------------------------------- rules x window eval
 #
 # Step s of each rule's row writes register s; numeric registers are
@@ -442,6 +491,141 @@ def rules_eval_plain(code, a0, a1, a2, a3, litn, lit_ranks, last, num, sid,
 _ORDER = {
     R_CGT: torch.gt, R_CLT: torch.lt, R_CGE: torch.ge, R_CLE: torch.le,
 }
+
+
+def rules_eval_lowered_plain(steps, lits, meta, lit_ranks, num, sid, err,
+                             prs):
+    """Plain PyTorch version of `rules_eval_lowered`: the step records
+    of `rules_lowering.lower_rules` (``steps`` ``[R, S', 4]``,
+    ``lits`` ``[R, NL]``, ``meta`` ``[R]``) run as the kernel runs them,
+    over the same planes as `rules_eval_plain`.  Returns the ``[R, W]``
+    bool pass matrix."""
+    n_rules = steps.shape[0]
+    if n_rules > RULES_HOST_BLOCK:
+        return torch.cat([
+            rules_eval_lowered_plain(
+                steps[k:k + RULES_HOST_BLOCK], lits[k:k + RULES_HOST_BLOCK],
+                meta[k:k + RULES_HOST_BLOCK], lit_ranks, num, sid, err, prs)
+            for k in range(0, n_rules, RULES_HOST_BLOCK)
+        ])
+    p, w = num.shape
+    dev = num.device
+    if p == 0:  # an empty plane space reads as "lookup ok, nothing there"
+        num = torch.full((1, w), float("nan"), dtype=torch.float64,
+                         device=dev)
+        sid = torch.full((1, w), -1, dtype=torch.int32, device=dev)
+        err = prs = torch.zeros((1, w), dtype=torch.bool, device=dev)
+    top, k_num = num.shape[0] - 1, RULES_NUM_SLOTS
+    rec = steps.to(torch.int64) & 0xFFFFFFFF
+    n = meta.to(torch.int64) & 0xFF
+    nv = torch.zeros((k_num + 1, n_rules, w), dtype=torch.float64,
+                     device=dev)  # slot k_num: the clear register
+    nd = torch.zeros((k_num + 1, n_rules, w), dtype=torch.bool, device=dev)
+    bt = torch.zeros((32, n_rules, w), dtype=torch.bool, device=dev)
+    bf = torch.zeros((32, n_rules, w), dtype=torch.bool, device=dev)
+    bt[RULES_BOOL_TRUE] = True
+    bf[RULES_BOOL_FALSE] = True
+
+    def plane(x, idx):
+        return x[idx.clamp(max=top)]
+
+    def fetch(d, rows):
+        kind, idx = d >> 16, d & 0xFFFF
+        pv = plane(num, idx)
+        lv = lits[rows, idx.clamp(max=lits.shape[1] - 1)][:, None]
+        slot = idx.clamp(max=k_num)
+        is_p, is_l = (kind == SRC_PLANE)[:, None], (kind == SRC_LIT)[:, None]
+        v = torch.where(is_p, pv, torch.where(is_l, lv, nv[slot, rows]))
+        return v, torch.where(is_p, ~torch.isnan(pv), is_l | nd[slot, rows])
+
+    def order(mask, x, y):
+        return (((mask & 1) != 0)[:, None] & (x < y)) | (
+            ((mask & 2) != 0)[:, None] & (x == y)) | (
+            ((mask & 4) != 0)[:, None] & (x > y))
+
+    for s in range(steps.shape[1]):
+        live = s < n
+        ops = rec[:, s, 0] & 0xFF
+        for op in torch.unique(ops[live]).tolist():
+            rows = torch.nonzero(live & (ops == op)).flatten()
+            w0, w1, w2, w3 = rec[rows, s].unbind(1)
+            dst, fl = (w0 >> 8) & 0xFF, (w0 >> 16) & 0xFF
+            neg = ((fl & 1) != 0)[:, None]  # the equalities' negate
+            t = f = None
+            if op == R_CGT:  # the four ordered compares, by their mask
+                x, dx = fetch(w1, rows)
+                y, dy = fetch(w2, rows)
+                d = dx & dy
+                c = order(fl, x, y)
+                t, f = d & c, d & ~c
+                rank = ((fl & CMP_RANK) != 0)[:, None]
+                sl, sr = plane(sid, w3 & 0xFFFF), plane(sid, w3 >> 16)
+                ds = rank & (sl >= 0) & (sr >= 0)
+                cs = order(fl, sl, sr)
+                t, f = t | (ds & cs), f | (ds & ~cs)
+                neg = torch.zeros_like(neg)
+            elif op == R_EQC:
+                x, ld = fetch(w1, rows)
+                y, rd = fetch(w2, rows)
+                e = ld & rd & (x == y)
+                ok = ~(((fl & EQ_OKP) != 0)[:, None] & plane(err, w3))
+                cd = (ld | ((fl & 2) == 0)[:, None]) & (
+                    rd | ((fl & 4) == 0)[:, None])
+                t, f = e & ok, cd & ~e & ok
+            elif op == R_EQVV:
+                lp, rp = plane(num, w1), plane(num, w2)
+                sl, sr = plane(sid, w1), plane(sid, w2)
+                el, er = plane(err, w1), plane(err, w2)
+                nul = ~el & ~plane(prs, w1) & ~er & ~plane(prs, w2)
+                e = (lp == rp) | ((sl != -1) & (sl == sr)) | nul
+                ok = ~el & ~er
+                t, f = e & ok, ~e & ok
+            elif op == R_EQSL:
+                ok, v = ~plane(err, w1), plane(sid, w1)
+                lid = lit_ranks[w2][:, None]
+                t, f = ok & (v == lid), ok & (v != lid)
+            elif op == R_PRES:
+                ok, pr = ~plane(err, w1), plane(prs, w1)
+                t, f = ok & pr, ok & ~pr
+            elif op == R_BNOT:
+                bt[dst, rows], bf[dst, rows] = bf[w1, rows], bt[w1, rows]
+            elif op in (R_BAND, R_BOR):
+                tl, fl_, tr, fr = (bt[w1, rows], bf[w1, rows], bt[w2, rows],
+                                   bf[w2, rows])
+                if op == R_BAND:
+                    bt[dst, rows], bf[dst, rows] = tl & tr, fl_ | (tl & fr)
+                else:
+                    bt[dst, rows], bf[dst, rows] = tl | (fl_ & tr), fl_ & fr
+            elif op == R_NNEG:
+                x, d = fetch(w1, rows)
+                nv[dst, rows], nd[dst, rows] = -x, d
+            else:  # R_NADD .. R_NMOD
+                lv, ld = fetch(w1, rows)
+                rv, rd = fetch(w2, rows)
+                d = ld & rd
+                if op == R_NADD:
+                    v = lv + rv
+                elif op == R_NSUB:
+                    v = lv - rv
+                elif op == R_NMUL:
+                    v = lv * rv
+                elif op == R_NDIV:
+                    nz = rv != 0
+                    v = torch.where(nz, lv / torch.where(nz, rv, 1.0), 0.0)
+                    d = d & nz
+                else:  # div / mod: truncate both, then floor-divide
+                    ta, tb = torch.trunc(lv), torch.trunc(rv)
+                    nz = tb != 0
+                    safe = torch.where(nz, tb, 1.0)
+                    q = torch.floor(ta / safe)
+                    v = q if op == R_NIDV else ta - q * safe
+                    d = d & nz
+                nv[dst, rows], nd[dst, rows] = v, d
+            if t is not None:
+                bt[dst, rows] = torch.where(neg, f, t)
+                bf[dst, rows] = torch.where(neg, t, f)
+    res = (meta.to(torch.int64) >> 8) & 0xFF
+    return bt[res, torch.arange(n_rules, device=dev)]
 
 
 # ------------------------------------------------- one rule's predicate
@@ -670,49 +854,87 @@ _DECIDE_DTYPES = (
 )
 
 
+def _check_decide(named, n, r, b, dev) -> None:
+    for t, (name, dtype) in named:
+        _check(t, name, dtype, 1, dev)
+    if n and (r == 0 or b == 0):
+        raise ValueError("deliveries index empty opts/message columns")
+
+
 def decide_batch(oa_qos, oa_nl, oa_rap, oa_subid, opts_rows, client_rows,
                  msg_idx, m_qos, m_retain, m_from_row):
     """The window's packed decision column, one ``uint8`` per delivery
     (bits 0-1 min QoS, 2-3 max QoS, 4 no-local drop, 5 retain on the
     wire, 6 subscription identifier present).  ``oa_*`` are ``[R]``
     per-opts-row columns, ``opts_rows``/``client_rows``/``msg_idx``
-    ``[N]`` per delivery, ``m_*`` ``[B]`` per message.
+    ``[N]`` per delivery, ``m_*`` ``[B]`` per message.  An opts row
+    outside [0, R) or a message index outside [0, B) raises IndexError;
+    on the card that check is the kernel's (`decide_packed`), read with
+    its 4 B error word.
 
     Replaces ``emqx_tpu/ops/match_kernel.py`` ``decide_batch``."""
     args = (oa_qos, oa_nl, oa_rap, oa_subid, opts_rows, client_rows,
             msg_idx, m_qos, m_retain, m_from_row)
     dev = opts_rows.device
-    for t, (name, dtype) in zip(args, _DECIDE_DTYPES):
-        _check(t, name, dtype, 1, dev)
     r, n, b = oa_qos.shape[0], opts_rows.shape[0], m_qos.shape[0]
+    _check_decide(zip(args, _DECIDE_DTYPES), n, r, b, dev)
     if any(t.shape[0] != r for t in (oa_nl, oa_rap, oa_subid)):
         raise ValueError("oa_* columns disagree on R")
     if client_rows.shape[0] != n or msg_idx.shape[0] != n:
         raise ValueError("per-delivery columns disagree on N")
     if m_retain.shape[0] != b or m_from_row.shape[0] != b:
         raise ValueError("per-message columns disagree on B")
-    if n:
-        if r == 0 or b == 0:
-            raise ValueError("deliveries index empty opts/message columns")
-        lo_o, hi_o = torch.aminmax(opts_rows)
-        lo_m, hi_m = torch.aminmax(msg_idx)
-        lo_o, hi_o, lo_m, hi_m = torch.stack(
-            [lo_o, hi_o, lo_m, hi_m]).tolist()
-        if lo_o < 0 or hi_o >= r:
-            raise IndexError(f"opts_rows out of range [0, {r}): "
-                             f"[{lo_o}, {hi_o}]")
-        if lo_m < 0 or hi_m >= b:
-            raise IndexError(f"msg_idx out of range [0, {b}): "
-                             f"[{lo_m}, {hi_m}]")
     if dev.type == "cpu":
+        if n:
+            lo_o, hi_o = torch.aminmax(opts_rows)
+            lo_m, hi_m = torch.aminmax(msg_idx)
+            if lo_o < 0 or hi_o >= r:
+                raise IndexError(f"opts_rows out of range [0, {r}): "
+                                 f"[{int(lo_o)}, {int(hi_o)}]")
+            if lo_m < 0 or hi_m >= b:
+                raise IndexError(f"msg_idx out of range [0, {b}): "
+                                 f"[{int(lo_m)}, {int(hi_m)}]")
         return decide_batch_plain(*args)
+    out, error = decide_packed(pack_opts(*args[:4]), *args[4:])
+    if n and int(error.item()):
+        raise IndexError(f"opts_rows outside [0, {r}) or msg_idx outside "
+                         f"[0, {b})")
+    return out
+
+
+def decide_packed(oa, opts_rows, client_rows, msg_idx, m_qos, m_retain,
+                  m_from_row):
+    """`decide_batch` from the options packed one ``int32`` word a row
+    (`pack_opts`; ``oa`` ``[R]``), with its range check fused in.
+    Returns ``(decisions [N] uint8, error [1] int32)``: ``error`` is
+    nonzero when some delivery's opts row is outside [0, R) or its
+    message index outside [0, B); such a delivery gets the byte 0, and
+    nothing outside the columns is read.  Nothing here synchronises:
+    the caller reads ``error`` with the decisions.
+
+    Replaces ``emqx_tpu/ops/match_kernel.py`` ``decide_batch``."""
+    dev = opts_rows.device
+    r, n, b = oa.shape[0], opts_rows.shape[0], m_qos.shape[0]
+    _check_decide(zip((oa, opts_rows, client_rows, msg_idx, m_qos,
+                       m_retain, m_from_row),
+                      (("oa", torch.int32),) + _DECIDE_DTYPES[4:]),
+                  n, r, b, dev)
+    if client_rows.shape[0] != n or msg_idx.shape[0] != n:
+        raise ValueError("per-delivery columns disagree on N")
+    if m_retain.shape[0] != b or m_from_row.shape[0] != b:
+        raise ValueError("per-message columns disagree on B")
+    if dev.type == "cpu":
+        return decide_packed_plain(oa, opts_rows, client_rows, msg_idx,
+                                   m_qos, m_retain, m_from_row)
     from . import _kernels
 
     out = torch.empty(n, dtype=torch.uint8, device=dev)
+    error = torch.empty(1, dtype=torch.int32, device=dev)
+    _kernels.decide(oa, opts_rows, client_rows, msg_idx, m_qos, m_retain,
+                    m_from_row, out, error)
     if n:
-        _kernels.decide(*args, out)
-        decide_batch.launches += 1
-    return out
+        decide_packed.launches += 1
+    return out, error
 
 
 _RULES_PROGRAM = (
@@ -725,6 +947,14 @@ _RULES_PLANES = (
 )
 
 
+def _check_planes(num, sid, err, prs, lit_ranks, dev) -> None:
+    for t, (name, dtype) in zip((num, sid, err, prs), _RULES_PLANES):
+        _check(t, name, dtype, 2, dev)
+    _check(lit_ranks, "lit_ranks", torch.int32, 1, dev)
+    if any(t.shape != num.shape for t in (sid, err, prs)):
+        raise ValueError("num, sid, err and prs disagree on [P, W]")
+
+
 def rules_eval_batch(code, a0, a1, a2, a3, litn, lit_ranks, last, num, sid,
                      err, prs):
     """The rules x window pass matrix, ``[R, W]`` bool: each rule's
@@ -733,39 +963,70 @@ def rules_eval_batch(code, a0, a1, a2, a3, litn, lit_ranks, last, num, sid,
     over the window's column planes (``num`` float64, ``sid`` int32,
     ``err``/``prs`` bool, ``[P, W]``), with ``lit_ranks`` int32 ``[L]``.
     Computed in float64: equal, bit for bit, to the JAX package's
-    numpy twin on every window.  Operand indices are not range-checked
-    on the card (that would cost a host sync): a program from
-    `predicate.build_stack` is in range by construction.
+    numpy twin on every window.  On the card the program is lowered on
+    every call (`rules_lowering.lower_rules`, which refuses an
+    operand the kernel would have to check) and run by
+    `rules_eval_lowered`; the engine lowers once per rules rev.
 
     Replaces ``emqx_tpu/ops/match_kernel.py`` ``rules_eval_batch``."""
     dev = num.device
     prog = (code, a0, a1, a2, a3, litn)
     for t, (name, dtype) in zip(prog, _RULES_PROGRAM):
         _check(t, name, dtype, 2, dev)
-    for t, (name, dtype) in zip((num, sid, err, prs), _RULES_PLANES):
-        _check(t, name, dtype, 2, dev)
+    _check_planes(num, sid, err, prs, lit_ranks, dev)
     _check(last, "last", torch.int32, 1, dev)
-    _check(lit_ranks, "lit_ranks", torch.int32, 1, dev)
     r, s = code.shape
     if any(t.shape != code.shape for t in prog):
         raise ValueError("code, a0..a3 and litn disagree on [R, S]")
     if last.shape[0] != r:
         raise ValueError("last disagrees with code on R")
-    if any(t.shape != num.shape for t in (sid, err, prs)):
-        raise ValueError("num, sid, err and prs disagree on [P, W]")
     if not 1 <= s <= MAX_STEPS:
         raise ValueError(f"programs must have 1..{MAX_STEPS} steps, got {s}")
     if dev.type == "cpu":
         return rules_eval_plain(code, a0, a1, a2, a3, litn, lit_ranks, last,
                                 num, sid, err, prs)
+    low = lower_rules(
+        *(t.cpu().numpy() for t in (code, a0, a1, a2, a3, litn, last)), dev,
+        n_lits=lit_ranks.shape[0])
+    return rules_eval_lowered(low, lit_ranks, num, sid, err, prs)
+
+
+def rules_eval_lowered(prog: LoweredRules, lit_ranks, num, sid, err, prs):
+    """The rules x window pass matrix, ``[R, W]`` bool, of a program
+    lowered by `rules_lowering.lower_rules` over the window's
+    column planes (as `rules_eval_batch` takes them).  Equal, bit for
+    bit, to `rules_eval_batch` of the stacked program.
+
+    Replaces ``emqx_tpu/ops/match_kernel.py`` ``rules_eval_batch``."""
+    dev = num.device
+    _check(prog.steps, "steps", torch.int32, 3, dev)
+    _check(prog.lits, "lits", torch.float64, 2, dev)
+    _check(prog.meta, "meta", torch.int32, 1, dev)
+    _check_planes(num, sid, err, prs, lit_ranks, dev)
+    r, width, four = prog.steps.shape
+    if four != 4 or prog.lits.shape[0] != r or prog.meta.shape[0] != r \
+            or prog.lits.shape[1] < 1 or not 1 <= width <= MAX_STEPS:
+        raise ValueError("steps, lits and meta must be [R, 1..MAX_STEPS, "
+                         "4], [R, NL>=1] and [R]")
+    if lit_ranks.shape[0] < prog.lits_needed:
+        raise ValueError(f"the program reads {prog.lits_needed} string "
+                         f"literals, lit_ranks has {lit_ranks.shape[0]}")
+    if num.shape[0] > PLANE_MAX + 1:
+        raise ValueError(f"at most {PLANE_MAX + 1} planes, got "
+                         f"{num.shape[0]}")
+    if num.numel() > _I32_MAX:  # the kernel's plane offsets are int32
+        raise ValueError(f"P x W must stay within {_I32_MAX}, got "
+                         f"{num.numel()}")
+    if dev.type == "cpu":
+        return rules_eval_lowered_plain(prog.steps, prog.lits, prog.meta,
+                                        lit_ranks, num, sid, err, prs)
     from . import _kernels
 
-    w = num.shape[1]
-    out = torch.empty((r, w), dtype=torch.bool, device=dev)
-    if r and w:
-        _kernels.rules_eval(code, a0, a1, a2, a3, litn, last, lit_ranks,
+    out = torch.empty((r, num.shape[1]), dtype=torch.bool, device=dev)
+    if out.numel():
+        _kernels.rules_eval(prog.steps, prog.lits, prog.meta, lit_ranks,
                             num, sid, err, prs, out)
-        rules_eval_batch.launches += 1
+        rules_eval_lowered.launches += 1
     return out
 
 
@@ -850,12 +1111,12 @@ def predicate_eval_batch(steps, lit, result: int, num, sid, err, lit_ids):
 
 match_batch.launches = 0
 match_batch_compact.launches = 0
-decide_batch.launches = 0
-rules_eval_batch.launches = 0
+decide_packed.launches = 0
+rules_eval_lowered.launches = 0
 sharded_match_local.launches = 0
 predicate_eval_batch.launches = 0
-KERNELS = (match_batch_compact, match_batch, decide_batch, rules_eval_batch,
-           sharded_match_local, predicate_eval_batch)
+KERNELS = (match_batch_compact, match_batch, decide_packed,
+           rules_eval_lowered, sharded_match_local, predicate_eval_batch)
 
 
 def reset_launches() -> None:

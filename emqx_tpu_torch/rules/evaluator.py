@@ -8,25 +8,30 @@ its own.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 
-from ..ops.match_kernel import rules_eval_batch
+from ..ops.match_kernel import rules_eval_batch, rules_eval_lowered
+from ..ops.rules_lowering import LoweredRules, lower_rules
 from ..state import (
-    RulesProgram, columns_from_reference, resolve_device,
+    HostStage, columns_from_reference, resolve_device,
     rules_program_from_reference,
 )
 
 
 class RulesEvaluator:
     """Evaluates `predicate.StackedRules` over `columns.WindowColumns`
-    on ``device``; the program is cached per rules rev."""
+    on ``device``; on a card the lowered program is cached per rules
+    rev."""
 
     def __init__(self, device="cuda") -> None:
         self.device = resolve_device(device)
-        # (rules rev, the stacked WHERE program on the device)
-        self._prog: Optional[Tuple[int, RulesProgram]] = None
+        # (rules rev, the lowered WHERE program on the device)
+        self._prog: Optional[Tuple[int, LoweredRules]] = None
+        self._stage = HostStage(self.device)
+        self._lock = threading.Lock()  # the stage, from fill to download
         self.counters = {"rules_host_windows": 0, "rules_dev_windows": 0}
 
     def eval_window(self, stack, rev: int, cols, rows=None):
@@ -34,12 +39,14 @@ class RulesEvaluator:
         matrix of ``stack`` (``rev``, the rule engine's mutation
         counter) over ``cols``.
 
-        On the card the program is uploaded once per ``rev``, the planes
-        once per window, and the rules kernel evaluates every row (the
-        JAX engine's device path); ``rows``, the matrix rows whose rules
-        matched this window, is not needed there.  On the CPU the plain
-        version evaluates just ``rows`` and scatters them back, as the
-        JAX engine's host twin does.  Both compute in float64, so no
+        On the card the program is lowered and uploaded once per
+        ``rev``; per window the planes and literal ranks go up in one
+        copy from a pinned buffer, the rules kernel evaluates every row
+        (the JAX engine's device path) and the matrix comes down in one
+        copy, after one synchronise.  ``rows``, the matrix rows whose
+        rules matched this window, is not needed there.  On the CPU the
+        plain version evaluates just ``rows`` and scatters them back, as
+        the JAX engine's host twin does.  Both compute in float64, so no
         window needs another route."""
         r_n, w_n = stack.n_rules, cols.n
         dev = self.device
@@ -49,28 +56,40 @@ class RulesEvaluator:
             sel = (np.arange(r_n) if rows is None
                    else np.asarray(rows, dtype=np.int64))
             if sel.size and w_n:
-                mat[sel] = self._eval(
-                    rules_program_from_reference(
-                        *(a[sel] for a in (stack.code, stack.a0, stack.a1,
-                                           stack.a2, stack.a3, stack.litn,
-                                           stack.last)), dev,
-                    ), cols,
+                prog = rules_program_from_reference(
+                    *(a[sel] for a in (stack.code, stack.a0, stack.a1,
+                                       stack.a2, stack.a3, stack.litn,
+                                       stack.last)), dev,
                 )
+                planes = columns_from_reference(
+                    cols.num, cols.sid, cols.err, cols.prs, cols.lit_ranks,
+                    dev)
+                mat[sel] = rules_eval_batch(
+                    prog.code, prog.a0, prog.a1, prog.a2, prog.a3,
+                    prog.litn, planes.lit_ranks, prog.last, planes.num,
+                    planes.sid, planes.err, planes.prs,
+                ).numpy()
             return mat, "host"
         self.counters["rules_dev_windows"] += 1
         cache = self._prog
         if cache is None or cache[0] != rev:
-            cache = self._prog = (rev, rules_program_from_reference(
+            cache = self._prog = (rev, lower_rules(
                 stack.code, stack.a0, stack.a1, stack.a2, stack.a3,
-                stack.litn, stack.last, dev,
+                stack.litn, stack.last, dev, n_lits=len(stack.lit_strings),
             ))
         return self._eval(cache[1], cols), "dev"
 
-    def _eval(self, prog: RulesProgram, cols) -> np.ndarray:
-        planes = columns_from_reference(cols.num, cols.sid, cols.err,
-                                        cols.prs, cols.lit_ranks, self.device)
-        return rules_eval_batch(
-            prog.code, prog.a0, prog.a1, prog.a2, prog.a3, prog.litn,
-            planes.lit_ranks, prog.last, planes.num, planes.sid, planes.err,
-            planes.prs,
-        ).cpu().numpy()
+    def _eval(self, prog: LoweredRules, cols) -> np.ndarray:
+        p, w = cols.num.shape
+        with self._lock:
+            host = self._stage.views([
+                (np.float64, (p, w)), (np.int32, (p, w)),
+                (np.int32, (cols.lit_ranks.size,)), (bool, (p, w)),
+                (bool, (p, w)),
+            ])
+            for dst, src in zip(host, (cols.num, cols.sid, cols.lit_ranks,
+                                       cols.err, cols.prs)):
+                dst[...] = src
+            num, sid, lit_ranks, err, prs = self._stage.upload()
+            mat = rules_eval_lowered(prog, lit_ranks, num, sid, err, prs)
+            return self._stage.download(mat)[0]

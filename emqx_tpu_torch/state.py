@@ -19,6 +19,11 @@ takes them.
 for the rule engine: a stacked WHERE program (`StackedRules` arrays of
 either package) and one window's column planes (`WindowColumns`
 arrays) become the tensors `ops.match_kernel.rules_eval_batch` takes.
+`rules_lowered_from_reference` puts a stacked program, lowered once
+(per rules rev) by `ops.rules_lowering`, on the device for the K4
+kernel (`ops.match_kernel.rules_eval_lowered`).  `HostStage` packs one call's
+host arrays into a buffer it keeps (pinned for a card) and puts them on
+the device in one copy.
 `predicate_program_from_code` and `predicate_columns_from_reference`
 do it for one rule's predicate (K6): its register program and the
 columns `PredicateProgram.extract_columns` pulls (a dict of either
@@ -27,14 +32,14 @@ package's, with `_literal_ids`).
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .ops.automaton import BUCKET
+from .ops.rules_lowering import LoweredRules, lower_rules, rules_arrays
 from .rules import predicate as P
-from .rules.predicate import MAX_STEPS, R_PRES
 
 
 class DeviceTables(NamedTuple):
@@ -144,27 +149,19 @@ def rules_program_from_reference(code, a0, a1, a2, a3, litn, last,
     """A stacked WHERE program on ``device``.  Checks what the kernel
     relies on: ``1 <= S <= MAX_STEPS``, known opcodes, and each rule's
     result register inside its row."""
-    ops = [np.ascontiguousarray(a, dtype=np.int32)
-           for a in (code, a0, a1, a2, a3)]
-    lit = np.ascontiguousarray(litn, dtype=np.float64)
-    res = np.ascontiguousarray(last, dtype=np.int32)
-    shape = ops[0].shape
-    if len(shape) != 2 or any(a.shape != shape for a in (*ops, lit)):
-        raise ValueError("code, a0..a3 and litn must share one [R, S] shape")
-    r, s = shape
-    if not 1 <= s <= MAX_STEPS:
-        raise ValueError(f"programs must have 1..{MAX_STEPS} steps, got {s}")
-    if res.shape != (r,):
-        raise ValueError(f"last must be [{r}], got {res.shape}")
-    if r and (ops[0].min() < 0 or ops[0].max() > R_PRES):
-        raise ValueError("unknown opcode in code")
-    if r and (res.min() < 0 or res.max() >= s):
-        raise ValueError(f"last must index a step in [0, {s})")
+    arrays = rules_arrays(code, a0, a1, a2, a3, litn, last)
     dev = resolve_device(device)
-    return RulesProgram(
-        *(torch.from_numpy(a).to(dev) for a in ops),
-        torch.from_numpy(lit).to(dev), torch.from_numpy(res).to(dev),
-    )
+    return RulesProgram(*(torch.from_numpy(a).to(dev) for a in arrays))
+
+
+def rules_lowered_from_reference(code, a0, a1, a2, a3, litn, last, device,
+                                 n_lits: Optional[int] = None
+                                 ) -> LoweredRules:
+    """A stacked WHERE program lowered into K4's step records
+    (`ops.rules_lowering.lower_rules`, which raises ValueError for a
+    program the kernel could not run unchecked) on ``device``."""
+    return lower_rules(code, a0, a1, a2, a3, litn, last,
+                       resolve_device(device), n_lits)
 
 
 def columns_from_reference(num, sid, err, prs, lit_ranks,
@@ -256,3 +253,80 @@ def predicate_program_from_code(code, device) -> PredicateDeviceCode:
     return PredicateDeviceCode(torch.from_numpy(steps).to(dev),
                                torch.from_numpy(lit).to(dev),
                                int(code.result))
+
+
+_TORCH_DTYPE = {np.dtype(d): t for d, t in (
+    (np.float64, torch.float64), (np.int32, torch.int32),
+    (np.int8, torch.int8), (np.uint8, torch.uint8), (np.bool_, torch.bool),
+)}
+
+
+class HostStage:
+    """A call's host arrays, packed at 16 B aligned offsets into one
+    buffer that this object keeps and grows (pinned when ``device`` is a
+    card), go up in one copy into a device buffer it also keeps; results
+    come down into pinned memory with one synchronise.  The views of a
+    layout are made once and reused while calls repeat it, so the
+    arrays `upload` returns on a card are overwritten by the next call's
+    upload (in stream order).  Not thread-safe: a caller holds its own
+    lock from `views` until `download` has returned."""
+
+    ALIGN = 16
+
+    def __init__(self, device) -> None:
+        self.device = resolve_device(device)
+        self._host: Optional[torch.Tensor] = None
+        self._dev: Optional[torch.Tensor] = None
+        self._specs: Optional[List] = None
+        self._size = 0
+        self._host_views: List[np.ndarray] = []
+        self._dev_views: List[torch.Tensor] = []
+
+    def views(self, specs: Sequence[Tuple[type, Tuple[int, ...]]]
+              ) -> List[np.ndarray]:
+        """Host arrays of these ``(dtype, shape)``s in the buffer, for
+        the caller to fill before `upload`."""
+        specs = list(specs)
+        if specs == self._specs:
+            return self._host_views
+        layout, size = [], 0
+        for dtype, shape in specs:
+            dt = np.dtype(dtype)
+            n = int(np.prod(shape)) * dt.itemsize
+            layout.append((size, n, dt, tuple(shape)))
+            size += -(-n // self.ALIGN) * self.ALIGN
+        card = self.device.type == "cuda"
+        if self._host is None or self._host.numel() < size:
+            cap = max(size, 2 * (0 if self._host is None
+                                 else self._host.numel()), 4096)
+            self._host = torch.empty(cap, dtype=torch.uint8, pin_memory=card)
+            self._dev = (torch.empty(cap, dtype=torch.uint8,
+                                     device=self.device) if card else None)
+        buf = self._host.numpy()
+        self._host_views = [buf[o:o + n].view(dt).reshape(sh)
+                            for o, n, dt, sh in layout]
+        self._dev_views = [self._dev[o:o + n].view(_TORCH_DTYPE[dt]).view(sh)
+                           for o, n, dt, sh in layout] if card else []
+        self._specs, self._size = specs, size
+        return self._host_views
+
+    def upload(self) -> List[torch.Tensor]:
+        """The arrays of the last `views`, on the device: one copy (on
+        the CPU, fresh tensors)."""
+        if self.device.type != "cuda":
+            return [torch.from_numpy(a.copy()) for a in self._host_views]
+        self._dev[:self._size].copy_(self._host[:self._size],
+                                     non_blocking=True)
+        return self._dev_views
+
+    def download(self, *tensors: torch.Tensor) -> List[np.ndarray]:
+        """``tensors`` on the host, each copied into pinned memory of
+        its own, after one synchronise."""
+        if self.device.type != "cuda":
+            return [t.numpy() for t in tensors]
+        out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+               for t in tensors]
+        for h, t in zip(out, tensors):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return [h.numpy() for h in out]

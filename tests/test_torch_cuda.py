@@ -195,6 +195,83 @@ def test_decide_kernel_equals_plain(cuda):
         mk.decide_batch(*bad)
 
 
+def _decide_case(rng, n, r, b, offset=0):
+    """CPU columns of one decide window; the per-delivery columns are
+    views ``offset`` elements into their buffers."""
+    def view(a):
+        return torch.from_numpy(np.concatenate(
+            [np.zeros(offset, a.dtype), a]))[offset:]
+
+    return [
+        torch.from_numpy(rng.integers(-1, 3, r).astype(np.int8)),
+        torch.from_numpy(rng.random(r) < 0.3),
+        torch.from_numpy(rng.random(r) < 0.4),
+        torch.from_numpy(rng.random(r) < 0.2),
+        view(rng.integers(0, r, n).astype(np.int32)),
+        view(rng.integers(-1, 100, n).astype(np.int32)),
+        view(rng.integers(0, b, n).astype(np.int32)),
+        torch.from_numpy(rng.integers(-1, 3, b).astype(np.int8)),
+        torch.from_numpy(rng.random(b) < 0.5),
+        torch.from_numpy(rng.integers(-1, 100, b).astype(np.int32)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset,b", [
+    (n, off, 40) for n in (1, 3, 5, 17, (1 << 20) + 3)
+    for off in (0, 1, 2, 3)] + [(5000, 0, 7000), (4099, 1, 7000)])
+def test_decide_kernel_tails_and_unaligned_views(cuda, n, offset, b):
+    """K3's vector path, its scalar tail, views that are not 16 B
+    aligned, and windows of 7,000 messages."""
+    cpu = _decide_case(np.random.default_rng(n + offset), n, 300, b, offset)
+    gpu = [c.to(cuda) for c in cpu]
+    if offset:  # the same unaligned views on the card
+        gpu[4:7] = [torch.cat([c.new_zeros(offset), c])[offset:]
+                    for c in gpu[4:7]]
+        assert gpu[4].data_ptr() % 16
+    mk.reset_launches()
+    want = mk.decide_batch(*cpu)
+    got = mk.decide_batch(*gpu)
+    assert torch.equal(want, got.cpu())
+    packed, err = mk.decide_packed(mk.pack_opts(*gpu[:4]), *gpu[4:])
+    plain, perr = mk.decide_packed_plain(mk.pack_opts(*gpu[:4]), *gpu[4:])
+    torch.cuda.synchronize()
+    assert torch.equal(packed, plain) and int(err) == int(perr) == 0
+    assert mk.decide_packed.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [
+    "opts_high", "opts_negative", "msg_high", "qos_dtype", "noncontiguous",
+])
+def test_decide_kernel_refuses(cuda, bad):
+    """`test_decide_wrapper_refuses`'s five bad inputs on the card: the
+    range errors come from the kernel's error word, and the bytes of
+    the bad deliveries are 0."""
+    case = [c.to(cuda) for c in _decide_case(np.random.default_rng(2), 700,
+                                             64, 30)]
+    exc = IndexError
+    if bad == "opts_high":
+        case[4][0] = case[0].shape[0]
+    elif bad == "opts_negative":
+        case[4][0] = -1
+    elif bad == "msg_high":
+        case[6][0] = case[7].shape[0]
+    elif bad == "qos_dtype":
+        case[0], exc = case[0].to(torch.int32), TypeError
+    elif bad == "noncontiguous":
+        case[5], exc = torch.stack([case[5], case[5]], 1)[:, 0], ValueError
+    with pytest.raises(exc):
+        mk.decide_batch(*case)
+    if exc is IndexError:
+        got, err = mk.decide_packed(mk.pack_opts(*case[:4]), *case[4:])
+        want, werr = mk.decide_packed_plain(mk.pack_opts(*case[:4]),
+                                            *case[4:])
+        torch.cuda.synchronize()
+        assert int(err) == int(werr) == 1 and int(got[0]) == 0
+        assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_engine_on_card_equals_host_trie(cuda):
     filters, topics = _world(3, 2000, 1000)
@@ -359,10 +436,179 @@ def test_rules_broker_on_card_equals_scalar_referee(cuda):
         out.append((fired, {r: (x.matched, x.passed, x.failed)
                             for r, x in b.rules.rules.items()}))
         if not scalar:
-            assert mk.rules_eval_batch.launches == len(wins)
+            assert mk.rules_eval_lowered.launches == len(wins)
             ev = b.router.engine.rules_evaluator
             assert ev._prog[0] == b.rules.rules_rev
     assert out[0] == out[1]
+
+
+# Seeded stacked programs, laid out as `predicate.build_stack` lays them
+# out: random expression trees of up to MAX_STEPS steps in post-order
+# over every opcode, some reading the register of a step that writes
+# nothing (NOP) or a register of the other kind, over random planes.
+_LITS = [0.0, -0.0, 0.5, -3.0, 3.0, 7.0, 1e308, float("inf"), float("nan"),
+         2633996730456453632.0, 16777217.0]
+
+
+def _tree(rng, steps, budget, n_planes, n_lits, numeric):
+    """Emit one random subtree; returns its register."""
+    from emqx_tpu_torch.rules import predicate as P
+
+    def emit(op, a0=-1, a1=-1, a2=-1, a3=-1, lit=0.0):
+        steps.append((op, a0, a1, a2, a3, lit))
+        return len(steps) - 1
+
+    def plane():
+        return rng.randrange(n_planes)
+
+    if rng.random() < 0.04:
+        return emit(P.R_NOP)  # never written: reads clear
+    if rng.random() < 0.04:  # a register of the other kind
+        return _tree(rng, steps, budget - 1, n_planes, n_lits, not numeric)
+    leaf = budget <= 2 or rng.random() < 0.15
+    if numeric:
+        if leaf:
+            return (emit(P.R_NLOAD, plane()) if rng.random() < 0.6
+                    else emit(P.R_NLIT, lit=rng.choice(_LITS)))
+        if rng.random() < 0.15:
+            return emit(P.R_NNEG, _tree(rng, steps, budget - 1, n_planes,
+                                        n_lits, True))
+        op = rng.choice([P.R_NADD, P.R_NSUB, P.R_NMUL, P.R_NDIV, P.R_NIDV,
+                         P.R_NMOD])
+    elif leaf:
+        kind = rng.randrange(5)
+        neg = rng.choice([0, 1])
+        if kind == 0:
+            return emit(P.R_BLIT, rng.choice([0, 1]))
+        if kind == 1:
+            return emit(P.R_EQVV, plane(), plane(), neg)
+        if kind == 2:
+            return emit(P.R_EQVL, plane(), -1, neg, -1, rng.choice(_LITS))
+        if kind == 3 and n_lits:
+            return emit(P.R_EQSL, plane(), rng.randrange(n_lits), neg)
+        return emit(P.R_PRES, plane(), -1, neg)
+    else:
+        op = rng.choice([P.R_BNOT, P.R_BAND, P.R_BOR, P.R_CGT, P.R_CLT,
+                         P.R_CGE, P.R_CLE, P.R_EQC])
+    if op == P.R_BNOT:
+        return emit(op, _tree(rng, steps, budget - 1, n_planes, n_lits,
+                              False))
+    # operands: numeric except under BAND / BOR
+    num_kids = numeric or op not in (P.R_BAND, P.R_BOR)
+    half = rng.randint(1, max(1, budget - 2))
+    a = _tree(rng, steps, half, n_planes, n_lits, num_kids)
+    b = _tree(rng, steps, budget - 1 - half, n_planes, n_lits, num_kids)
+    if op in (P.R_CGT, P.R_CLT, P.R_CGE, P.R_CLE):
+        ranks = rng.random() < 0.4
+        return emit(op, a, b, plane() if ranks else -1,
+                    plane() if ranks else -1)
+    if op == P.R_EQC:
+        return emit(op, a, b, rng.randrange(8),
+                    plane() if rng.random() < 0.5 else -1)
+    return emit(op, a, b)
+
+
+def widest_program(n_planes):
+    """The widest live set the lowering allows: a compare of two
+    balanced sums of 8 negated loads (47 steps), so 5 numeric registers
+    hold values at once."""
+    from emqx_tpu_torch.rules import predicate as P
+
+    steps = []
+
+    def emit(op, a0=-1, a1=-1):
+        steps.append((op, a0, a1, -1, -1, 0.0))
+        return len(steps) - 1
+
+    def tree(depth, k):
+        if depth == 1:
+            return emit(P.R_NNEG, emit(P.R_NLOAD, k % n_planes))
+        left = tree(depth - 1, 2 * k)
+        right = tree(depth - 1, 2 * k + 1)
+        return emit([P.R_NADD, P.R_NMUL, P.R_NSUB][depth % 3], left, right)
+
+    left = tree(4, 0)
+    emit(P.R_CGE, left, tree(4, 1))
+    return steps
+
+
+def random_programs(seed, n_rules, n_planes, n_lits):
+    """``(code, a0, a1, a2, a3, litn, last)`` of ``n_rules`` random
+    programs of 1..MAX_STEPS steps, the widest one first."""
+    from emqx_tpu_torch.rules.predicate import MAX_STEPS, R_NOP
+
+    rng = random.Random(seed)
+    progs = [widest_program(n_planes)]
+    while len(progs) < n_rules:
+        steps = []
+        _tree(rng, steps, rng.randint(1, 60), n_planes, n_lits, False)
+        if len(steps) <= MAX_STEPS:
+            progs.append(steps)
+    width = max(len(p) for p in progs)
+    out = [np.full((n_rules, width), -1, np.int32) for _ in range(5)]
+    out[0][:] = R_NOP
+    litn = np.zeros((n_rules, width), np.float64)
+    for r, steps in enumerate(progs):
+        for s, (op, *args, lit) in enumerate(steps):
+            out[0][r, s] = op
+            for k, v in enumerate(args):
+                out[k + 1][r, s] = v
+            litn[r, s] = lit
+    last = np.array([len(p) - 1 for p in progs], np.int32)
+    return (*out, litn, last)
+
+
+def random_planes(seed, n_planes, w, n_lits):
+    """``(num, sid, err, prs, lit_ranks)``: a window's planes with NaN,
+    infinities, signed zeros, the FMA-trap values and strings."""
+    rng = np.random.default_rng(seed)
+    num = rng.choice(np.array(_LITS + [1.0, 2.0, 0.25, 9385959.583563903,
+                                       2834748.6238531545,
+                                       -26606836013049.1]),
+                     (n_planes, w))
+    sid = rng.integers(-3, 6, (n_planes, w)).astype(np.int32)
+    err = rng.random((n_planes, w)) < 0.1
+    prs = ~err & (rng.random((n_planes, w)) < 0.7)
+    lit_ranks = rng.integers(-1, 6, n_lits).astype(np.int32)
+    return num, sid, err, prs, lit_ranks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rules,w,n_planes", [
+    (300, 1, 5), (300, 33, 5), (300, 130, 5), (300, 4097, 5),
+    (70_000, 5, 5),  # more rule blocks than gridDim.y could hold
+    (200, 100, 60),  # planes past the shared tile: read from L1
+])
+def test_rules_kernel_lowered_programs(cuda, n_rules, w, n_planes):
+    from emqx_tpu_torch.ops.rules_lowering import RULES_NUM_SLOTS
+    from emqx_tpu_torch.state import rules_lowered_from_reference
+
+    n_lits = 4
+    progs = random_programs(11, min(n_rules, 300), n_planes, n_lits)
+    if n_rules > 300:  # the same programs, tiled
+        reps = -(-n_rules // 300)
+        progs = tuple(np.ascontiguousarray(np.concatenate(
+            [a] * reps)[:n_rules]) for a in progs)
+    planes = random_planes(w, n_planes, w, n_lits)
+    num, sid, err, prs, lit_ranks = (torch.from_numpy(a).to(cuda)
+                                     for a in planes)
+    low = rules_lowered_from_reference(*progs, cuda, n_lits=n_lits)
+    # the widest program keeps all RULES_NUM_SLOTS numeric registers
+    rec = low.steps[0].cpu().numpy()
+    numeric = (rec[:, 0] & 0xFF) <= 9
+    assert ((rec[numeric, 0] >> 8) & 0xFF).max() == RULES_NUM_SLOTS - 1
+    mk.reset_launches()
+    got = mk.rules_eval_lowered(low, lit_ranks, num, sid, err, prs)
+    lowered = mk.rules_eval_lowered_plain(*low[:3], lit_ranks, num, sid,
+                                          err, prs)
+    stacked = mk.rules_eval_plain(
+        *(torch.from_numpy(a).to(cuda) for a in progs[:6]), lit_ranks,
+        torch.from_numpy(progs[6]).to(cuda), num, sid, err, prs)
+    torch.cuda.synchronize()
+    assert got.shape == (n_rules, w) and got.device.type == "cuda"
+    assert torch.equal(got, lowered)
+    assert torch.equal(got, stacked)
+    assert mk.rules_eval_lowered.launches == 1
 
 
 # -------------------------------------------- sharded match (K5)

@@ -124,3 +124,27 @@ def test_engine_compact_clip_reruns_dense():
     assert eng.counters["clip_reruns"] == 1
     assert eng._ccap_mult == 4
     assert mk.match_batch.launches == before  # CPU: plain version only
+
+
+def test_host_stage_packs_one_upload():
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.state import HostStage
+
+    st = HostStage("cpu")
+    for n in (3, 5000):  # the second call grows the buffer
+        a, b, c = st.views([(np.float64, (2, n)), (np.int8, (n,)),
+                            (bool, (3,))])
+        a[...] = np.arange(2 * n).reshape(2, n) / 4
+        b[...] = -(np.arange(n) % 100)
+        c[...] = [True, False, True]
+        ta, tb, tc = st.upload()
+        a[...] = 0  # the upload is a copy
+        assert ta.dtype == torch.float64 and ta.shape == (2, n)
+        assert torch.equal(ta, torch.arange(2 * n).reshape(2, n) / 4)
+        assert tb.dtype == torch.int8 and tb.tolist() == (
+            -(np.arange(n) % 100)).tolist()
+        assert tc.tolist() == [True, False, True]
+    (got,) = st.download(tb)
+    assert got.dtype == np.int8 and got.shape == (5000,)

@@ -331,3 +331,19 @@ def test_decide_wrapper_refuses(bad):
         case[5], exc = torch.stack([case[5], case[5]], 1)[:, 0], ValueError
     with pytest.raises(exc):
         mk.decide_batch(*case)
+
+
+def test_decide_packed_equals_reference_and_flags_range():
+    """K3's packed form (plain): the JAX package's bytes, and a delivery
+    outside the opts or message columns gets 0 and sets the error."""
+    for case in _decide_cases():
+        host = ref_mk.decide_batch_host(*case)
+        t = [torch.from_numpy(np.asarray(c)) for c in case]
+        got, err = mk.decide_packed(mk.pack_opts(*t[:4]), *t[4:])
+        assert got.dtype == torch.uint8 and int(err) == 0
+        np.testing.assert_array_equal(host, got.numpy())
+        t[4][0] = t[0].shape[0]
+        t[6][-1] = -1
+        got, err = mk.decide_packed(mk.pack_opts(*t[:4]), *t[4:])
+        assert int(err) == 1 and got[0] == 0 and got[-1] == 0
+        np.testing.assert_array_equal(host[1:-1], got[1:-1].numpy())

@@ -434,3 +434,157 @@ def test_wrapper_and_upload_refuse_bad_inputs():
         rules_program_from_reference(port.code + 40, port.a0, port.a1,
                                      port.a2, port.a3, port.litn, port.last,
                                      "cpu")
+
+
+# ------------------------------------------------------- lowered form
+#
+# K4 runs the program lowered once per rules rev
+# (`ops.rules_lowering`); its plain version
+# (`rules_eval_lowered_plain`) is what chip_smoke.py holds the kernel
+# against, so it is held here against the JAX package's numpy twin.
+
+from test_torch_cuda import (  # noqa: E402  (card-test inputs, JAX-free)
+    RULE_CORPUS, _rules_window, random_planes, random_programs,
+)
+
+from emqx_tpu_torch import state  # noqa: E402
+from emqx_tpu_torch.ops import rules_lowering as rl  # noqa: E402
+
+
+def _lowered(progs, planes, n_lits):
+    low = state.rules_lowered_from_reference(*progs, "cpu", n_lits=n_lits)
+    num, sid, err, prs, lit_ranks = (torch.from_numpy(a) for a in planes)
+    got = mk.rules_eval_lowered(low, lit_ranks, num, sid, err, prs)
+    assert got.dtype == torch.bool and got.shape == (len(progs[6]),
+                                                     num.shape[1])
+    return low, got.numpy()
+
+
+def test_lowered_constants_equal_cuda_source():
+    src = open(os.path.join(
+        REPO, "emqx_tpu_torch", "ops", "csrc", "rules_kernels.cu")).read()
+    for text in (f"kNumSlots = {rl.RULES_NUM_SLOTS};",
+                 f"kSrcPlane = {rl.SRC_PLANE};",
+                 f"kSrcLit = {rl.SRC_LIT};", f"kRank = {rl.CMP_RANK};",
+                 f"kOkPlane = {rl.EQ_OKP};",
+                 f"kBoolInit = 1u << {rl.RULES_BOOL_TRUE};",
+                 f"kBoolInitF = 1u << {rl.RULES_BOOL_FALSE};"):
+        assert text in src, text
+    assert rl.SRC_SLOT == 0 and rl.RULES_BOOL_ZERO == 29
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lowered_equals_host_twin_on_corpus(seed):
+    """RULE_CORPUS windows, the FMA-trap payloads among them."""
+    stack, cols = _rules_window(seed, 60, 80)
+    progs = (stack.code, stack.a0, stack.a1, stack.a2, stack.a3, stack.litn,
+             stack.last)
+    with np.errstate(all="ignore"):
+        want = ref_mk.rules_eval_host(*progs[:6], cols.lit_ranks,
+                                      stack.last, cols.num, cols.sid,
+                                      cols.err, cols.prs)
+    low, got = _lowered(progs, (cols.num, cols.sid, cols.err, cols.prs,
+                                cols.lit_ranks), len(stack.lit_strings))
+    assert np.array_equal(want, got)
+    assert low.steps.shape[1] < stack.code.shape[1]  # loads are operands
+    row = stack.row_of
+    assert got[row[f"t{RULE_CORPUS.index('payload.a mod 3 = 0')}"], 0]
+    fma = RULE_CORPUS.index("payload.a * payload.b + payload.c = 0")
+    assert got[row[f"t{fma}"], 1]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lowered_equals_host_twin_on_random_programs(seed):
+    """Random programs of up to 48 steps (every opcode, reads of NOP and
+    other-kind registers, NaN and infinite literals) and the widest one
+    the lowering allows, over planes holding the FMA-trap values."""
+    n_planes, n_lits = 5, 4
+    progs = random_programs(seed, 80, n_planes, n_lits)
+    planes = random_planes(seed, n_planes, 40, n_lits)
+    with np.errstate(all="ignore"):  # infinities and NaNs on purpose
+        want = ref_mk.rules_eval_host(*progs[:6], planes[4], progs[6],
+                                      *planes[:4])
+    low, got = _lowered(progs, planes, n_lits)
+    assert np.array_equal(want, got)
+    stacked = mk.rules_eval_plain(
+        *(torch.from_numpy(a) for a in progs[:6]),
+        torch.from_numpy(planes[4]), torch.from_numpy(progs[6]),
+        *(torch.from_numpy(a) for a in planes[:4]))
+    assert np.array_equal(want, stacked.numpy())
+    rec = low.steps[0].numpy()  # the widest: every numeric register
+    live = rec[:low.meta[0] & 0xFF]
+    numeric = (live[:, 0] & 0xFF) >= pred.R_NNEG
+    numeric &= (live[:, 0] & 0xFF) <= pred.R_NMOD
+    assert ((live[numeric, 0] >> 8) & 0xFF).max() == \
+        rl.RULES_NUM_SLOTS - 1
+    assert progs[6][0] == 46  # 47 steps
+
+
+def _prog(steps):
+    width = len(steps)
+    arrs = [np.full((1, width), -1, np.int32) for _ in range(5)]
+    litn = np.zeros((1, width), np.float64)
+    for s, (op, *args) in enumerate(steps):
+        arrs[0][0, s] = op
+        for k, v in enumerate(args):
+            arrs[k + 1][0, s] = v
+    return (*arrs, litn, np.array([width - 1], np.int32))
+
+
+def test_lowering_refuses_what_the_kernel_would_check():
+    ok = [(pred.R_NLOAD, 0), (pred.R_NLIT,), (pred.R_CGT, 0, 1)]
+    state.rules_lowered_from_reference(*_prog(ok), "cpu")
+    for bad in (
+        [(pred.R_NLOAD, 0), (pred.R_CGT, 0, 1)],  # reads itself
+        [(pred.R_NLOAD, 0), (pred.R_CGT, 0, 5)],  # a later step
+        [(pred.R_NLOAD, 0), (pred.R_CGT, -1, 0)],  # negative
+        [(pred.R_NLOAD, 0), (pred.R_NNEG, 3), (pred.R_BLIT, 1)],
+    ):
+        with pytest.raises(ValueError, match="register operand"):
+            state.rules_lowered_from_reference(*_prog(bad), "cpu")
+    eqsl = _prog([(pred.R_EQSL, 0, 2, 0)])
+    state.rules_lowered_from_reference(*eqsl, "cpu", n_lits=3)
+    for n_lits in (0, 2):
+        with pytest.raises(ValueError, match="string-literal"):
+            state.rules_lowered_from_reference(*eqsl, "cpu", n_lits=n_lits)
+    low = state.rules_lowered_from_reference(*eqsl, "cpu")
+    assert low.lits_needed == 3
+    planes = [torch.zeros((1, 2), dtype=d) for d in (
+        torch.float64, torch.int32, torch.bool, torch.bool)]
+    with pytest.raises(ValueError, match="string literals"):
+        mk.rules_eval_lowered(low, torch.zeros(2, dtype=torch.int32),
+                              *planes)
+    # six values each read twice, by two chains: any order keeps seven
+    # numeric registers live
+    steps = []
+    for k in range(6):
+        steps += [(pred.R_NLOAD, k), (pred.R_NNEG, len(steps))]
+    vals = [2 * k + 1 for k in range(6)]
+    for op in (pred.R_NADD, pred.R_NMUL):
+        acc = vals[0]
+        for v in vals[1:]:
+            steps.append((op, acc, v))
+            acc = len(steps) - 1
+        vals.append(acc)
+    steps.append((pred.R_CGT, vals[-2], vals[-1]))
+    with pytest.raises(ValueError, match="numeric registers"):
+        state.rules_lowered_from_reference(*_prog(steps), "cpu")
+
+
+def test_rules_eval_lowered_refuses_planes_past_int32():
+    # the kernel indexes planes with 32-bit offsets; meta tensors take
+    # the shapes without the memory
+    meta = torch.device("meta")
+    low = rl.LoweredRules(
+        torch.zeros((1, 1, 4), dtype=torch.int32, device=meta),
+        torch.zeros((1, 1), dtype=torch.float64, device=meta),
+        torch.zeros(1, dtype=torch.int32, device=meta), 0)
+    lit_ranks = torch.zeros(1, dtype=torch.int32, device=meta)
+    for p, w, refused in ((2, 2**30 - 1, False), (1, 2**31 - 1, False),
+                          (2, 2**30, True), (3, 2**30, True)):
+        planes = [torch.zeros((p, w), dtype=d, device=meta) for d in (
+            torch.float64, torch.int32, torch.bool, torch.bool)]
+        # a size it takes gets as far as the launch, which wants a card
+        with pytest.raises(ValueError,
+                           match="P x W" if refused else "CUDA tensors"):
+            mk.rules_eval_lowered(low, lit_ranks, *planes)
