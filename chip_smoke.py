@@ -18,8 +18,9 @@ whose kernel launches it counts.  Phases:
   build           nvcc of the kernel sources, with its seconds, and each
                   kernel's ptxas registers, stack frame and spills;
                   fails if a lane-group scan kernel (K1, K2, K5, every
-                  group width), K4 (both instances) or K3 has a stack
-                  frame or spills
+                  group width), K4 (both instances), K3 or K6 (its 2-,
+                  4-, 8- and 16-register instances) has a stack frame
+                  or spills
   kernel_parity   K1/K2/K3 against their plain versions, exactly; K1,
                   K2 and K5 also on `workload.full_frontier`, whose
                   frontiers fill and overflow 16 lanes
@@ -33,11 +34,18 @@ whose kernel launches it counts.  Phases:
                   exactly; its times and issue slots a warp-step
   predicate kernel  K6 for each of config 4's rules that compiles, over
                   4,096 messages, against its plain version and the
-                  rule interpreter (`eval_where`), exactly; times
-  engine          MatchEngine on the card vs the host trie, 1M filters
+                  rule interpreter (`eval_where`), exactly; the device
+                  time of an empty launch; times of the longest rule
+                  there and on that window tiled to 262,144 messages
+                  (held against the plain version first)
+  engine          MatchEngine on the card vs the host trie, 1M filters;
+                  K1 at the median launch of its 50 windows, held
+                  against its plain version, then timed
   sharded engine  ShardedMatchEngine on a one-card 4-shard mesh vs the
                   host trie, 1M filters, before and after churn and a
-                  rebuild (and on a 2-card mesh where there are two)
+                  rebuild (and on a 2-card mesh where there are two);
+                  K5 at the median launch of its first 20 windows, held
+                  against its plain version, then timed
   broker          CLI round trip, then the in-process broker under load
   rules broker    the broker with 100 rules under load, against a second
                   broker pinned to the scalar interpreter referee
@@ -251,10 +259,12 @@ def phase_device():
 SCAN_KERNELS = ("match_rows_kernel", "sharded_match_rows_kernel",
                 "match_compact_kernel")  # K2, K5, K1: the lane-group body
 GROUP_WIDTHS = (1, 2, 4, 8, 16)
-# K4's two instances (planes staged in shared memory or read through L1)
-# and K3: their registers must hold the whole state
+# K4's two instances (planes staged in shared memory or read through L1),
+# K3 and K6's four (2, 4, 8 and 16 numeric registers): their registers
+# must hold the whole state
 REGISTER_KERNELS = (("rules_eval_kernel", 1), ("rules_eval_kernel", 0),
-                    ("decide_kernel", None))
+                    ("decide_kernel", None),
+                    *(("predicate_eval_kernel", n) for n in (2, 4, 8, 16)))
 
 
 def ptxas_table(log: str) -> dict:
@@ -319,8 +329,8 @@ def phase_build(results):
                  f"its state")
     results["ptxas"] = table
     print(f"ptxas: the {len(SCAN_KERNELS) * len(GROUP_WIDTHS)} scan kernel "
-          f"instantiations, K4's two and K3 have no stack frame and no "
-          f"spills", flush=True)
+          f"instantiations, K4's two, K3 and K6's four have no stack frame "
+          f"and no spills", flush=True)
 
 
 def build_tables(n_filters: int):
@@ -1037,27 +1047,19 @@ def predicate_work(code, n_vars, n_lits, w):
     return n_bytes, fp, it
 
 
-def phase_predicate_kernel(results) -> None:
-    """K6, one launch per rule: every rule of config 4's 100 that
-    `compile_where` accepts, over one window of RULES_W JSON telemetry
-    messages (millisecond timestamps and 2**24 + 1 among the values)."""
+def predicate_window():
+    """Config 4's rules that `compile_where` accepts, as ``(rule id,
+    PredicateProgram)``, and one window of RULES_W JSON telemetry
+    messages as envs (millisecond timestamps and 2**24 + 1 among the
+    values)."""
     import numpy as np
-    import torch
 
     from emqx_tpu_torch import workload as W
     from emqx_tpu_torch.message import Message
-    from emqx_tpu_torch.ops import _kernels
-    from emqx_tpu_torch.ops import match_kernel as mk
     from emqx_tpu_torch.rules import predicate as P
-    from emqx_tpu_torch.rules.runtime import build_env, eval_where
+    from emqx_tpu_torch.rules.runtime import build_env
     from emqx_tpu_torch.rules.sql import parse_sql
-    from emqx_tpu_torch.state import (
-        predicate_columns_from_reference, predicate_program_from_code,
-    )
 
-    phase("predicate kernel")
-    card = results["card"]
-    t0 = time.perf_counter()
     progs = [(rid, P.compile_where(parse_sql(q).where))
              for rid, q in W.make_rules(RULES_SIZES[0])]
     progs = [(rid, p) for rid, p in progs if p is not None]
@@ -1069,6 +1071,84 @@ def phase_predicate_kernel(results) -> None:
             for k, (t, p) in enumerate(zip(
                 W.make_topics(rng, RULES_W, pops),
                 W.make_rule_payloads(rng, RULES_W)))]
+    return progs, envs
+
+
+def predicate_args(p, cols, lit_ids):
+    """K6's inputs for program ``p`` over extracted columns, on the card:
+    ``(args, slots)``, ``args`` as `predicate_eval_batch` takes them."""
+    from emqx_tpu_torch.rules import predicate as P
+    from emqx_tpu_torch.state import (
+        predicate_columns_from_reference, predicate_program_from_code,
+    )
+
+    pc = predicate_columns_from_reference(cols, lit_ids, "cuda")
+    dc = predicate_program_from_code(
+        P.lower_predicate(p.where, p.var_paths), "cuda")
+    return (dc.steps, dc.lit, dc.result, pc.num, pc.sid, pc.err,
+            pc.lit_ids), dc.slots
+
+
+def predicate_times(card, label, p, code, cols, lit_ids) -> dict:
+    """K6 on one rule's columns: held against its plain version, then
+    timed: the launch alone (CUDA events, then queued behind a spin:
+    the device time), the wrapper from the extracted columns to the
+    numpy verdicts (`PredicateProgram.eval_columns`: columns packed and
+    up in one copy, kernel, verdicts down; host clock), the plain
+    version and the bound (`predicate_work`)."""
+    import torch
+
+    from emqx_tpu_torch.ops import _kernels
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    args, slots = predicate_args(p, cols, lit_ids)
+    w = args[3].shape[1]
+    out = torch.empty(w, dtype=torch.bool, device="cuda")
+
+    def bare():
+        _kernels.predicate_eval(*args, slots, out)
+
+    bare()
+    exact_equal(f"predicate_eval_batch {label} W={w}", (out,),
+                (mk.predicate_eval_plain(*args),))
+    ms = cuda_ms(bare, 50, 5)
+    dev_ms = cuda_ms(bare, 50, 5, queued=True)
+    wrap_ms = host_ms(lambda: p.eval_columns(cols, lit_ids, "cuda"), 20, 3)
+    plain_ms = cuda_ms(lambda: mk.predicate_eval_plain(*args), 5, 1)
+    n_bytes, fp_ops, int_ops = predicate_work(
+        code, len(code.names), len(code.lits), w)
+    b_ms, b_by = max(bound(n_bytes, fp_ops, FP64_OPS_PER_S),
+                     bound(n_bytes, int_ops, FP32_OPS_PER_S))
+    print(f"time predicate_eval_batch {label}: kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms; {slots} numeric registers), wrapper (columns "
+          f"packed and up in one copy, kernel, verdicts down) "
+          f"{wrap_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+          f"by {b_by} ({n_bytes} B; {fp_ops} float64 and {int_ops} int32 "
+          f"ops), no library call [{card}]", flush=True)
+    return dict(ms=ms, device_ms=dev_ms, wrapper_ms=wrap_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+PRED_STRESS_TILES = 64  # the stress window: 64 x 4,096 = 262,144 messages
+
+
+def phase_predicate_kernel(results) -> None:
+    """K6, one launch per rule: every rule of config 4's 100 that
+    `compile_where` accepts, over one window of RULES_W messages, held
+    against its plain version and the interpreter; the longest rule
+    timed there and on a stress window of that window tiled
+    PRED_STRESS_TILES times; an empty launch's device time beside."""
+    import numpy as np
+    import torch
+
+    from emqx_tpu_torch.ops import match_kernel as mk
+    from emqx_tpu_torch.rules import predicate as P
+    from emqx_tpu_torch.rules.runtime import eval_where
+
+    phase("predicate kernel")
+    card = results["card"]
+    t0 = time.perf_counter()
+    progs, envs = predicate_window()
     built = time.perf_counter() - t0
     mk.reset_launches()  # counts of the K6 path start here
     t0 = time.perf_counter()
@@ -1078,64 +1158,53 @@ def phase_predicate_kernel(results) -> None:
     results["launches"]["predicate_eval_batch"] = launches
     if launches != len(progs):
         fail(f"predicate kernel: {launches} launches for {len(progs)} rules")
-    longest, n_pass, ops = None, 0, set()
+    longest, n_pass, ops, widths = None, 0, set(), {}
     for rid, p in progs:
         if not np.array_equal(got[rid], [eval_where(p.where, e)
                                          for e in envs]):
             fail(f"predicate kernel: {rid} differs from the interpreter")
         cols, sdict = p.extract_columns(envs)
         lit_ids = P._literal_ids(p.where, sdict)
-        pc = predicate_columns_from_reference(cols, lit_ids, "cuda")
+        args, slots = predicate_args(p, cols, lit_ids)
+        want = mk.predicate_eval_plain(*args)
+        # the instance the program runs on, and the widest one
+        for n in (slots, P.PRED_REGS):
+            exact_equal(f"predicate_eval_batch {rid} slots={n}",
+                        (mk.predicate_eval_batch(*args, slots=n),), (want,))
         code = P.lower_predicate(p.where, p.var_paths)
-        dc = predicate_program_from_code(code, "cuda")
-        args = (dc.steps, dc.lit, dc.result, pc.num, pc.sid, pc.err,
-                pc.lit_ids)
-        exact_equal(f"predicate_eval_batch {rid}",
-                    (mk.predicate_eval_batch(*args),),
-                    (mk.predicate_eval_plain(*args),))
         n_pass += int(got[rid].sum())
         ops |= set(code.steps[:, 0].tolist())
-        if longest is None or len(code.steps) > len(longest[1].steps):
-            longest = (rid, code, cols, lit_ids, args)
+        widths[slots] = widths.get(slots, 0) + 1
+        if longest is None or len(code.steps) > len(longest[2].steps):
+            longest = (rid, p, code, cols, lit_ids)
     print(f"parity predicate: {len(progs)} of {RULES_SIZES[0]} rules compile; "
           f"K6 equals its plain version and the interpreter for each "
           f"over W={RULES_W} ({n_pass} passes; opcodes {sorted(ops)}; "
-          f"window built in {built:.1f} s; the {len(progs)} device "
-          f"evaluations took {wall:.3f} s with column extraction)",
-          flush=True)
-    rid, code, cols, lit_ids, args = longest
-    out = torch.empty(RULES_W, dtype=torch.bool, device="cuda")
-    ms = cuda_ms(lambda: _kernels.predicate_eval(*args, out), 50, 5)
-    dev_ms = cuda_ms(lambda: _kernels.predicate_eval(*args, out), 50, 5,
-                     queued=True)
-
-    def wrapper():
-        pc = predicate_columns_from_reference(cols, lit_ids, "cuda")
-        return mk.predicate_eval_batch(
-            *args[:3], pc.num, pc.sid, pc.err, pc.lit_ids).cpu().numpy()
-
-    wrap_ms = host_ms(wrapper, 20, 3)
-    plain_ms = cuda_ms(lambda: mk.predicate_eval_plain(*args), 5, 1)
-    n_bytes, fp_ops, int_ops = predicate_work(
-        code, len(code.names), len(code.lits), RULES_W)
-    b_ms, b_by = max(bound(n_bytes, fp_ops, FP64_OPS_PER_S),
-                     bound(n_bytes, int_ops, FP32_OPS_PER_S))
-    print(f"time predicate_eval_batch {rid} S={len(code.steps)} "
-          f"V={len(code.names)} W={RULES_W}: kernel {ms:.4f} ms (device "
-          f"{dev_ms:.4f} ms), wrapper "
-          f"(columns up, kernel, verdicts down) {wrap_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({n_bytes} B; "
-          f"{fp_ops} float64 and {int_ops} int32 ops), no library call "
-          f"[{card}]", flush=True)
-    results["kernels"]["predicate_eval_batch"] = dict(
-        ms=ms, device_ms=dev_ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by)
+          f"rules by numeric registers named {dict(sorted(widths.items()))}, "
+          f"each also equal on the 16-register instance; window built in "
+          f"{built:.1f} s; the {len(progs)} device evaluations took "
+          f"{wall:.3f} s with column extraction)", flush=True)
+    empty_ms = cuda_ms(lambda: torch.cuda._sleep(0), 50, 5, queued=True)
+    print(f"empty launch (torch.cuda._sleep(0), queued the same way): device "
+          f"{empty_ms:.4f} ms [{card}]", flush=True)
+    rid, p, code, cols, lit_ids = longest
+    sizes = f"S={len(code.steps)} V={len(code.names)}"
+    row = predicate_times(card, f"{rid} {sizes} W={RULES_W}", p, code, cols,
+                          lit_ids)
+    big = {k: np.tile(v, PRED_STRESS_TILES) for k, v in cols.items()}
+    w = RULES_W * PRED_STRESS_TILES
+    row["stress"] = dict(predicate_times(
+        card, f"stress W={w} {sizes}", p, code, big, lit_ids), w=w)
+    row["empty_launch_ms"] = empty_ms
+    results["kernels"]["predicate_eval_batch"] = row
 
 
-def sharded_engine_run(mesh, filters, pops, label):
+def sharded_engine_run(mesh, filters, pops, label, log_into=None):
     """A ShardedMatchEngine on ``mesh`` with ``filters``: 20 windows of
     4,096 Zipf topics, churn (one insert, 2,048 insert_many, two
-    deletes), a rebuild; every window against the host trie."""
+    deletes), a rebuild; every window against the host trie.  With
+    ``log_into`` (a dict), the K5 launches of the 20 windows are
+    recorded there by `MainPathLog` (with the engine, under "eng")."""
     import numpy as np
 
     from emqx_tpu_torch import topic as T
@@ -1168,8 +1237,15 @@ def sharded_engine_run(mesh, filters, pops, label):
             fail(f"{label}: {bad} topics differ from the host trie {what}")
         return wall, sum(len(w) for w in wins)
 
+    log = MainPathLog(eng, ("sharded_match_rows",)) if log_into is not None \
+        else None
     mk.reset_launches()  # counts of the sharded path start here
-    wall, n = check(windows, "before churn")
+    try:
+        wall, n = check(windows, "before churn")
+    finally:
+        if log is not None:
+            log.remove()
+            log_into.update(log.log)
     eng.insert("no/+/here", 9_000_001)
     eng.insert_many([(f"churn/{i % 101}/+/c{i}", 9_100_000 + i)
                      for i in range(2048)])
@@ -1201,8 +1277,13 @@ def phase_sharded_engine(results, filters) -> None:
     pops = W.populations(len(filters), 8)
     mesh = make_mesh(devices=[torch.device("cuda", 0)] * N_SHARDS,
                      sub=N_SHARDS)
+    main = {}
     results["launches"]["sharded_match"] = sharded_engine_run(
-        mesh, filters, pops, "sharded engine")
+        mesh, filters, pops, "sharded engine", main)
+    results["kernels"]["sharded_match"]["main_path"] = match_main_path(
+        results["card"], "sharded_match_rows", main["sharded_match_rows"],
+        "ShardedMatchEngine.match_batch")
+    del main
     if torch.cuda.device_count() >= 2:
         sharded_engine_run(make_mesh(2, sub=2), filters, pops,
                            "sharded engine, 2 cards")
@@ -1210,7 +1291,7 @@ def phase_sharded_engine(results, filters) -> None:
         print("multi-card: skipped, 1 card", flush=True)
 
 
-def phase_engine(filters):
+def phase_engine(run, filters):
     import numpy as np
 
     from emqx_tpu_torch import topic as T
@@ -1230,9 +1311,13 @@ def phase_engine(filters):
           flush=True)
     rng = np.random.default_rng(2)
     windows = [W.make_topics(rng, 4096, pops) for _ in range(50)]
+    log = MainPathLog(eng, ("match_compact",))
     mk.reset_launches()
     t0 = time.perf_counter()
-    results = [eng.match_batch(w) for w in windows]
+    try:
+        results = [eng.match_batch(w) for w in windows]
+    finally:
+        log.remove()
     wall = time.perf_counter() - t0
     counts = mk.launches()
     bad = 0
@@ -1277,6 +1362,80 @@ def phase_engine(filters):
           f"{c['rows']} ({c['ovf_rows'] / c['rows']:.6f}); clip reruns "
           f"{c['clip_reruns']}; {50 * 4096 / wall:.0f} topics/s "
           f"match_batch end to end (sequential windows)", flush=True)
+    run["kernels"]["match_batch_compact"]["main_path"] = match_main_path(
+        run["card"], "match_compact", log.log["match_compact"],
+        "MatchEngine.match_batch")
+
+
+def match_main_path(card, name, log, what) -> dict:
+    """K1 (``name`` "match_compact") or K5 ("sharded_match_rows") at the
+    median batch of an engine run's launches (``log``, from
+    `MainPathLog`): that window's launch held against the plain version,
+    exactly, then timed (CUDA events, then queued behind a spin: the
+    device time), its engine entry ``what`` (the whole window, host
+    clock), the plain version and the bound."""
+    import types
+
+    import numpy as np
+
+    from emqx_tpu_torch.ops import _kernels
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    b = np.array([e[0][0] for e in log])
+    shape, entry = MainPathLog.median(log, key=lambda sh: sh[0])
+    call = MainPathLog.call(entry)
+    args = MainPathLog.launch_args(name, call)
+    tabs, batch, (f, m) = args[:3], args[3:6], args[6:8]
+    if name == "match_compact":
+        c_cap = args[8]
+        label = f"match_batch_compact (main path, median launch) B={shape[0]}"
+
+        def bare():  # the launch and its two memsets
+            _kernels.match_compact(*args)
+
+        bare()
+        exact_equal(label, args[9:12], mk.match_batch_compact_plain(
+            *tabs, *batch, f_width=f, m_cap=m, c_cap=c_cap))
+
+        def plain():
+            mk.match_batch_compact_plain(*tabs, *batch, f_width=f, m_cap=m,
+                                         c_cap=c_cap)
+
+        n_bytes, ops, *_ = match_bytes(types.SimpleNamespace(
+            fp_rows=tabs[0], node_rows=tabs[1], salt=tabs[2]), batch, f,
+            c_cap=c_cap, m_cap=m)
+    else:
+        label = (f"sharded_match (main path, median launch) B={shape[0]} "
+                 f"K={shape[1]}")
+
+        def bare():  # the launch with its total zeroed
+            args[11].zero_()
+            _kernels.sharded_match_rows(*args)
+
+        bare()
+        exact_equal(label, args[8:12], mk.sharded_match_plain(
+            *tabs, *batch, f_width=f, m_cap=m))
+
+        def plain():
+            mk.sharded_match_plain(*tabs, *batch, f_width=f, m_cap=m)
+
+        n_bytes, ops, _ = sharded_bytes(*tabs, batch, f, m)
+    ms = cuda_ms(bare, 50, 10)
+    dev_ms = cuda_ms(bare, 50, 10, queued=True)
+    wrap_ms = host_ms(call, 5, 1)
+    plain_ms = cuda_ms(plain, 3, 1)
+    b_ms, b_by = bound(n_bytes, ops)
+    print(f"parity {label} F={f} M={m}: equals its plain version "
+          f"({len(log)} launches, B median {int(np.median(b))}, max "
+          f"{int(b.max())})", flush=True)
+    print(f"time {label} F={f} M={m}: kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms), wrapper ({what}: the whole window, host "
+          f"clock) {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms by {b_by} ({n_bytes} B; {ops} ops), no library "
+          f"call [{card}]", flush=True)
+    return dict(ms=ms, device_ms=dev_ms, wrapper_ms=wrap_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                launches=len(log), b=int(shape[0]))
 
 
 async def cli_round_trip() -> None:
@@ -1324,16 +1483,32 @@ async def cli_round_trip() -> None:
 
 
 class MainPathLog:
-    """What the main path hands K3 and K4 while installed: the shape of
-    every launch (through `ops._kernels`, whose launch functions the
-    wrappers look up at each call) and the engine-entry call of the same
-    window, so that the shapes can be summarised and the median one
-    timed after the run."""
+    """What the main path hands a kernel while installed: the shape of
+    every launch of the named `ops._kernels` functions (the wrappers
+    look them up at each call) and the engine-entry call that made it
+    (`MatchEngine.decide_window` for K3, `RulesEvaluator.eval_window`
+    for K4, `MatchEngine.match_batch` for K1 and, on a
+    `ShardedMatchEngine`, K5), so that the shapes can be summarised and
+    the median one timed after the run."""
 
-    def __init__(self, eng) -> None:
+    # launch function -> (the entry that reaches it, as an attribute
+    # path from the engine; the launch's shape from its arguments)
+    HOOKS = {
+        "decide": ("decide_window",  # (N, B, R)
+                   lambda a: (a[1].shape[0], a[4].shape[0], a[0].shape[0])),
+        "rules_eval": ("rules_evaluator.eval_window",  # (R, W)
+                       lambda a: (a[0].shape[0], a[4].shape[1])),
+        "match_compact": ("match_batch",  # (B, L)
+                          lambda a: tuple(a[3].shape)),
+        "sharded_match_rows": ("match_batch",  # (B, K)
+                               lambda a: (a[3].shape[0], a[0].shape[0])),
+    }
+
+    def __init__(self, eng, kernels) -> None:
         from emqx_tpu_torch.ops import _kernels
 
-        self.decide, self.rules = [], []  # (shape, (entry, its args))
+        # k -> [(shape, (entry, its args, its keywords))]
+        self.log = {k: [] for k in kernels}
         self._undo = []
         entry = {}
 
@@ -1342,37 +1517,30 @@ class MainPathLog:
             self._undo.append((obj, name, orig))
             setattr(obj, name, fn(orig))
 
-        def decide_window(orig):
-            def run(*args):
-                if len(args[2]):  # the window's deliveries
-                    entry["decide"] = (orig, args)
-                return orig(*args)
-            return run
+        def at_entry(k):
+            def wrap(orig):
+                def run(*args, **kw):
+                    entry[k] = (orig, args, kw)
+                    return orig(*args, **kw)
+                return run
+            return wrap
 
-        def eval_window(orig):
-            def run(stack, rev, cols, rows=None):
-                entry["rules"] = (orig, (stack, rev, cols))
-                return orig(stack, rev, cols, rows)
-            return run
+        def at_launch(k, shape):
+            def wrap(orig):
+                def run(*args):
+                    self.log[k].append((shape(args), entry.pop(k, None)))
+                    return orig(*args)
+                return run
+            return wrap
 
-        def decide(orig):
-            def run(oa, opts_rows, *rest):
-                self.decide.append(((opts_rows.shape[0], rest[2].shape[0],
-                                     oa.shape[0]), entry.pop("decide", None)))
-                return orig(oa, opts_rows, *rest)
-            return run
-
-        def rules_eval(orig):
-            def run(steps, lits, meta, lit_ranks, num, *rest):
-                self.rules.append(((steps.shape[0], num.shape[1]),
-                                   entry.pop("rules", None)))
-                return orig(steps, lits, meta, lit_ranks, num, *rest)
-            return run
-
-        hook(eng, "decide_window", decide_window)
-        hook(eng.rules_evaluator, "eval_window", eval_window)
-        hook(_kernels, "decide", decide)
-        hook(_kernels, "rules_eval", rules_eval)
+        for k in kernels:
+            path, shape = self.HOOKS[k]
+            *owner, meth = path.split(".")
+            obj = eng
+            for attr in owner:
+                obj = getattr(obj, attr)
+            hook(obj, meth, at_entry(k))
+            hook(_kernels, k, at_launch(k, shape))
 
     def remove(self) -> None:
         for obj, name, orig in reversed(self._undo):
@@ -1387,8 +1555,14 @@ class MainPathLog:
         return sorted(log, key=lambda e: key(e[0]))[(len(log) - 1) // 2]
 
     @staticmethod
-    def launch_args(name, fn, args):
-        """The arguments `ops._kernels.<name>` gets when ``fn(*args)``
+    def call(entry):
+        """The recorded engine-entry call, to be made again."""
+        fn, args, kw = entry
+        return lambda: fn(*args, **kw)
+
+    @staticmethod
+    def launch_args(name, call):
+        """The arguments `ops._kernels.<name>` gets when ``call()``
         runs: that window's own inputs, in the engine's buffers."""
         from emqx_tpu_torch.ops import _kernels
 
@@ -1400,7 +1574,7 @@ class MainPathLog:
 
         setattr(_kernels, name, run)
         try:
-            fn(*args)
+            call()
         finally:
             setattr(_kernels, name, orig)
         return got[-1]
@@ -1499,7 +1673,7 @@ async def broker_load(results, filters) -> None:
             await acked.wait()
             await task
 
-        log = MainPathLog(eng)
+        log = MainPathLog(eng, ("decide",))
         decides = eng.counters["decide_windows"]
         mk.reset_launches()  # counts of the main path start here
         t0 = time.perf_counter()
@@ -1515,7 +1689,7 @@ async def broker_load(results, filters) -> None:
         results["launches"].update(
             (k, launches[k]) for k in ("match_batch_compact", "match_batch"))
         results["launches"]["decide_batch"] = launches["decide_packed"]
-        results["main_path"]["decide"] = log.decide
+        results["main_path"]["decide"] = log.log["decide"]
         for j in range(len(subs)):
             if len(seen[j]) != expected:
                 fail(f"sub{j} got {len(seen[j])} of {expected}")
@@ -1689,7 +1863,7 @@ async def rules_load(results, filters) -> None:
                     await cl.writer.drain()
             await task
 
-        log = MainPathLog(eng)
+        log = MainPathLog(eng, ("rules_eval",))
         dev_windows = broker.rules.stats().get("dev_windows", 0)
         mk.reset_launches()  # counts of the rules path start here
         t0 = time.perf_counter()
@@ -1703,7 +1877,7 @@ async def rules_load(results, filters) -> None:
             log.remove()
         results["launches"]["rules_eval_batch"] = launches[
             "rules_eval_lowered"]
-        results["main_path"]["rules"] = log.rules
+        results["main_path"]["rules"] = log.log["rules_eval"]
         n_msgs = sum(len(w) for w in windows)
         if n_msgs != RULES_PUB * RULES_MSG:
             fail(f"rules broker: dispatched {n_msgs} messages")
@@ -1712,8 +1886,8 @@ async def rules_load(results, filters) -> None:
         if launches["rules_eval_lowered"] < 1 or dev_windows < 1:
             fail(f"rules broker: the rules kernel never launched: "
                  f"{launches} {st}")
-        if len(log.rules) != dev_windows:
-            fail(f"rules broker: {len(log.rules)} K4 launches for "
+        if len(log.log["rules_eval"]) != dev_windows:
+            fail(f"rules broker: {len(log.log['rules_eval'])} K4 launches for "
                  f"{dev_windows} rules windows")
         counters = {rid: (r.matched, r.passed, r.failed, r.actions_success,
                           r.actions_failed)
@@ -1780,27 +1954,29 @@ def phase_main_shapes(results) -> None:
     card = results["card"]
     dec, rules = (results["main_path"].pop(k) for k in ("decide", "rules"))
     n, b = (np.array([e[0][k] for e in dec]) for k in (0, 1))
-    (mn, mb, mr), (fn, entry) = MainPathLog.median(dec, key=lambda sh: sh)
+    (mn, mb, mr), entry = MainPathLog.median(dec, key=lambda sh: sh)
     print(f"K3 launches in the broker run: {len(dec)}; N (padded) median "
           f"{int(np.median(n))}, max {int(n.max())}; deliveries median "
           f"{int(np.median([len(e[1][1][2]) for e in dec]))}; B (padded) "
           f"median {int(np.median(b))}, max {int(b.max())}; R {mr}",
           flush=True)
-    args = MainPathLog.launch_args("decide", fn, entry)
+    call = MainPathLog.call(entry)
+    args = MainPathLog.launch_args("decide", call)
     results["kernels"]["decide_batch"]["main_path"] = dict(
-        decide_times(card, args[0], args[1:7], lambda: fn(*entry),
+        decide_times(card, args[0], args[1:7], call,
                      "MatchEngine.decide_window: columns up in one copy, "
                      "kernel, decisions and error word down",
                      " (main path, median launch)"), n=int(mn), b=int(mb))
     r, w = (np.array([e[0][k] for e in rules]) for k in (0, 1))
-    (rr, ww), (fn, entry) = MainPathLog.median(rules, key=lambda sh: sh[1])
+    (rr, ww), entry = MainPathLog.median(rules, key=lambda sh: sh[1])
     print(f"K4 launches in the rules broker run: {len(rules)}; R median "
           f"{int(np.median(r))}, max {int(r.max())}; W median "
           f"{int(np.median(w))}, max {int(w.max())}", flush=True)
-    args = MainPathLog.launch_args("rules_eval", fn, entry)
-    stack, _, cols = entry
+    call = MainPathLog.call(entry)
+    args = MainPathLog.launch_args("rules_eval", call)
+    stack, _, cols = entry[1][:3]
     results["kernels"]["rules_eval_batch"]["main_path"] = dict(
-        rules_times(card, stack, cols, args[:3], lambda: fn(*entry),
+        rules_times(card, stack, cols, args[:3], call,
                     " (main path, median launch)"), r=int(rr), w=int(ww))
 
 
@@ -1833,7 +2009,7 @@ def main() -> None:
     from emqx_tpu_torch import workload as W
 
     filters, _pops = W.make_filters(1_000_000, 8)
-    phase_engine(filters)
+    phase_engine(results, filters)
     phase_sharded_engine(results, filters)
     phase_broker(results, filters)
     phase_main_shapes(results)
@@ -1850,7 +2026,8 @@ def main() -> None:
             "wrapper_ms": k["wrapper_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
-            **({"main_path": k["main_path"]} if "main_path" in k else {}),
+            **{x: k[x] for x in ("main_path", "stress", "empty_launch_ms")
+               if x in k},
         })
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

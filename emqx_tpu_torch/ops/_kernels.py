@@ -144,7 +144,7 @@ def load() -> ctypes.CDLL:
             ]
             lib.emqx_sharded_match_rows.restype = _I
             lib.emqx_predicate_eval.argtypes = [
-                _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P,
+                _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P,
             ]
             lib.emqx_predicate_eval.restype = _I
             _lib = lib
@@ -294,9 +294,11 @@ def sharded_match_rows(fp_rows, node_rows, salts, tokens, lengths, dollar,
     _raise_on(lib, rc, "sharded_match_rows")
 
 
-def predicate_eval(steps, lit, result, num, sid, err, lit_ids, out) -> None:
+def predicate_eval(steps, lit, result, num, sid, err, lit_ids, slots,
+                   out) -> None:
     """Launch one rule's predicate program over a batch (``out`` is
-    ``[W]``, one byte per message)."""
+    ``[W]``, one byte per message) on the smallest instance that holds
+    ``slots`` numeric registers."""
     dev = num.device
     stream = _stream(dev)
     lib = load()
@@ -305,6 +307,6 @@ def predicate_eval(steps, lit, result, num, sid, err, lit_ids, out) -> None:
         rc = lib.emqx_predicate_eval(
             _ptr(steps), _ptr(lit), steps.shape[0], result, _ptr(num),
             _ptr(sid), _ptr(err), n_vars, _ptr(lit_ids), lit_ids.shape[0],
-            w_n, _ptr(out), stream,
+            w_n, slots, _ptr(out), stream,
         )
     _raise_on(lib, rc, "predicate_eval")

@@ -55,19 +55,23 @@
 //     in shared memory once, with its rules' step records beside them;
 //     its 8 warps then run its rules over that tile, each warp one rule
 //     over all 128 messages, so the planes come from L2 once per block.
-//     Plane offsets are 32-bit; a plane index clamps into [0, P).
-//     Windows with more planes than the tile budget read the planes
-//     from global memory through L1 (the kStaged = false instance).
+//     Tile offsets are 32-bit; a plane index clamps into [0, P).
+//     Windows with more planes than the tile budget, or with P x W past
+//     INT_MAX, read the planes from global memory through L1 (the
+//     kStaged = false instance, whose plane offsets are 64-bit).
 //   - A warp gathers its 128 results with 4 ballots, and each lane
 //     writes the bytes of 4 consecutive messages as one 4 B word: one
 //     coalesced 128 B segment of the output row (bytes when W is not a
 //     multiple of 4, at the window's ragged end).
 //
 // Grid: x = blocks of rules (a rule count past 65,535 fits: gridDim.x is
-// 2^31 - 1), y = kTile-message slices of the window.
+// 2^31 - 1), y = kTile-message slices of the window; a window of more
+// than 65,535 slices (gridDim.y's limit) is walked with a stride of
+// gridDim.y, one slice after another in each block.
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -123,7 +127,9 @@ constexpr unsigned kBoolInit = 1u << 30;  // boolean slot 30: true
 constexpr unsigned kBoolInitF = 1u << 31;  // boolean slot 31: false
 
 // A window's planes: staged in shared memory (stride kTile, message m
-// local to the block) or in global memory (stride W, m the message).
+// local to the block; Off = int) or in global memory (stride W, m the
+// message; Off = long long, so P x W may pass INT_MAX).
+template <typename Off>
 struct Planes {
   const double* num;
   const int* sid;
@@ -132,8 +138,8 @@ struct Planes {
   int stride;
   int top;  // P - 1, at least 0
 
-  __device__ __forceinline__ int row(unsigned p) const {
-    return (int)min(p, (unsigned)top) * stride;
+  __device__ __forceinline__ Off row(unsigned p) const {
+    return (Off)min(p, (unsigned)top) * stride;
   }
 };
 
@@ -152,10 +158,11 @@ __device__ __forceinline__ bool ordered_i(int mask, int a, int b) {
 // when the rule passes on message v.  Every slot index, operand kind
 // and opcode is the same for the whole warp, so each step's fetch,
 // decode and branches are paid once for kPer messages.
+template <typename PL>
 __device__ __forceinline__ unsigned run_rule(
     const uint4* __restrict__ st, int n, int res,
     const double* __restrict__ lit, const int* __restrict__ lit_ranks,
-    const Planes& pl, const int (&m)[kPer]) {
+    const PL& pl, const int (&m)[kPer]) {
   double nv[kPer][kNumSlots];
   unsigned nd[kPer], bt[kPer], bf[kPer];
 #pragma unroll
@@ -171,7 +178,7 @@ __device__ __forceinline__ unsigned run_rule(
   auto operand = [&](unsigned desc, double (&x)[kPer], bool (&d)[kPer]) {
     const unsigned kind = desc >> 16, idx = desc & 0xFFFFu;
     if (kind == kSrcPlane) {
-      const int row = pl.row(idx);
+      const auto row = pl.row(idx);
 #pragma unroll
       for (int v = 0; v < kPer; ++v) {
         x[v] = pl.num[row + m[v]];
@@ -222,7 +229,7 @@ __device__ __forceinline__ unsigned run_rule(
       bool dx[kPer], dy[kPer];
       operand(q.y, x, dx);
       operand(q.z, y, dy);
-      const int rp = pl.row(q.w & 0xFFFFu), rq = pl.row(q.w >> 16);
+      const auto rp = pl.row(q.w & 0xFFFFu), rq = pl.row(q.w >> 16);
 #pragma unroll
       for (int v = 0; v < kPer; ++v) {
         const bool d = dx[v] && dy[v];
@@ -254,7 +261,7 @@ __device__ __forceinline__ unsigned run_rule(
       bool ld[kPer], rd[kPer];
       operand(q.y, x, ld);
       operand(q.z, y, rd);
-      const int ro = pl.row(q.w);
+      const auto ro = pl.row(q.w);
 #pragma unroll
       for (int v = 0; v < kPer; ++v) {
         const bool e = ld[v] && rd[v] && x[v] == y[v];
@@ -263,7 +270,7 @@ __device__ __forceinline__ unsigned run_rule(
         set_bool(v, dst, e && ok, cd && !e && ok, fl & 1);
       }
     } else if (op == R_EQSL) {
-      const int rp = pl.row(q.y);
+      const auto rp = pl.row(q.y);
       const int lid = lit_ranks[q.z];
 #pragma unroll
       for (int v = 0; v < kPer; ++v) {
@@ -272,17 +279,17 @@ __device__ __forceinline__ unsigned run_rule(
         set_bool(v, dst, ok && sv == lid, ok && sv != lid, fl & 1);
       }
     } else if (op == R_PRES) {
-      const int rp = pl.row(q.y);
+      const auto rp = pl.row(q.y);
 #pragma unroll
       for (int v = 0; v < kPer; ++v) {
         const bool ok = pl.err[rp + m[v]] == 0, p = pl.prs[rp + m[v]] != 0;
         set_bool(v, dst, ok && p, ok && !p, fl & 1);
       }
     } else if (op == R_EQVV) {
-      const int rp = pl.row(q.y), rq = pl.row(q.z);
+      const auto rp = pl.row(q.y), rq = pl.row(q.z);
 #pragma unroll
       for (int v = 0; v < kPer; ++v) {
-        const int i0 = rp + m[v], i1 = rq + m[v];
+        const auto i0 = rp + m[v], i1 = rq + m[v];
         const double lp = pl.num[i0], rv = pl.num[i1];
         const int sl = pl.sid[i0], sr = pl.sid[i1];
         const bool el = pl.err[i0] != 0, er = pl.err[i1] != 0;
@@ -374,30 +381,18 @@ __global__ void __launch_bounds__(kThreads, 2) rules_eval_kernel(
     s_lits[i] = g_lits[i];
   for (int i = threadIdx.x; i < nr; i += kThreads) s_meta[i] = meta[r0 + i];
 
-  Planes pl;
+  Planes<typename std::conditional<kStaged, int, long long>::type> pl;
   pl.top = max(n_planes, 1) - 1;
+  // the tile: num [P][kTile] | sid [P][kTile] | err | prs
+  const size_t prog = ((size_t)rules_per_block *
+                           (n_steps * sizeof(uint4) + n_lits * 8 + 4) +
+                       15) & ~(size_t)15;
+  const int tp = pl.top + 1;
+  double* t_num = reinterpret_cast<double*>(smem + prog);
+  int* t_sid = reinterpret_cast<int*>(t_num + tp * kTile);
+  uint8_t* t_err = reinterpret_cast<uint8_t*>(t_sid + tp * kTile);
+  uint8_t* t_prs = t_err + tp * kTile;
   if (kStaged) {
-    // the tile: num [P][kTile] | sid [P][kTile] | err | prs; messages
-    // past the window and an empty plane space read as "lookup ok,
-    // nothing there"
-    const size_t prog = ((size_t)rules_per_block *
-                             (n_steps * sizeof(uint4) + n_lits * 8 + 4) +
-                         15) & ~(size_t)15;
-    const int tp = pl.top + 1;
-    double* t_num = reinterpret_cast<double*>(smem + prog);
-    int* t_sid = reinterpret_cast<int*>(t_num + tp * kTile);
-    uint8_t* t_err = reinterpret_cast<uint8_t*>(t_sid + tp * kTile);
-    uint8_t* t_prs = t_err + tp * kTile;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < tp * kTile; i += kThreads) {
-      const int p = i / kTile, mm = m0 + i % kTile;
-      const bool in = n_planes > 0 && mm < w_n;
-      const long long g = (long long)p * w_n + mm;
-      t_num[i] = in ? num[g] : CUDART_NAN;
-      t_sid[i] = in ? sid[g] : -1;
-      t_err[i] = in ? err[g] : 0;
-      t_prs[i] = in ? prs[g] : 0;
-    }
     pl.num = t_num;
     pl.sid = t_sid;
     pl.err = t_err;
@@ -410,39 +405,60 @@ __global__ void __launch_bounds__(kThreads, 2) rules_eval_kernel(
     pl.prs = prs;
     pl.stride = w_n;
   }
-  __syncthreads();
-
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int m[kPer];  // this lane's messages: lane + 32 v of the tile
-#pragma unroll
-  for (int v = 0; v < kPer; ++v)
-    m[v] = kStaged ? lane + 32 * v : min(m0 + lane + 32 * v, w_n - 1);
-  // lane l stores messages 4l .. 4l+3 of the tile: one 4 B word, so a
-  // warp writes its rule's 128 results as one 128 B row segment
-  const int first = m0 + 4 * lane;
-  const bool words = (w_n & 3) == 0 && first + 3 < w_n;
-  for (int ri = warp; ri < nr; ri += kWarps) {
-    const int mt = s_meta[ri];
-    const unsigned pass =
-        run_rule(s_steps + ri * n_steps, mt & 0xFF, (mt >> 8) & 0xFF,
-                 s_lits + ri * n_lits, lit_ranks, pl, m);
-    unsigned b[kPer];  // bit j of b[v]: message 32 v + j
+  const int slices = (int)(((long long)w_n + kTile - 1) / kTile);
+  for (int sl = blockIdx.y; sl < slices; sl += gridDim.y) {
+    const long long m0 = (long long)sl * kTile;
+    if (kStaged) {
+      if (sl != (int)blockIdx.y) __syncthreads();  // the last tile is read
+      // messages past the window and an empty plane space read as
+      // "lookup ok, nothing there"
+#pragma unroll 4
+      for (int i = threadIdx.x; i < tp * kTile; i += kThreads) {
+        const int p = i / kTile;
+        const long long mm = m0 + i % kTile;
+        const bool in = n_planes > 0 && mm < w_n;
+        const long long g = (long long)p * w_n + mm;
+        t_num[i] = in ? num[g] : CUDART_NAN;
+        t_sid[i] = in ? sid[g] : -1;
+        t_err[i] = in ? err[g] : 0;
+        t_prs[i] = in ? prs[g] : 0;
+      }
+    }
+    __syncthreads();  // the tile and the step records are staged
+
+    int m[kPer];  // this lane's messages: lane + 32 v of the tile
 #pragma unroll
     for (int v = 0; v < kPer; ++v)
-      b[v] = __ballot_sync(0xffffffffu, (pass >> v) & 1u);
-    unsigned mine = b[0];
+      m[v] = kStaged ? lane + 32 * v
+                     : (int)min(m0 + lane + 32 * v, (long long)w_n - 1);
+    // lane l stores messages 4l .. 4l+3 of the tile: one 4 B word, so a
+    // warp writes its rule's 128 results as one 128 B row segment
+    const long long first = m0 + 4 * lane;
+    const bool words = (w_n & 3) == 0 && first + 3 < w_n;
+    for (int ri = warp; ri < nr; ri += kWarps) {
+      const int mt = s_meta[ri];
+      const unsigned pass =
+          run_rule(s_steps + ri * n_steps, mt & 0xFF, (mt >> 8) & 0xFF,
+                   s_lits + ri * n_lits, lit_ranks, pl, m);
+      unsigned b[kPer];  // bit j of b[v]: message 32 v + j
 #pragma unroll
-    for (int v = 1; v < kPer; ++v) mine = lane / 8 == v ? b[v] : mine;
-    const unsigned nib = (mine >> (4 * (lane % 8))) & 0xFu;
-    const uint32_t word = (nib & 1u) | ((nib & 2u) << 7) |
-                          ((nib & 4u) << 14) | ((nib & 8u) << 21);
-    uint8_t* row = out + (long long)(r0 + ri) * w_n;
-    if (words) {
-      *reinterpret_cast<uint32_t*>(row + first) = word;
-    } else {
+      for (int v = 0; v < kPer; ++v)
+        b[v] = __ballot_sync(0xffffffffu, (pass >> v) & 1u);
+      unsigned mine = b[0];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (first + i < w_n) row[first + i] = (word >> (8 * i)) & 1u;
+      for (int v = 1; v < kPer; ++v) mine = lane / 8 == v ? b[v] : mine;
+      const unsigned nib = (mine >> (4 * (lane % 8))) & 0xFu;
+      const uint32_t word = (nib & 1u) | ((nib & 2u) << 7) |
+                            ((nib & 4u) << 14) | ((nib & 8u) << 21);
+      uint8_t* row = out + (long long)(r0 + ri) * w_n;
+      if (words) {
+        *reinterpret_cast<uint32_t*>(row + first) = word;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (first + i < w_n) row[first + i] = (word >> (8 * i)) & 1u;
+      }
     }
   }
 }
@@ -470,20 +486,17 @@ int launch(const uint4* steps, const double* lits, const int* meta,
 extern "C" {
 
 // steps [R, n_steps] 16 B records, lits [R, n_lits], meta [R] (step
-// count | result slot << 8): ops/rules_lowering.py lower_rules.  Plane
-// offsets are 32-bit, so P * W may not pass INT_MAX.
+// count | result slot << 8): ops/rules_lowering.py lower_rules.
 int emqx_rules_eval(const void* steps, const double* lits, const int* meta,
                     int n_rules, int n_steps, int n_lits,
                     const int* lit_ranks, const double* num, const int* sid,
                     const uint8_t* err, const uint8_t* prs, int n_planes,
                     int w_n, uint8_t* out, void* stream) {
   if (n_steps < 1 || n_steps > kMaxSteps || n_lits < 1 || n_rules < 0 ||
-      w_n < 0 || n_planes < 0 || n_planes > 0x10000 ||
-      (long long)n_planes * w_n > INT_MAX)
+      w_n < 0 || n_planes < 0 || n_planes > 0x10000)
     return (int)cudaErrorInvalidValue;
   if (n_rules == 0 || w_n == 0) return (int)cudaSuccess;
-  const int slices = (w_n + kTile - 1) / kTile;
-  if (slices > 65535) return (int)cudaErrorInvalidValue;
+  const int slices = (int)(((long long)w_n + kTile - 1) / kTile);
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -500,10 +513,10 @@ int emqx_rules_eval(const void* steps, const double* lits, const int* meta,
   const size_t prog = ((size_t)rpb * per_rule + 15) & ~(size_t)15;
   const size_t tile = (size_t)(n_planes > 0 ? n_planes : 1) * kTile *
                       (sizeof(double) + sizeof(int) + 2);
-  const dim3 grid((n_rules + rpb - 1) / rpb, slices);
+  const dim3 grid((n_rules + rpb - 1) / rpb, min(slices, 65535));
   cudaStream_t s = (cudaStream_t)stream;
   const uint4* st = reinterpret_cast<const uint4*>(steps);
-  if (tile <= kTileBudget)
+  if (tile <= kTileBudget && (long long)n_planes * w_n <= INT_MAX)
     return launch<true>(st, lits, meta, n_rules, n_steps, n_lits, rpb, grid,
                         prog + tile, lit_ranks, num, sid, err, prs, n_planes,
                         w_n, out, s);

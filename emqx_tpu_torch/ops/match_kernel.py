@@ -79,7 +79,6 @@ SENT = int(SENTINEL)
 F_MAX = 16  # frontier width: the widest lane group of the kernels
 M_MAX = 32767  # largest m_cap whose counts fit the compact int16 column
 _M32 = 0xFFFFFFFF
-_I32_MAX = 0x7FFFFFFF
 
 # packed decision byte (one per delivery)
 DEC_QMAX_SHIFT = 2
@@ -1014,9 +1013,6 @@ def rules_eval_lowered(prog: LoweredRules, lit_ranks, num, sid, err, prs):
     if num.shape[0] > PLANE_MAX + 1:
         raise ValueError(f"at most {PLANE_MAX + 1} planes, got "
                          f"{num.shape[0]}")
-    if num.numel() > _I32_MAX:  # the kernel's plane offsets are int32
-        raise ValueError(f"P x W must stay within {_I32_MAX}, got "
-                         f"{num.numel()}")
     if dev.type == "cpu":
         return rules_eval_lowered_plain(prog.steps, prog.lits, prog.meta,
                                         lit_ranks, num, sid, err, prs)
@@ -1069,7 +1065,8 @@ def sharded_match_local(fp_rows, node_rows, salts, tokens, lengths, dollar,
     return codes, counts, ovf, total
 
 
-def predicate_eval_batch(steps, lit, result: int, num, sid, err, lit_ids):
+def predicate_eval_batch(steps, lit, result: int, num, sid, err, lit_ids,
+                         *, slots: int = P.PRED_REGS):
     """One rule's WHERE over a batch: the register program ``steps``
     (int32 ``[S, 8]``) and ``lit`` (float64 ``[S]``) of
     `rules.predicate.lower_predicate`, result register ``result``, over
@@ -1078,7 +1075,9 @@ def predicate_eval_batch(steps, lit, result: int, num, sid, err, lit_ids):
     Returns the ``[W]`` bool verdicts.  Computed in float64: equal, bit
     for bit, to the JAX package's numpy path.  Operand indices are not
     range-checked on the card (that would cost a host sync):
-    `state.predicate_program_from_code` checks a program on upload.
+    `state.predicate_program_from_code` checks a program on upload, and
+    counts ``slots``, the numeric registers it names (the card runs the
+    smallest kernel instance that holds them; the default holds any).
 
     Replaces ``emqx_tpu/rules/predicate.py``
     ``PredicateProgram.eval_batch(use_jax=True)``."""
@@ -1096,6 +1095,8 @@ def predicate_eval_batch(steps, lit, result: int, num, sid, err, lit_ids):
         raise ValueError("num, sid and err must share one [V>=1, W] shape")
     if not 0 <= result < P.PRED_REGS:
         raise ValueError(f"result must be a register in [0, {P.PRED_REGS})")
+    if not 0 <= slots <= P.PRED_REGS:
+        raise ValueError(f"slots must be in [0, {P.PRED_REGS}], got {slots}")
     if dev.type == "cpu":
         return predicate_eval_plain(steps, lit, result, num, sid, err,
                                     lit_ids)
@@ -1104,7 +1105,7 @@ def predicate_eval_batch(steps, lit, result: int, num, sid, err, lit_ids):
     out = torch.empty(num.shape[1], dtype=torch.bool, device=dev)
     if out.numel():
         _kernels.predicate_eval(steps, lit, result, num, sid, err, lit_ids,
-                                out)
+                                slots, out)
         predicate_eval_batch.launches += 1
     return out
 

@@ -47,6 +47,7 @@ falls back to the interpreter.
 
 from __future__ import annotations
 
+import threading
 from typing import (
     Any, Dict, List, NamedTuple, Optional, Sequence, Set, Tuple,
 )
@@ -72,7 +73,9 @@ class PredicateProgram:
         self.where = where
         self.var_paths = var_paths
         self._code: Optional[PredicateCode] = None
-        self._dev_code: Dict[str, Any] = {}  # device -> program tensors
+        # device -> (the program on it, the stage its calls go through)
+        self._dev_code: Dict[str, Any] = {}
+        self._lock = threading.Lock()  # a stage serves one call at a time
 
     # ---------------------------------------------------- extraction
 
@@ -122,27 +125,47 @@ class PredicateProgram:
         float64.  A WHERE that reads no var raises StopIteration, as the
         JAX package's does (``_batch_len`` has no column to take the
         batch length from)."""
+        cols, sdict = self.extract_columns(envs)
+        return self.eval_columns(cols, _literal_ids(self.where, sdict),
+                                 device)
+
+    def eval_columns(self, cols: Dict[str, np.ndarray],
+                     lit_ids: Dict[str, int], device="cuda") -> np.ndarray:
+        """`eval_batch` from the extracted columns on: ``cols`` and
+        ``lit_ids`` (`extract_columns` and `_literal_ids`, of either
+        package) are packed into this program's `state.HostStage` for
+        ``device`` and go up in one copy; K6 runs, and the verdicts come
+        down after one synchronise.  Calls on one program serialise."""
         from ..ops.match_kernel import predicate_eval_batch
         from ..state import (
-            predicate_columns_from_reference, predicate_program_from_code,
+            HostStage, predicate_program_from_code, resolve_device,
         )
 
-        cols, sdict = self.extract_columns(envs)
-        _batch_len(cols)
-        lit_ids = _literal_ids(self.where, sdict)
-        if self._code is None:
-            self._code = lower_predicate(self.where, self.var_paths)
-        pc = predicate_columns_from_reference(cols, lit_ids, device)
-        if (pc.names, pc.lits) != (self._code.names, self._code.lits):
-            raise ValueError("columns do not belong to this predicate")
-        key = str(pc.num.device)
-        prog = self._dev_code.get(key)
-        if prog is None:
-            prog = self._dev_code[key] = predicate_program_from_code(
-                self._code, pc.num.device)
-        out = predicate_eval_batch(prog.steps, prog.lit, prog.result,
-                                   pc.num, pc.sid, pc.err, pc.lit_ids)
-        return out.cpu().numpy()
+        w = _batch_len(cols)
+        dev = resolve_device(device)
+        names = tuple(k[2:] for k in cols if k.startswith("n:"))
+        with self._lock:
+            if self._code is None:
+                self._code = lower_predicate(self.where, self.var_paths)
+            code = self._code
+            if (names, tuple(sorted(lit_ids))) != (code.names, code.lits):
+                raise ValueError("columns do not belong to this predicate")
+            key = str(dev)
+            if key not in self._dev_code:
+                self._dev_code[key] = (predicate_program_from_code(code, dev),
+                                       HostStage(dev))
+            prog, stage = self._dev_code[key]
+            v = len(names)
+            num, sid, err, ids = stage.views((
+                (np.float64, (v, w)), (np.int32, (v, w)), (np.bool_, (v, w)),
+                (np.int32, (len(code.lits),))))
+            for i, n in enumerate(names):
+                num[i], sid[i], err[i] = (cols[k + n] for k in ("n:", "s:",
+                                                                "e:"))
+            ids[:] = [lit_ids[s] for s in code.lits]
+            out = predicate_eval_batch(prog.steps, prog.lit, prog.result,
+                                       *stage.upload(), slots=prog.slots)
+            return stage.download(out)[0]
 
 
 def _string_literals(expr: tuple, out: Set[str]) -> None:
@@ -326,6 +349,19 @@ PRED_REGS = 16  # the kernel's per-thread register file
 _P_ARITH = {"+": P_NADD, "-": P_NSUB, "*": P_NMUL, "/": P_NDIV,
             "div": P_NIDV, "mod": P_NMOD}
 _P_ORDER = {">": P_CGT, "<": P_CLT, ">=": P_CGE, "<=": P_CLE}
+
+
+def numeric_slots(steps: np.ndarray) -> int:
+    """How many numeric registers a program names: one past the highest
+    register a numeric step writes or a step reads as a number (0 when
+    there is none).  The kernel holds that many doubles a message."""
+    op = steps[:, 0]
+    reads_a = (op == P_NNEG) | ((op >= P_NADD) & (op <= P_NMOD)) | (
+        (op >= P_CGT) & (op <= P_EQN))
+    reads_b = reads_a & (op != P_NNEG)
+    regs = np.concatenate([steps[(op >= P_NLOAD) & (op <= P_NMOD), 1],
+                           steps[reads_a, 2], steps[reads_b, 3]])
+    return int(regs.max()) + 1 if regs.size else 0
 
 
 class PredicateCode(NamedTuple):

@@ -218,12 +218,15 @@ class PredicateDeviceCode(NamedTuple):
     steps: torch.Tensor  # [S, 8] int32
     lit: torch.Tensor  # [S] float64
     result: int
+    slots: int  # numeric registers the program names (K6's instance)
 
 
 def predicate_program_from_code(code, device) -> PredicateDeviceCode:
     """A `rules.predicate.PredicateCode` on ``device``.  Checks what
-    the kernel relies on: known opcodes, registers inside the file, var
-    lanes and literal indices inside their tables."""
+    the kernel relies on, since it clamps nothing: known opcodes,
+    registers inside the file, var lanes and literal indices inside
+    their tables; and counts the numeric registers the program names,
+    which pick the kernel's instance."""
     steps = np.ascontiguousarray(code.steps, dtype=np.int32)
     lit = np.ascontiguousarray(code.lit, dtype=np.float64)
     if steps.ndim != 2 or steps.shape[1] != 8 or len(steps) < 1 \
@@ -252,7 +255,7 @@ def predicate_program_from_code(code, device) -> PredicateDeviceCode:
     dev = resolve_device(device)
     return PredicateDeviceCode(torch.from_numpy(steps).to(dev),
                                torch.from_numpy(lit).to(dev),
-                               int(code.result))
+                               int(code.result), P.numeric_slots(steps))
 
 
 _TORCH_DTYPE = {np.dtype(d): t for d, t in (

@@ -795,7 +795,7 @@ def test_predicate_kernel_equals_plain(cuda):
         dc = predicate_program_from_code(code, cuda)
         args = (dc.steps, dc.lit, dc.result, pc.num, pc.sid, pc.err,
                 pc.lit_ids)
-        kern = mk.predicate_eval_batch(*args)
+        kern = mk.predicate_eval_batch(*args, slots=dc.slots)
         plain = mk.predicate_eval_plain(*args)
         torch.cuda.synchronize()
         assert kern.device.type == "cuda" and torch.equal(kern, plain), src
@@ -805,3 +805,106 @@ def test_predicate_kernel_equals_plain(cuda):
             assert bool(kern[1])
     assert seen == set(range(P.P_NLOAD, P.P_EQS + 1))  # every opcode
     assert mk.predicate_eval_batch.launches == 2 * len(PRED_CORPUS)
+
+
+def _balanced(depth):
+    """A numeric tree over payload.a and payload.b needing depth + 1
+    registers in Sethi-Ullman order (subtrees shared)."""
+    left, right = ("var", ("payload", "a")), ("var", ("payload", "b"))
+    for _ in range(depth):
+        left, right = ("op", "+", left, right), ("op", "-", right, left)
+    return left
+
+
+@pytest.mark.cuda
+def test_predicate_kernel_every_instance(cuda):
+    """Each of K6's instances (2, 4, 8 and 16 numeric registers) runs a
+    program that needs it, and the widest runs them all, over a batch
+    with a ragged end (W = 1,000 is no multiple of any block's
+    messages); an IN list past two staged chunks of steps, too.  All
+    equal the plain version."""
+    from emqx_tpu_torch.message import Message
+    from emqx_tpu_torch.rules import predicate as P
+    from emqx_tpu_torch.rules.runtime import build_env
+    from emqx_tpu_torch.state import (
+        predicate_columns_from_reference, predicate_program_from_code,
+    )
+
+    rng = random.Random(16)
+    envs = [build_env(Message(topic="t/1", payload=b'{"a": %s, "b": %d}' % (
+        rng.choice([b"1.5", b"-3", b"7", b"1e308", b'"s"']),
+        rng.randint(-4, 4)), qos=1, from_client="c1")) for _ in range(1000)]
+    wheres = [("op", "<", _balanced(d), ("lit", 5.0)) for d in (1, 3, 7, 15)]
+    wheres.append(("in", ("var", ("payload", "b")),
+                   [("lit", float(i)) for i in range(-150, 150)]))
+    mk.reset_launches()
+    widths = []
+    for where in wheres:
+        prog = P.compile_where(where)
+        code = P.lower_predicate(prog.where, prog.var_paths)
+        cols, sdict = prog.extract_columns(envs)
+        pc = predicate_columns_from_reference(
+            cols, P._literal_ids(prog.where, sdict), cuda)
+        dc = predicate_program_from_code(code, cuda)
+        widths.append(next(n for n in (2, 4, 8, 16) if n >= dc.slots))
+        args = (dc.steps, dc.lit, dc.result, pc.num, pc.sid, pc.err,
+                pc.lit_ids)
+        plain = mk.predicate_eval_plain(*args)
+        for slots in (dc.slots, P.PRED_REGS):
+            kern = mk.predicate_eval_batch(*args, slots=slots)
+            torch.cuda.synchronize()
+            assert torch.equal(kern, plain), (len(code.steps), slots)
+        assert np.array_equal(prog.eval_batch(envs, device=cuda),
+                              plain.cpu().numpy())
+    assert widths == [2, 4, 8, 16, 4]  # an IN's or-chain names 3
+    assert mk.predicate_eval_batch.launches == 3 * len(wheres)
+
+
+@pytest.mark.cuda
+def test_rules_kernel_planes_past_int32_and_65535_slices(cuda):
+    """P = 257 planes x W = 8,388,608 messages (30 GB of planes): the
+    last plane starts at element 2^31 (the unstaged instance's 64-bit
+    offsets) and W has 65,536 slices of 128 messages, one more than
+    gridDim.y holds (the slice loop: the blocks of grid row 0 run the
+    first slice and the last).  A column's result depends only on that
+    column, so the kernel's first and last 4,096 columns equal the plain
+    version on those columns sliced."""
+    from emqx_tpu_torch.rules import predicate as P
+    from emqx_tpu_torch.state import rules_lowered_from_reference
+
+    p, w, n_lits = 257, 8_388_608, 4
+    free, _ = torch.cuda.mem_get_info()
+    if free < 36 * 2**30:
+        pytest.skip(f"needs 36 GiB of free card memory, has {free >> 30}")
+    progs = random_programs(17, 64, p, n_lits)
+    # every plane operand onto the last four planes: plane 256 starts at
+    # element 2^31, past any int32 offset
+    code, a0, a1, a2, a3 = progs[:5]
+    ordered = (code >= P.R_CGT) & (code <= P.R_CLE)
+    for arr, mask in (
+            (a0, np.isin(code, [P.R_NLOAD, P.R_EQVV, P.R_EQVL, P.R_EQSL,
+                                P.R_PRES])),
+            (a1, code == P.R_EQVV), (a2, ordered),
+            (a3, ordered | (code == P.R_EQC))):
+        sel = mask & (arr >= 0)
+        arr[sel] = p - 1 - arr[sel] % 4
+    assert ((code == P.R_NLOAD) & (a0 == p - 1)).any()
+    low = rules_lowered_from_reference(*progs, cuda, n_lits=n_lits)
+    small = random_planes(5, p, 4096, n_lits)
+    reps = w // 4096
+    num, sid, err, prs = (torch.from_numpy(a).to(cuda).repeat(1, reps)
+                          for a in small[:4])
+    lit_ranks = torch.from_numpy(small[4]).to(cuda)
+    # vary the tile so columns far apart differ
+    num[:, -4096:] = torch.flip(num[:, -4096:], (1,))
+    sid[:, -4096:] = torch.roll(sid[:, -4096:], 7, 1)
+    got = mk.rules_eval_lowered(low, lit_ranks, num, sid, err, prs)
+    torch.cuda.synchronize()
+    assert got.shape == (64, w)
+    for start in (0, w - 4096):
+        cols = slice(start, start + 4096)
+        want = mk.rules_eval_lowered_plain(
+            *low[:3], lit_ranks, *(t[:, cols].contiguous()
+                                   for t in (num, sid, err, prs)))
+        assert torch.equal(got[:, cols], want), start
+    assert torch.equal(got[:, :4096], got[:, 4096:8192])

@@ -1,11 +1,14 @@
 """One rule's WHERE predicate (K6) in the port against the JAX package:
 ``PredicateProgram.eval_batch(envs, device="cpu")`` (the register
-program's plain PyTorch version) against the reference's
-``eval_batch(envs)`` (numpy) and ``eval_batch(envs, use_jax=True)``
-(its jit, or its numpy path where `_f32_safe` refuses the batch), on
-tests/test_rules.py's predicates, the error-vs-undefined and
-compound-equality cases, float32-lossy values and a WHERE that reads no
-var.  Every output is boolean: the tolerance is 0."""
+program's plain PyTorch version, through the program's staged upload)
+against the reference's ``eval_batch(envs)`` (numpy) and
+``eval_batch(envs, use_jax=True)`` (its jit, or its numpy path where
+`_f32_safe` refuses the batch), on tests/test_rules.py's predicates,
+the error-vs-undefined and compound-equality cases, float32-lossy
+values, a WHERE that reads no var, and the programs that reach the
+kernel's limits: all 16 numeric registers, an IN list past one staged
+chunk of steps, div / mod at infinities and 0.5.  Every output is
+boolean: the tolerance is 0."""
 
 import json
 import os
@@ -71,6 +74,41 @@ EXTRA = [
     "payload.a mod 3 = 0",
     "true AND payload.a > 1 OR false",
 ]
+# the staging chunk of predicate_kernels.cu (kChunk steps a pass)
+K6_SRC = os.path.join(REPO, "emqx_tpu_torch", "ops", "csrc",
+                      "predicate_kernels.cu")
+K6_CHUNK = int(re.search(r"kChunk = (\d+);", open(K6_SRC).read()).group(1))
+INF_PAYLOADS = [{"a": a, "b": b}
+                for a in (float("inf"), float("-inf"), 3, 0.5, -2.5)
+                for b in (float("inf"), float("-inf"), 0.5, 2, -0.5)]
+
+
+def _balanced(depth):
+    """A numeric tree over payload.a and payload.b that needs depth + 1
+    registers in Sethi-Ullman order (its two halves differ, so both are
+    evaluated); subtrees are shared, so building it costs nothing."""
+    left, right = ("var", ("payload", "a")), ("var", ("payload", "b"))
+    for _ in range(depth):
+        left, right = ("op", "+", left, right), ("op", "-", right, left)
+    return left
+
+
+# (name, WHERE tree, payloads): the programs at the kernel's limits
+LIMIT_PROGRAMS = {
+    # all PRED_REGS numeric registers live (65,537 steps)
+    "most_numeric_slots": (("op", ">", _balanced(15), ("lit", 0)), None),
+    # an IN list of 70 items: 139 steps, past one staged chunk; no
+    # arithmetic and float32-exact values, so the reference's jit runs
+    "in_list_past_a_chunk": (parse_sql(
+        'SELECT * FROM "t" WHERE payload.a IN (%s)'
+        % ", ".join(str(i) for i in range(70))).where,
+        [{"a": i} for i in range(-9, 90, 4)]
+        + [{"a": "x"}, {}, b"hello", {"a": 2.5}, {"a": None}]),
+    # div / mod of an infinity and by 0.5 (truncated to 0: undefined)
+    "div_mod_at_infinity_and_half": (parse_sql(
+        'SELECT * FROM "t" WHERE payload.a div payload.b > 0 OR '
+        'payload.a mod payload.b != 1').where, INF_PAYLOADS),
+}
 FMA_PAYLOADS = [  # numpy rounds ta - q*safe and a*b + c twice
     {"a": 2633996730456453632},
     {"a": 9385959.583563903, "b": 2834748.6238531545,
@@ -130,8 +168,7 @@ def _check(src, renvs, penvs, use_jax=True):
 
 
 def test_opcodes_agree_with_the_kernel():
-    src = open(os.path.join(REPO, "emqx_tpu_torch", "ops", "csrc",
-                            "predicate_kernels.cu")).read()
+    src = open(K6_SRC).read()
     enum = dict(re.findall(r"\b(P_[A-Z]+) = (\d+),", src))
     names = [n for n in dir(P) if re.fullmatch(r"P_[A-Z]+", n)]
     assert sorted(enum) == sorted(names)
@@ -197,6 +234,91 @@ def test_var_free_where_raises_stop_iteration_like_reference(src):
             call()
 
 
+@pytest.mark.parametrize("name", sorted(LIMIT_PROGRAMS))
+def test_limit_programs_equal_reference(name):
+    where, payloads = LIMIT_PROGRAMS[name]
+    if payloads is None:
+        rng = random.Random(len(name))
+        payloads = [_rand_payload(rng) for _ in range(12)] + FMA_PAYLOADS
+    renvs, penvs = _envs(payloads)
+    ref = ref_pred.compile_where(where)
+    port = P.compile_where(where)
+    want = ref.eval_batch(renvs)
+    assert np.array_equal(port.eval_batch(penvs, device="cpu"), want)
+    code = port._code
+    # the jit path where `_f32_safe` lets it run (arithmetic never)
+    assert np.array_equal(ref.eval_batch(renvs, use_jax=True), want)
+    assert want.any() and not want.all()
+    if name == "most_numeric_slots":
+        assert P.numeric_slots(code.steps) == P.PRED_REGS
+    elif name == "in_list_past_a_chunk":
+        assert len(code.steps) > K6_CHUNK
+        assert ref._f32_safe(ref.extract_columns(renvs)[0])
+
+
+def _numeric_refs(steps):
+    """Every register a step uses as a number, walked step by step."""
+    out = []
+    for op, dst, a, b, *_ in steps.tolist():
+        if P.P_NLOAD <= op <= P.P_NMOD:
+            out.append(dst)
+        if op == P.P_NNEG:
+            out.append(a)
+        elif P.P_NADD <= op <= P.P_NMOD or P.P_CGT <= op <= P.P_EQN:
+            out += [a, b]
+    return out
+
+
+@pytest.mark.parametrize("src", PREDICATES + EXTRA)
+def test_numeric_slots_hold_every_numeric_register(src):
+    """The kernel instance a program runs on (the smallest of 2, 4, 8
+    and 16 numeric registers that holds `numeric_slots`) holds every
+    register it reads or writes as a number; the upload carries the
+    count."""
+    _, port = _progs(src)
+    code = P.lower_predicate(port.where, port.var_paths)
+    refs = _numeric_refs(code.steps)
+    slots = P.numeric_slots(code.steps)
+    assert slots == (max(refs) + 1 if refs else 0)
+    assert next(n for n in (2, 4, 8, 16) if n >= slots) > max(refs,
+                                                               default=-1)
+    assert predicate_program_from_code(code, "cpu").slots == slots
+
+
+def test_staged_wrapper_equals_unstaged():
+    """`eval_batch` / `eval_columns` (columns packed into the program's
+    stage, one upload) equal the unstaged wrapper (each lane uploaded on
+    its own) on the CPU, over batches of changing width, from the
+    port's columns and the reference's; columns of another program are
+    refused."""
+    rng = random.Random(9)
+    mk.reset_launches()
+    for src in PREDICATES + EXTRA:
+        ref, port = _progs(src)
+        prog = predicate_program_from_code(
+            P.lower_predicate(port.where, port.var_paths), "cpu")
+        for n in (40, 7, 40):  # the stage re-lays its views, then reuses
+            renvs, penvs = _envs([_rand_payload(rng) for _ in range(n)])
+            cols, sdict = port.extract_columns(penvs)
+            pc = predicate_columns_from_reference(
+                cols, P._literal_ids(port.where, sdict), "cpu")
+            unstaged = mk.predicate_eval_batch(
+                prog.steps, prog.lit, prog.result, pc.num, pc.sid, pc.err,
+                pc.lit_ids, slots=prog.slots).numpy()
+            assert np.array_equal(port.eval_batch(penvs, device="cpu"),
+                                  unstaged), src
+            rcols, rsdict = ref.extract_columns(renvs)
+            staged = port.eval_columns(
+                rcols, ref_pred._literal_ids(ref.where, rsdict), "cpu")
+            assert np.array_equal(staged, unstaged), src
+    assert mk.predicate_eval_batch.launches == 0  # plain versions only
+    _, a = _progs("payload.a > 0")
+    _, b = _progs("payload.b > 0")
+    cols, _ = b.extract_columns(_envs([{"a": 1, "b": 1}])[1])
+    with pytest.raises(ValueError, match="do not belong"):
+        a.eval_columns(cols, {}, "cpu")
+
+
 def test_reference_columns_through_the_kernel_wrapper():
     """The reference's own `extract_columns` and `_literal_ids`, carried
     by `predicate_columns_from_reference`, through the wrapper."""
@@ -238,3 +360,11 @@ def test_lowering_registers_and_checks():
         predicate_program_from_code(bad, "cpu")
     with pytest.raises(ValueError, match="at least one var"):
         predicate_columns_from_reference({}, {}, "cpu")
+    dc = predicate_program_from_code(code, "cpu")
+    cols, sdict = bal.extract_columns(_envs([{"a": 1, "b": 2}])[1])
+    pc = predicate_columns_from_reference(
+        cols, P._literal_ids(bal.where, sdict), "cpu")
+    for bad in (-1, P.PRED_REGS + 1):
+        with pytest.raises(ValueError, match="slots"):
+            mk.predicate_eval_batch(dc.steps, dc.lit, dc.result, pc.num,
+                                    pc.sid, pc.err, pc.lit_ids, slots=bad)

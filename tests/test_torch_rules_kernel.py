@@ -571,20 +571,20 @@ def test_lowering_refuses_what_the_kernel_would_check():
         state.rules_lowered_from_reference(*_prog(steps), "cpu")
 
 
-def test_rules_eval_lowered_refuses_planes_past_int32():
-    # the kernel indexes planes with 32-bit offsets; meta tensors take
-    # the shapes without the memory
+def test_rules_eval_lowered_reaches_the_launch_past_int32_planes():
+    # P x W past INT_MAX (the unstaged instance's 64-bit plane offsets)
+    # and W past 65,535 slices of 128 messages (the slices' grid-stride
+    # loop) are taken; meta tensors take the shapes without the memory,
+    # and a size it takes gets as far as the launch, which wants a card
     meta = torch.device("meta")
     low = rl.LoweredRules(
         torch.zeros((1, 1, 4), dtype=torch.int32, device=meta),
         torch.zeros((1, 1), dtype=torch.float64, device=meta),
         torch.zeros(1, dtype=torch.int32, device=meta), 0)
     lit_ranks = torch.zeros(1, dtype=torch.int32, device=meta)
-    for p, w, refused in ((2, 2**30 - 1, False), (1, 2**31 - 1, False),
-                          (2, 2**30, True), (3, 2**30, True)):
+    for p, w in ((2, 2**30 - 1), (1, 2**31 - 1), (2, 2**30), (3, 2**30),
+                 (257, 8_388_608), (1, 8_388_481)):
         planes = [torch.zeros((p, w), dtype=d, device=meta) for d in (
             torch.float64, torch.int32, torch.bool, torch.bool)]
-        # a size it takes gets as far as the launch, which wants a card
-        with pytest.raises(ValueError,
-                           match="P x W" if refused else "CUDA tensors"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
             mk.rules_eval_lowered(low, lit_ranks, *planes)

@@ -6,7 +6,8 @@
 Each argument is a glob of saved ``chip_smoke.py`` outputs, one file a
 run; files are paired in sorted order (run i of the parent with run i
 of the change).  For each kernel time line both trees print (``time
-<name> <size>: kernel X ms (device Y ms ... wrapper ... Z ms``) and for
+<name> [<label>] <sizes>: kernel X ms (device Y ms ... wrapper ... Z
+ms``, keyed by the name, the label and the first size) and for
 the broker's end-to-end numbers, it prints one JSON line: the median
 and quartiles of each tree, and in how many pairs the change was better
 (lower for times, higher for rates; ties count for neither).
@@ -20,8 +21,8 @@ import re
 import statistics
 import sys
 
-TIME = re.compile(r"^time (\w+) ((?:[A-Z]=\d+ ?)+): kernel ([\d.]+) ms "
-                  r"\(device ([\d.]+) ms.*?wrapper.*?([\d.]+) ms")
+TIME = re.compile(r"^time (\w+) ([\w (),]*?)((?:[A-Z]=\d+ ?)+): kernel "
+                  r"([\d.]+) ms \(device ([\d.]+) ms.*?wrapper.*?([\d.]+) ms")
 END_TO_END = (  # (name, pattern, higher is better)
     ("broker msgs/s in", re.compile(r"^broker: .* ([\d.]+) msgs/s in"), True),
     ("broker p50 ms", re.compile(r"^broker: .*latency p50 ([\d.]+) ms"),
@@ -37,10 +38,11 @@ def metrics(path: str) -> dict:
     with open(path) as f:
         for line in f:
             m = TIME.match(line)
-            if m:  # keyed by the name and the first size
-                key = f"{m.group(1)} {m.group(2).split()[0]}"
+            if m:  # keyed by the name, the label and the first size
+                key = " ".join((m.group(1), *m.group(2).split(),
+                                m.group(3).split()[0]))
                 for what, v in zip(("event", "device", "wrapper"),
-                                   m.group(3, 4, 5)):
+                                   m.group(4, 5, 6)):
                     out[f"{key} {what}"] = float(v)
                 continue
             for name, pat, _ in END_TO_END:
