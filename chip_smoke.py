@@ -21,6 +21,11 @@ whose kernel launches it counts.  Phases:
                   group width), K4 (both instances), K3 or K6 (its 2-,
                   4-, 8- and 16-register instances) has a stack frame
                   or spills
+  native build    g++ of the four host libraries in emqx_tpu_torch/native
+                  (trie, token dictionary, sorts, wire splice), all
+                  together; fails on any compiler output
+  native parity   each native helper against its Python referee on
+                  random inputs, exactly
   kernel_parity   K1/K2/K3 against their plain versions, exactly; K1,
                   K2 and K5 also on `workload.full_frontier`, whose
                   frontiers fill and overflow 16 lanes
@@ -41,14 +46,25 @@ whose kernel launches it counts.  Phases:
   engine          MatchEngine on the card vs the host trie, 1M filters;
                   K1 at the median launch of its 50 windows, held
                   against its plain version, then timed
+  native times    the native helpers against their Python referees at
+                  the engine's sizes, in turns: one window's encode, the
+                  engine window with native=True and native=False (before
+                  and after a 2,000-filter residual), the host trie over
+                  a window, the 1M-filter automaton build
   sharded engine  ShardedMatchEngine on a one-card 4-shard mesh vs the
                   host trie, 1M filters, before and after churn and a
                   rebuild (and on a 2-card mesh where there are two);
                   K5 at the median launch of its first 20 windows, held
                   against its plain version, then timed
   broker          CLI round trip, then the in-process broker under load
+                  (the main path), then with native=False and native in
+                  turns; each run's per-stage medians from
+                  Broker.profiler.summary()
+  window assembly one broker window's wire, native splice against the
+                  per-delivery Python encoder
   rules broker    the broker with 100 rules under load, against a second
-                  broker pinned to the scalar interpreter referee
+                  broker pinned to the scalar interpreter referee; its
+                  per-stage medians
   main-path shapes  the N of every K3 launch of the broker run and the
                   (R, W) of every K4 launch of the rules broker run,
                   with K3 and K4 timed on their median launch's window
@@ -1365,6 +1381,15 @@ def phase_engine(run, filters):
     run["kernels"]["match_batch_compact"]["main_path"] = match_main_path(
         run["card"], "match_compact", log.log["match_compact"],
         "MatchEngine.match_batch")
+    # the same filters with the Python host path, for the native times
+    py = MatchEngine(native=False)
+    t0 = time.perf_counter()
+    py.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    if py._delta:
+        py.rebuild()
+    print(f"engine (native=False): {len(filters)} filters inserted and "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_native_times(run, eng, py, filters, windows)
 
 
 def match_main_path(card, name, log, what) -> dict:
@@ -1585,20 +1610,24 @@ SUB_FILTERS = ("load/#", "load/+/#", "load/+/+", "+/+/+", "#", "+/#",
 N_PUB, N_MSG = 4, 1000
 
 
-async def broker_load(results, filters) -> None:
+async def broker_load(results, filters, native: bool = True,
+                      main_path: bool = True) -> dict:
     """The main path: 1M background subscriptions in the engine, 8
     subscribers (each filter matches every load topic, 8 distinct trie
     codes per topic) and 4 publishers sending 1,000 QoS 1 messages each
-    over TCP through the batcher."""
+    over TCP through the batcher.  ``native=False`` runs the broker's
+    Python host path; only a ``main_path`` run records the launches.
+    Returns msgs/s in and the per-stage medians."""
     from emqx_tpu_torch.broker.listener import BrokerServer
     from emqx_tpu_torch.config import BrokerConfig
     from emqx_tpu_torch.ops import match_kernel as mk
 
+    label = "broker" if native else "broker (native=False)"
     cfg = BrokerConfig(bind="127.0.0.1", port=0)
     # subscribers can fall behind the publishers' acked stream; a queue
     # that holds the whole run keeps every delivery (none may drop)
     cfg.mqtt.max_mqueue_len = 4 * N_PUB * N_MSG
-    server = BrokerServer(cfg)
+    server = BrokerServer(cfg, native=native)
     eng = server.broker.router.engine
     t0 = time.perf_counter()
     eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
@@ -1611,7 +1640,7 @@ async def broker_load(results, filters) -> None:
             await cl.subscribe(flt, 1)
             subs.append(cl)
         eng.rebuild()  # the subscribers' filters onto the card as well
-        print(f"broker: {len(filters)} background filters + "
+        print(f"{label}: {len(filters)} background filters + "
               f"{len(SUB_FILTERS)} subscriber filters on the card "
               f"({eng._aut.n_nodes} nodes) in {time.perf_counter() - t0:.1f} s",
               flush=True)
@@ -1686,10 +1715,12 @@ async def broker_load(results, filters) -> None:
             log.remove()
         wall = time.perf_counter() - t0
         launches = mk.launches()
-        results["launches"].update(
-            (k, launches[k]) for k in ("match_batch_compact", "match_batch"))
-        results["launches"]["decide_batch"] = launches["decide_packed"]
-        results["main_path"]["decide"] = log.log["decide"]
+        if main_path:
+            results["launches"].update(
+                (k, launches[k]) for k in ("match_batch_compact",
+                                           "match_batch"))
+            results["launches"]["decide_batch"] = launches["decide_packed"]
+            results["main_path"]["decide"] = log.log["decide"]
         for j in range(len(subs)):
             if len(seen[j]) != expected:
                 fail(f"sub{j} got {len(seen[j])} of {expected}")
@@ -1707,7 +1738,7 @@ async def broker_load(results, filters) -> None:
         p50 = lat[len(lat) // 2] * 1e3
         p99 = lat[int(len(lat) * 0.99)] * 1e3
         c = eng.counters
-        print(f"broker: {expected} QoS 1 messages from {N_PUB} publishers "
+        print(f"{label}: {expected} QoS 1 messages from {N_PUB} publishers "
               f"each delivered exactly once to {len(subs)} subscribers "
               f"({expected * len(subs)} deliveries) in {wall:.3f} s: "
               f"{expected / wall:.1f} msgs/s in, "
@@ -1716,10 +1747,13 @@ async def broker_load(results, filters) -> None:
               f"{c['dev_windows']} match windows, {c['clip_reruns']} clip "
               f"reruns, {c['decide_windows']} decide windows; launches "
               f"{launches} [{results['card']}]", flush=True)
+        stages = stage_medians(label, server.broker.profiler)
         for cl in subs + pubs:
             await cl.close()
     finally:
         await server.stop()
+    return {"msgs_per_s": expected / wall, "p50_ms": p50, "p99_ms": p99,
+            "stages": stages}
 
 
 RULES_PUB, RULES_MSG = 4, 1000
@@ -1801,12 +1835,12 @@ async def rules_load(results, filters) -> None:
     depth = [0]
     dispatch, apply_batch = broker.publish_dispatch, broker.rules.apply_batch
 
-    def recording_dispatch(msgs, matched):
+    def recording_dispatch(msgs, matched, rec=None):
         if depth[0] == 0:
             windows.append([dataclasses.replace(m) for m in msgs])
         depth[0] += 1
         try:
-            return dispatch(msgs, matched)
+            return dispatch(msgs, matched, rec)
         finally:
             depth[0] -= 1
 
@@ -1903,6 +1937,9 @@ async def rules_load(results, filters) -> None:
               f"{st['matrix_windows']}, fallback rule evals "
               f"{st['fallback_rule_evals']}; launches {launches} "
               f"[{results['card']}]", flush=True)
+        results["native"]["rules_broker"] = {
+            "msgs_per_s": n_msgs / wall,
+            "stages": stage_medians("rules broker", broker.profiler)}
         for cl in pubs + [watcher]:
             await cl.close()
     finally:
@@ -1983,9 +2020,414 @@ def phase_main_shapes(results) -> None:
 def phase_broker(results, filters):
     phase("broker")
     asyncio.run(cli_round_trip())
-    asyncio.run(broker_load(results, filters))
+    # the main path (native host path), then native=False and native in
+    # turns: native, Python, Python, native
+    runs = {True: [], False: []}
+    for k, native in enumerate((True, False, False, True)):
+        runs[native].append(asyncio.run(broker_load(
+            results, filters, native=native, main_path=k == 0)))
+    nat = results["native"]
+    nat["broker"] = {"native": runs[True], "python": runs[False]}
+    med = {k: sorted(r["msgs_per_s"] for r in v) for k, v in runs.items()}
+    print(f"broker msgs/s in, in turns (native, Python, Python, native): "
+          f"native {', '.join(f'{x:.1f}' for x in med[True])}; native=False "
+          f"{', '.join(f'{x:.1f}' for x in med[False])} "
+          f"[{results['card']}]", flush=True)
+    phase_window_assembly(results, runs[True][0]["stages"])
     phase("rules broker")
     asyncio.run(rules_load(results, filters))
+
+
+
+# ------------------------------------------------------ native host path
+
+
+def phase_native_build(results) -> None:
+    """The four host libraries from ``emqx_tpu_torch/native`` (one g++
+    each, all started together); any compiler error or output fails."""
+    from emqx_tpu_torch.ops import _native
+
+    phase("native build")
+    try:
+        _native.build()
+        _native.load_all()
+    except RuntimeError as exc:
+        fail(f"native build: {exc}")
+    for name in _native.NAMES:
+        info = _native.build_info[name]
+        if info["log"].strip():
+            fail(f"native build: {_native.CXX} reported on {name}:\n"
+                 f"{info['log']}")
+        print(f"native build: emqx_tpu_torch/native/{name}.cpp with "
+              f"{_native.CXX} {' '.join(_native.CXX_FLAGS)}: no compiler "
+              f"output, {info['seconds']:.2f} s (all four together) -> "
+              f"{os.path.relpath(info['path'], HERE)}", flush=True)
+    results["native"] = {}
+
+
+def wire_builders(msgs, runs):
+    """Two builders of one window's wire for the client ``runs``
+    (``(version, msg idx, effective qos, retain)`` columns, packet ids
+    1.. in each QoS>0 run): the native splice plan, assembled in one
+    call, and the per-delivery Python encoder.  Each returns the bytes
+    of every run, concatenated."""
+    import numpy as np
+
+    from emqx_tpu_torch.codec import mqtt as C
+    from emqx_tpu_torch.ops import dispatchasm
+
+    def native():
+        enc = C.DispatchEncoder()
+        bodies, pids = [], []
+        for ver, sm, eff, ret in runs:
+            bodies.append(enc.key_slots(msgs, ver, sm * 6 + eff * 2 + ret))
+            pid = np.full(len(sm), -1, np.int64)
+            pend = np.flatnonzero(eff > 0)
+            pid[pend] = np.arange(1, len(pend) + 1)
+            pids.append(pid)
+        body, pid = np.concatenate(bodies), np.concatenate(pids)
+        run_start = np.zeros(len(runs), np.int64)
+        np.cumsum([len(b) for b in bodies][:-1], out=run_start[1:])
+        _ho, hl, _to, tl = enc.span_arrays()
+        sizes = np.add.reduceat(hl[body] + tl[body] + 2 * (pid >= 0),
+                                run_start)
+        run_out = np.zeros(len(runs), np.int64)
+        np.cumsum(sizes[:-1], out=run_out[1:])
+        out = bytearray(int(sizes.sum()))
+        if dispatchasm.assemble_window(enc.native_views(), body, pid,
+                                       run_start, run_out, out) != len(out):
+            fail("native window assembly wrote a short window")
+        return bytes(out)
+
+    def python():
+        enc = C.DispatchEncoder()
+        parts = []
+        for ver, sm, eff, ret in runs:
+            pid = 0
+            for i, q, r in zip(sm.tolist(), eff.tolist(), ret.tolist()):
+                if q == 0:
+                    pkt = enc.publish_qos0(msgs[i], r, ver)
+                else:
+                    pid += 1
+                    pkt = enc.publish(msgs[i], q, r, pid, ver)
+                parts.append(C.serialize(pkt, ver))
+        return b"".join(parts)
+
+    return native, python
+
+
+def phase_native_parity() -> None:
+    """Each native helper against its Python referee on this machine,
+    on random inputs: exact equality."""
+    import numpy as np
+
+    from emqx_tpu_torch.codec import mqtt as C
+    from emqx_tpu_torch.message import Message
+    from emqx_tpu_torch.ops.automaton import encode_filters
+    from emqx_tpu_torch.ops.dictionary import TokenDict, encode_topics
+    from emqx_tpu_torch.ops.sortutil_native import (
+        argsort_i64, unique_inverse_i64,
+    )
+    from emqx_tpu_torch.ops.trie_host import HostTrie
+    from emqx_tpu_torch.ops.trie_native import NativeTrie
+
+    phase("native parity")
+    rng = np.random.default_rng(11)
+    words = ["a", "b", "", "$SYS", "x", "dev", "é"]
+
+    def rand_filter():
+        ws = [str(rng.choice(words + ["+"]))
+              for _ in range(rng.integers(0, 5))]
+        if not ws or rng.random() < 0.3:
+            ws.append("#")
+        return "/".join(ws)
+
+    nat, host = NativeTrie(), HostTrie()
+    for step in range(5000):
+        fid = int(rng.integers(0, 800)) if step % 3 else f"s{step % 97}"
+        if rng.random() < 0.2:
+            if nat.delete_id(fid) != host.delete_id(fid):
+                fail(f"native trie: delete_id({fid!r}) differs")
+        else:
+            flt = rand_filter()
+            if nat.insert(flt, fid) != host.insert(flt, fid):
+                fail(f"native trie: insert({flt!r}, {fid!r}) differs")
+    last = host.last_seq()
+    n_topics = 3000
+    for _ in range(n_topics):
+        ws = tuple(str(rng.choice(words)) for _ in range(rng.integers(1, 6)))
+        if nat.match_words(ws) != host.match_words(ws):
+            fail(f"native trie: match_words({ws}) differs")
+        w = int(rng.integers(0, last + 2))
+        if nat.match_since_words(ws, w) != host.match_since_words(ws, w):
+            fail(f"native trie: match_since_words({ws}, {w}) differs")
+    items = [(i, tuple(rand_filter().split("/"))) for i in range(20000)]
+    td_n, td_p = TokenDict(), TokenDict()
+    a = encode_filters(items, td_n, 16, native=True)
+    b = encode_filters(items, td_p, 16, native=False)
+    if any(not np.array_equal(x, y) for x, y in zip(a[:3], b[:3])) or \
+            list(td_n._ids.items()) != list(td_p._ids.items()):
+        fail("native encoder: filter rows or token ids differ")
+    topics = ["/".join(str(rng.choice(words + ["q"]))
+                       for _ in range(rng.integers(1, 20)))
+              for _ in range(20000)]
+    for levels in (4, 17):
+        got = (np.empty((len(topics), levels), np.int32),
+               np.empty(len(topics), np.int32), np.empty(len(topics), bool))
+        td_n.native().encode_topics_into(topics, levels, *got)
+        want = encode_topics(td_p, [tuple(t.split("/")) for t in topics],
+                             levels)
+        if any(not np.array_equal(x, y) for x, y in zip(got, want)):
+            fail(f"native encoder: topic rows differ at {levels} levels")
+    for n in (0, 1, 1000, 1_000_000):
+        keys = rng.integers(-1 << 40, 1 << 40, n) // 1024
+        u, inv = unique_inverse_i64(keys)
+        wu, winv = np.unique(keys, return_inverse=True)
+        if not (np.array_equal(argsort_i64(keys),
+                               np.argsort(keys, kind="stable"))
+                and np.array_equal(u, wu)
+                and np.array_equal(inv, winv.reshape(-1))):
+            fail(f"native sorts differ from numpy at n = {n}")
+    msgs = [Message(topic=f"p/{i % 9}/é", payload=bytes(i % 251 for _ in
+                                                        range(i % 300)),
+                    qos=i % 3, retain=i % 4 == 0,
+                    properties={"user_property": [("k", str(i))]}
+                    if i % 5 == 0 else {})
+            for i in range(200)]
+    runs = []
+    for j in range(16):
+        nd = int(rng.integers(1, 200))
+        runs.append((C.MQTT_V5 if j % 2 else C.MQTT_V4,
+                     np.sort(rng.integers(0, 200, nd)).astype(np.int64),
+                     rng.integers(0, 3, nd).astype(np.int64),
+                     rng.random(nd) < 0.5))
+    native, python = wire_builders(msgs, runs)
+    wire = native()
+    if wire != python():
+        fail("native window assembly differs from the Python encoder")
+    print(f"native parity: NativeTrie = HostTrie over 5,000 inserts and "
+          f"deletes, {n_topics} topics (match_words, match_since_words); "
+          f"native filter encode = Python (20,000 filters, ids too); topic "
+          f"encode = encode_topics (20,000 topics, 4 and 17 levels); "
+          f"argsort/unique = numpy up to 1,000,000 keys; window assembly "
+          f"= Python encoder ({sum(len(r[1]) for r in runs)} deliveries, "
+          f"{len(wire)} B): all exact", flush=True)
+
+
+def alternate(fa, fb, reps: int):
+    """Host-clock ms of ``fa`` and ``fb`` called in turns (a, b, b, a),
+    ``reps`` each: the medians."""
+    import statistics
+
+    ta, tb = [], []
+    for k in range(reps):
+        for fn, out in ((fa, ta), (fb, tb)) if k % 2 == 0 else \
+                ((fb, tb), (fa, ta)):
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ta), statistics.median(tb)
+
+
+def phase_window_assembly(results, stages) -> None:
+    """The wire of one broker window — the main-path broker run's
+    median messages a window, each delivered at QoS 1 to its median
+    clients (the load's shape: every subscriber gets every message) —
+    through the native splice and through the per-delivery Python
+    encoder, in turns; equal bytes."""
+    import numpy as np
+
+    from emqx_tpu_torch.codec import mqtt as C
+    from emqx_tpu_torch.message import Message
+
+    phase("window assembly")
+    win = stages.get("window")
+    if not win:
+        fail("window assembly: the broker run committed no window")
+    n, k = max(int(win["n_msgs"]), 1), max(int(win["n_clients"]), 1)
+    msgs = [Message(topic=f"load/p{i % N_PUB}/m{i % 16}", qos=1,
+                    payload=f"{i % N_PUB}:{i}:{time.perf_counter()!r}"
+                    .encode()) for i in range(n)]
+    sm = np.arange(n, dtype=np.int64)
+    runs = [(C.MQTT_V4, sm, np.ones(n, np.int64), np.zeros(n, bool))] * k
+    native, python = wire_builders(msgs, runs)
+    if native() != python():
+        fail("window assembly: the native splice differs from Python")
+    t = alternate(native, python, 20)
+    results["native"]["window_assembly_ms"] = {"n_msgs": n, "clients": k,
+                                               "native": t[0],
+                                               "python": t[1]}
+    asm = stages.get("assemble")
+    asm = (f"p50 {asm['p50_ms']:.4f} ms over {asm['count']} windows"
+           if asm else "never ran: no run's QoS>0 deliveries fit its "
+           "subscriber's inflight window")
+    print(f"window assembly, {n} messages x {k} clients at QoS 1 (equal "
+          f"bytes): native (slots, pids, one splice) {t[0]:.4f} ms, "
+          f"Python per-delivery encoder {t[1]:.4f} ms; the broker run's "
+          f"assemble stage (the splice alone) {asm} [{results['card']}]",
+          flush=True)
+
+
+def phase_native_times(results, eng, py, filters, windows) -> None:
+    """Each native helper against its Python referee at the main path's
+    sizes, on this machine's host, in turns: the encode of one
+    4,096-topic window, the engine window (``MatchEngine.match_batch``),
+    the host trie over a window's topics (the overflow re-match) and
+    over the residual after churn, and the automaton build of the 1M
+    filters.  ``eng`` and ``py`` hold the same filters, with the native
+    host path and with ``native=False``."""
+    import numpy as np
+
+    from emqx_tpu_torch import topic as T
+    from emqx_tpu_torch.observability import Profiler
+    from emqx_tpu_torch.ops.automaton import (
+        assemble_automaton, encode_filters,
+    )
+    from emqx_tpu_torch.ops.dictionary import TokenDict, encode_topics
+
+    phase("native times")
+    out = results["native"]
+    card = results["card"]
+    w = windows[0]
+    words = [T.words(t) for t in w]
+    levels = eng._aut.kernel_levels
+    tdict = eng._tdict
+    bufs = (np.empty((len(w), levels), np.int32), np.empty(len(w), np.int32),
+            np.empty(len(w), bool))
+
+    def enc_native():
+        tdict.native().encode_topics_into(w, levels, *bufs)
+
+    want = encode_topics(tdict, words, levels)
+    enc_native()
+    if any(not np.array_equal(x, y) for x, y in zip(bufs, want)):
+        fail("native times: the window encode differs from encode_topics")
+    out["encode_window_ms"] = alternate(
+        enc_native, lambda: encode_topics(tdict, words, levels), 20)
+    print(f"window encode, {len(w)} topics at {levels} levels (every "
+          f"topic a row-cache miss): native {out['encode_window_ms'][0]:.4f} "
+          f"ms, encode_topics {out['encode_window_ms'][1]:.4f} ms "
+          f"[{card}]", flush=True)
+
+    def engine_windows(label):
+        eng.profiler, py.profiler = Profiler(), Profiler()
+        tn, tp = [], []
+        for k, win in enumerate(windows):
+            order = ((eng, tn), (py, tp)) if k % 2 == 0 else \
+                ((py, tp), (eng, tn))
+            got = []
+            for e, acc in order:
+                t0 = time.perf_counter()
+                got.append(e.match_batch(win))
+                acc.append((time.perf_counter() - t0) * 1e3)
+            if got[0] != got[1]:
+                fail(f"native times: engine windows differ ({label})")
+        tok = [e.profiler.summary()["tokenize"]["p50"] / 1e3
+               for e in (eng, py)]
+        eng.profiler = py.profiler = None
+        med = float(np.median(tn)), float(np.median(tp))
+        print(f"engine window ({label}), MatchEngine.match_batch over "
+              f"{len(windows)} windows of {len(w)} topics, in turns: "
+              f"native median {med[0]:.3f} ms (tokenize p50 {tok[0]:.3f}), "
+              f"native=False {med[1]:.3f} ms (tokenize p50 {tok[1]:.3f}); "
+              f"equal fid sets [{card}]", flush=True)
+        return {"native_ms": med[0], "python_ms": med[1],
+                "tokenize_p50_ms": tok}
+
+    out["engine_window_warm"] = engine_windows("row cache warm")
+    tries = (eng._wild, py._wild)
+    got = [[t.match_words(ws) for ws in words] for t in tries]
+    if got[0] != got[1]:
+        fail("native times: the host tries' matches differ")
+    out["trie_window_ms"] = alternate(
+        lambda: [tries[0].match_words(ws) for ws in words],
+        lambda: [tries[1].match_words(ws) for ws in words], 5)
+    print(f"host trie match_words over one window's {len(w)} topics (the "
+          f"re-match of overflowed rows), {len(filters)} filters: native "
+          f"{out['trie_window_ms'][0]:.3f} ms, HostTrie "
+          f"{out['trie_window_ms'][1]:.3f} ms [{card}]", flush=True)
+    # churn below the rebuild threshold: a residual the window overlays
+    rng = np.random.default_rng(5)
+    churn = [(f"vehicles/v{int(v)}/sensors/+", f"churn{k}")
+             for k, v in enumerate(rng.integers(0, 1000, 2000))]
+    for e in (eng, py):
+        e.insert_many(churn)
+        if len(e._delta) != len(churn):
+            fail("native times: the churn rebuilt the automaton")
+    res = [e._snapshot()[3] for e in (eng, py)]
+    if [res[0].match_words(ws) for ws in words] != \
+            [res[1].match_words(ws) for ws in words]:
+        fail("native times: the residual views differ")
+    out["residual_window_ms"] = alternate(
+        lambda: [res[0].match_words(ws) for ws in words],
+        lambda: [res[1].match_words(ws) for ws in words], 5)
+    print(f"residual match_since_words over one window ({len(churn)} "
+          f"filters since the build): native "
+          f"{out['residual_window_ms'][0]:.3f} ms, HostTrie "
+          f"{out['residual_window_ms'][1]:.3f} ms [{card}]", flush=True)
+    out["engine_window_churn"] = engine_windows(
+        f"{len(churn)}-filter residual")
+    # the automaton build of the 1M filters: encode, then assemble
+    t0 = time.perf_counter()
+    enc_n = encode_filters(filters, TokenDict(), 16, native=True)
+    t1 = time.perf_counter()
+    enc_p = encode_filters(filters, TokenDict(), 16, native=False)
+    t2 = time.perf_counter()
+    aut_n = assemble_automaton(*enc_n, max_levels=16, native=True)
+    t3 = time.perf_counter()
+    aut_p = assemble_automaton(*enc_p, max_levels=16, native=False)
+    t4 = time.perf_counter()
+    for x, y in zip(enc_n[:3], enc_p[:3]):
+        if not np.array_equal(x, y):
+            fail("native times: the filter encodes differ")
+    for f in ("fp_rows", "node_rows", "code_off", "code_idx"):
+        if not np.array_equal(getattr(aut_n, f), getattr(aut_p, f)):
+            fail(f"native times: the automata differ in {f}")
+    out["build_s"] = {"encode": (t1 - t0, t2 - t1),
+                      "assemble": (t3 - t2, t4 - t3)}
+    print(f"automaton build of {len(filters)} filters (equal tables): "
+          f"encode native {t1 - t0:.3f} s, Python {t2 - t1:.3f} s; assemble "
+          f"with native sorts {t3 - t2:.3f} s, numpy sorts {t4 - t3:.3f} s "
+          f"[{card}]", flush=True)
+
+
+def stage_medians(label, prof) -> dict:
+    """Print and return the per-stage medians of a broker's windows:
+    ``Profiler.summary()``'s p50 over every window (log2 buckets,
+    interpolated) and the exact median over the ring's windows that the
+    batcher made (not the one-message windows a rule's republish
+    publishes); ``"window"`` holds those windows' median messages,
+    deliveries and clients."""
+    import statistics
+
+    summ = prof.summary()
+    ring = [r for r in prof.windows(limit=10**6) if r["source"] == "batcher"]
+    rows = {}
+    for name, h in summ.items():
+        if not h["count"]:
+            continue
+        vals = [r["stages_us"][name] for r in ring if name in r["stages_us"]]
+        rows[name] = {"p50_ms": h["p50"] / 1e3, "count": h["count"],
+                      "ring_median_ms": statistics.median(vals) / 1e3
+                      if vals else None, "ring_n": len(vals)}
+    print(f"{label}: per-stage medians, Broker.profiler.summary() p50 "
+          f"over all windows (ring: exact median of the last {len(ring)} "
+          f"batcher windows)", flush=True)
+    for name, r in rows.items():
+        ring_s = (f"{r['ring_median_ms']:.3f}"
+                  if r["ring_median_ms"] is not None else "-")
+        print(f"  {label} stage {name}: {r['p50_ms']:.3f} ms (ring {ring_s} "
+              f"ms over {r['ring_n']}; {r['count']} samples)", flush=True)
+    if ring:
+        rows["window"] = {k: statistics.median(r[k] for r in ring)
+                          for k in ("n_msgs", "n_deliveries", "n_clients")}
+        print(f"  {label} windows: median {rows['window']}", flush=True)
+    # the engine's events, exactly (their histograms are log2 buckets)
+    rows["events"] = [(e["kind"], e["dur_ms"], e.get("bytes"))
+                      for e in prof.events()]
+    print(f"  {label} engine events (kind, ms, bytes): {rows['events']}",
+          flush=True)
+    return rows
 
 
 def main() -> None:
@@ -2001,6 +2443,8 @@ def main() -> None:
                "main_path": {}}
     results["card"] = phase_device()
     phase_build(results)
+    phase_native_build(results)
+    phase_native_parity()
     enc, batch_np, k1 = phase_kernels(results)
     phase_sharded_kernel(results, enc, batch_np, k1)
     del enc, batch_np, k1
@@ -2029,6 +2473,7 @@ def main() -> None:
             **{x: k[x] for x in ("main_path", "stress", "empty_launch_ms")
                if x in k},
         })
+    print(f"native summary: {json.dumps(results['native'])}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

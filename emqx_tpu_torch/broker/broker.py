@@ -10,8 +10,13 @@
      and `MatchEngine.decide_window` packs every delivery's effective
      QoS, no-local drop and retain flag in one kernel launch;
   3. deliver — one run per subscriber, in publish order, encoded once
-     per window (`DispatchEncoder`) and flushed as one corked write per
-     connection;
+     per window (`DispatchEncoder`): each connected run's decided
+     columns become its arena slots and packet ids
+     (`Session.deliver_run_native`), and ONE native call splices every
+     such run's wire (`ops.dispatchasm.assemble_window`); runs the
+     native path does not take (subscription identifiers, no inflight
+     room, ``native=False``) go through `Session.deliver_decided`.
+     Each connection gets one corked write;
   4. rules — the window's rule hits (rule fids the match returned
      beside the subscriptions) run through `RuleEngine.apply_batch`:
      one rules x window WHERE matrix kernel launch, then the actions.
@@ -20,12 +25,21 @@
 a collector closes a window every ``batch_window_ms`` or ``batch_max``
 messages and launches its match off the event loop, and a dispatch loop
 delivers windows strictly in order.
+
+Every window is timed stage by stage into ``Broker.profiler``
+(`observability.Profiler`): ``batch_wait`` (the batcher's
+accumulation), ``prepare``, ``match_submit``, ``match_wait``,
+``dispatch_wait``, ``expand``, ``decide``, ``deliver`` (with its
+native ``assemble`` share), ``flush`` and ``rules``, plus the engine's
+``tokenize`` and its rebuild and upload events;
+``Broker.profiler.summary()`` reads them.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from collections import Counter, deque
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -35,7 +49,11 @@ from ..codec import mqtt as C
 from ..config import BrokerConfig
 from ..engine import MatchEngine
 from ..message import Message
-from ..ops.match_kernel import DEC_DROP_BIT, DEC_QMAX_SHIFT, DEC_RETAIN_BIT
+from ..observability import Profiler
+from ..ops import dispatchasm
+from ..ops.match_kernel import (
+    DEC_DROP_BIT, DEC_QMAX_SHIFT, DEC_RETAIN_BIT, DEC_SUBID_BIT,
+)
 from ..router import Router
 from ..rules.engine import RuleEngine
 from .cm import ConnectionManager
@@ -52,19 +70,35 @@ class Metrics(Counter):
 
 
 class Broker:
+    """``native`` (the default) runs the C++ host path — the engine's
+    trie tiers, window encode and automaton sorts, and the window's
+    wire splice — and raises when its libraries do not build;
+    ``native=False`` runs their Python referees."""
+
     def __init__(
-        self, config: Optional[BrokerConfig] = None, device="cuda"
+        self, config: Optional[BrokerConfig] = None, device="cuda",
+        native: bool = True,
     ) -> None:
         self.config = config or BrokerConfig()
         self.metrics = Metrics()
         eng = self.config.engine
+        self.native = native
         self.router = Router(MatchEngine(
             max_levels=eng.max_levels,
             f_width=eng.f_width,
             m_cap=eng.m_cap,
             rebuild_threshold=eng.rebuild_threshold,
             device=device,
+            native=native,
         ))
+        prof = self.config.profiler
+        self.profiler = Profiler(
+            ring_size=prof.ring_size, events_cap=prof.events_cap,
+            enabled=prof.enable,
+        )
+        # the engine's tokenize stage and its rebuild/upload events
+        # land in the same profiler as the window stages
+        self.router.engine.profiler = self.profiler
         self.cm = ConnectionManager(self._make_session)
         self.cm.on_discarded = self._session_discarded
         self.rules = RuleEngine(broker=self)
@@ -138,109 +172,199 @@ class Broker:
 
     def publish_many(self, msgs: Sequence[Message]) -> List[int]:
         """Route a window: all topics matched in one kernel launch."""
-        return self.publish_dispatch(
-            msgs, self.publish_match_finish(self.publish_match_submit(msgs))
-        )
+        rec = self.profiler.begin(len(msgs))
+        self.publish_prepare(msgs)
+        if rec is not None:
+            rec.lap("prepare")
+        return self.publish_dispatch(msgs, self.publish_match_finish(
+            self.publish_match_submit(msgs, rec)), rec)
 
-    def publish_match_submit(self, msgs: Sequence[Message]):
-        """Stage 1a (any thread): launch the window's match."""
+    def publish_prepare(self, msgs: Sequence[Message]) -> None:
+        """Stage 0 (loop thread): the window's ingress accounting."""
         self.metrics.inc("messages.publish", len(msgs))
-        if not msgs:
-            return None
-        return self.router.engine.match_batch_submit([m.topic for m in msgs])
 
-    def publish_match_finish(self, pending) -> List[Set[str]]:
+    def publish_match_submit(self, msgs: Sequence[Message], rec=None):
+        """Stage 1a (any thread): launch the window's match.  ``rec``,
+        the window's profiler record, rides the handle to the finish."""
+        pending = None
+        if msgs:
+            pending = self.router.engine.match_batch_submit(
+                [m.topic for m in msgs])
+        if rec is not None:
+            rec.lap("match_submit")
+        return pending, rec
+
+    def publish_match_finish(self, handle) -> List[Set[str]]:
         """Stage 1b (any thread): wait for the match, overlay host tiers."""
-        if pending is None:
-            return []
-        return self.router.engine.match_batch_finish(pending)
+        pending, rec = handle
+        matched = (
+            [] if pending is None
+            else self.router.engine.match_batch_finish(pending)
+        )
+        if rec is not None:
+            rec.lap("match_wait")
+            if pending is not None:
+                rec.path = "host" if pending[0] == "host" else "dev"
+        return matched
 
     def publish_dispatch(
-        self, msgs: Sequence[Message], matched: Sequence[Set[str]]
+        self, msgs: Sequence[Message], matched: Sequence[Set[str]],
+        rec=None,
     ) -> List[int]:
         """Stage 2 (loop thread): decide and deliver the whole window,
-        then run all its rule hits in one pass."""
-        if not msgs:
-            return []
-        rule_sink: List[Tuple[Message, List[str]]] = []
-        counts = self._dispatch_window(msgs, matched, rule_sink)
-        if rule_sink:
-            try:
-                self.rules.apply_batch(rule_sink)
-            except Exception:
-                log.exception("rule batch failed for window")
-        return counts
+        then run all its rule hits in one pass.  Commits ``rec``
+        whatever happens."""
+        try:
+            if rec is not None:
+                # queued behind earlier windows in the ordered dispatch
+                rec.lap("dispatch_wait")
+            if not msgs:
+                return []
+            rule_sink: List[Tuple[Message, List[str]]] = []
+            counts = self._dispatch_window(msgs, matched, rule_sink, rec)
+            if rule_sink:
+                try:
+                    self.rules.apply_batch(rule_sink)
+                except Exception:
+                    log.exception("rule batch failed for window")
+                if rec is not None:
+                    rec.lap("rules")
+            return counts
+        finally:
+            if rec is not None:
+                self.profiler.commit(rec)
 
     # ----------------------------------------------------- dispatch
 
     def _dispatch_window(
         self, msgs: Sequence[Message], matched: Sequence[Set[str]],
-        rule_sink: List[Tuple[Message, List[str]]],
+        rule_sink: List[Tuple[Message, List[str]]], rec=None,
     ) -> List[int]:
         """Fan a routed window out to subscriber sessions: CSR-expand,
         group per client with one stable sort (each client's deliveries
         keep publish order), decide every delivery in one column pass,
-        deliver one run per client.  A connected client's run counts
-        every delivery (no-local drops included) toward its message's
-        delivery count; a detached persistent session counts what it
-        queued.  Rule hits go to ``rule_sink`` as ``(message, raw rule
-        ids)``; a message only rules matched counts as dropped for no
-        subscribers, as in the JAX package."""
+        deliver one run per client, splice the native runs' wire in one
+        call.  A connected client's run counts every delivery (no-local
+        drops included) toward its message's delivery count; a detached
+        persistent session counts what it queued.  Rule hits go to
+        ``rule_sink`` as ``(message, raw rule ids)``; a message only
+        rules matched counts as dropped for no subscribers, as in the
+        JAX package."""
         router = self.router
         n = len(msgs)
-        counts = [0] * n
+        cnt = np.zeros(n, np.int64)  # deliveries per message
         msg_idx, rows, opts_rows, rules = router.expand_window(matched)
+        if rec is not None:
+            rec.lap("expand")
         for i, rids in rules:
             rule_sink.append((msgs[i], rids))
         mloc: Counter = Counter()
-        if len(rows):
-            order = np.lexsort((msg_idx, rows))
-            sra, sm_a, so_a = rows[order], msg_idx[order], opts_rows[order]
-            m_qos = np.fromiter((m.qos for m in msgs), np.int8, n)
-            m_retain = np.fromiter((m.retain for m in msgs), bool, n)
-            m_from = np.fromiter(
-                (self._from_row(m) for m in msgs), np.int32, n
-            )
-            packed = router.engine.decide_window(
-                router.opts_columns(), router.opts_rev,
-                so_a, sra, sm_a, m_qos, m_retain, m_from,
-            )
-            qmin = (packed & 3).tolist()
-            qmax = ((packed >> DEC_QMAX_SHIFT) & 3).tolist()
-            drop = ((packed & DEC_DROP_BIT) != 0).tolist()
-            retain = ((packed & DEC_RETAIN_BIT) != 0).tolist()
-            sm_l = sm_a.tolist()
-            so_l = so_a.tolist()
-            cuts = np.flatnonzero(sra[1:] != sra[:-1]) + 1
-            bounds = [0, *cuts.tolist(), len(sra)]
-            enc = C.DispatchEncoder()
-            corked: List = []
-            for k, e in zip(bounds[:-1], bounds[1:]):
-                clientid = router.client_of_row(int(sra[k]))
-                try:
-                    kept = self._deliver_run(
-                        clientid, msgs, sm_l[k:e], so_l[k:e],
-                        qmin[k:e], qmax[k:e], drop[k:e], retain[k:e],
-                        enc, mloc, corked,
-                    )
-                except Exception:
-                    log.exception("dispatch to %s failed", clientid)
-                    mloc["messages.publish.error"] += 1
-                    continue
-                for i, f in zip(sm_l[k:e], kept):
-                    counts[i] += f
+        corked: List = []
+        n_clients = 0
+        assemble_s = 0.0
+        try:
+            if len(rows):
+                order = np.lexsort((msg_idx, rows))
+                sra, sm_a, so_a = rows[order], msg_idx[order], opts_rows[order]
+                m_qos = np.fromiter((m.qos for m in msgs), np.int8, n)
+                m_retain = np.fromiter((m.retain for m in msgs), bool, n)
+                m_from = np.fromiter(
+                    (self._from_row(m) for m in msgs), np.int32, n
+                )
+                packed = router.engine.decide_window(
+                    router.opts_columns(), router.opts_rev,
+                    so_a, sra, sm_a, m_qos, m_retain, m_from,
+                )
+                if rec is not None:
+                    rec.lap("decide")
+                dec = _Decided(packed, sm_a, so_a)
+                cuts = np.flatnonzero(sra[1:] != sra[:-1]) + 1
+                bounds = [0, *cuts.tolist(), len(sra)]
+                enc = C.DispatchEncoder()
+                # the window's splice plan: (body, pid, channel, counts
+                # by QoS, k, e) of every run the native path took
+                plan: Optional[List] = [] if self.native else None
+                for k, e in zip(bounds[:-1], bounds[1:]):
+                    clientid = router.client_of_row(int(sra[k]))
+                    n_clients += 1
+                    try:
+                        kept = self._deliver_run(
+                            clientid, msgs, k, e, dec, enc, mloc, corked,
+                            plan,
+                        )
+                    except Exception:
+                        log.exception("dispatch to %s failed", clientid)
+                        mloc["messages.publish.error"] += 1
+                        continue
+                    if kept is not None:  # planned runs count once spliced
+                        np.add.at(cnt, sm_a[k:e], kept)
+                if plan:
+                    t0 = time.perf_counter()
+                    try:
+                        self._assemble_window(plan, enc)
+                    finally:
+                        assemble_s = time.perf_counter() - t0
+                    for *_, k, e in plan:
+                        np.add.at(cnt, sm_a[k:e], 1)
+            if rec is not None:
+                rec.lap("deliver")
+                if assemble_s:
+                    # the native splice's share of deliver
+                    rec.sub("assemble", assemble_s)
+        finally:
             # one concatenated write per connection for the whole window
             for ch in corked:
                 ch.uncork()
+        counts = cnt.tolist()
         delivered = sum(counts)
         if delivered:
             mloc["messages.delivered"] += delivered
+        if rec is not None:
+            rec.lap("flush")
+            rec.n_deliveries = delivered
+            rec.n_clients = n_clients
+            if delivered:
+                # publish -> delivery latency of each delivered message
+                now = time.time()
+                rec.e2e_ms.extend(
+                    (now - m.timestamp) * 1e3
+                    for m, c in zip(msgs, counts) if c and m.timestamp)
         n_none = n - len(np.unique(msg_idx))
         if n_none:
             mloc["messages.dropped"] += n_none
             mloc["messages.dropped.no_subscribers"] += n_none
         self.metrics.update(mloc)
         return counts
+
+    def _assemble_window(self, plan, enc: "C.DispatchEncoder") -> None:
+        """Splice every planned run's wire in ONE native call
+        (`ops.dispatchasm.assemble_window`), then hand each connection
+        its slice of the buffer as one corked blob.  A run whose bytes
+        would not land at their planned offset raises, and no run's
+        bytes ship: a shifted buffer would put one client's frames in
+        another's stream."""
+        nruns = len(plan)
+        body = np.concatenate([p[0] for p in plan])
+        pid = np.concatenate([p[1] for p in plan])
+        run_start = np.zeros(nruns, np.int64)
+        np.cumsum([len(p[0]) for p in plan][:-1], out=run_start[1:])
+        _ho, hl, _to, tl = enc.span_arrays()
+        sizes = np.add.reduceat(hl[body] + tl[body] + 2 * (pid >= 0),
+                                run_start)
+        run_out = np.zeros(nruns, np.int64)
+        np.cumsum(sizes[:-1], out=run_out[1:])
+        total = int(sizes.sum())
+        out = bytearray(total)
+        wrote = dispatchasm.assemble_window(
+            enc.native_views(), body, pid, run_start, run_out, out)
+        if wrote != total:
+            raise RuntimeError(
+                f"native window assembly wrote {wrote} of {total} bytes "
+                f"across {nruns} runs")
+        mv = memoryview(out)
+        for (_b, _p, channel, npub, _k, _e), o, ln in zip(
+                plan, run_out.tolist(), sizes.tolist()):
+            channel.send_wire(mv[o:o + ln], npub)
 
     def _from_row(self, msg: Message) -> int:
         r = (
@@ -250,41 +374,51 @@ class Broker:
         return -1 if r is None else r
 
     def _deliver_run(
-        self, clientid: str, msgs, sm, so, qmin, qmax, drop, retain,
+        self, clientid: str, msgs, k: int, e: int, dec: "_Decided",
         enc: "C.DispatchEncoder", mloc: Counter, corked: List,
-    ) -> List[int]:
-        """Deliver one client's slice of the window from its decided
-        columns; returns a 0/1 count per delivery."""
-        nd = len(sm)
+        plan: Optional[List],
+    ):
+        """Deliver one client's slice ``[k, e)`` of the window from its
+        decided columns.  Returns the 0/1 count per delivery (an array),
+        1 when every delivery counts, or None when the run joined the
+        native splice ``plan`` (it counts once the splice succeeds)."""
+        nd = e - k
         session = self.cm.lookup(clientid)
         if session is None:
             mloc["delivery.dropped"] += nd
-            return [0] * nd
-        eff = qmax if session.upgrade_qos else qmin
-        opts_at = self.router.opts_at
-        decided = [
-            (msgs[sm[t]], opts_at(so[t]), eff[t], retain[t])
-            for t in range(nd) if not drop[t]
-        ]
+            return np.zeros(nd, np.int64)
+        eff = dec.qmax if session.upgrade_qos else dec.qmin
         channel = self.cm.channel(clientid)
         if channel is None:
-            return self._queue_detached_run(session, sm, decided, drop,
-                                            mloc)
+            return self._queue_detached_run(
+                session, dec.decided(msgs, self.router, eff, k, e),
+                dec.drop[k:e], mloc)
         channel.cork()
         corked.append(channel)
+        if plan is not None and not dec.subid[k:e].any():
+            run = session.deliver_run_native(
+                msgs, dec.sm[k:e], eff[k:e], dec.retain[k:e],
+                dec.drop[k:e], enc, channel.version)
+            if run is not None:
+                body, pid, npub = run
+                if len(body) == 0:
+                    return 1  # every delivery dropped: no wire
+                plan.append((body, pid, channel, npub, k, e))
+                return None
         channel.send_packets(session.deliver_decided(
-            decided, encoder=enc, version=channel.version
+            dec.decided(msgs, self.router, eff, k, e), encoder=enc,
+            version=channel.version,
         ))
-        return [1] * nd
+        return 1
 
     def _queue_detached_run(
-        self, session: Session, sm, decided, drop, mloc: Counter
-    ) -> List[int]:
+        self, session: Session, decided, drop: np.ndarray, mloc: Counter
+    ) -> np.ndarray:
         """Queue a DETACHED persistent session's run: QoS>0 queued (the
         effective QoS and subscription options baked into the queued
         copy), QoS0 dropped."""
-        kept = [0] * len(sm)
-        slots = [t for t in range(len(sm)) if not drop[t]]
+        kept = np.zeros(len(drop), np.int64)
+        slots = np.flatnonzero(~drop).tolist()
         for t, (m, opts, qos, _retain) in zip(slots, decided):
             if qos == 0:
                 mloc["delivery.dropped"] += 1
@@ -299,6 +433,36 @@ class Broker:
         for handle in self._pending_wills.values():
             handle.cancel()
         self._pending_wills.clear()
+
+
+class _Decided:
+    """One window's decision columns, unpacked from the decide kernel's
+    packed byte per delivery, beside the sorted message and options
+    columns."""
+
+    __slots__ = ("sm", "so", "qmin", "qmax", "drop", "retain", "subid")
+
+    def __init__(self, packed: np.ndarray, sm: np.ndarray,
+                 so: np.ndarray) -> None:
+        self.sm, self.so = sm, so
+        self.qmin = (packed & 3).astype(np.int64)
+        self.qmax = ((packed >> DEC_QMAX_SHIFT) & 3).astype(np.int64)
+        self.drop = (packed & DEC_DROP_BIT) != 0
+        self.retain = (packed & DEC_RETAIN_BIT) != 0
+        self.subid = (packed & DEC_SUBID_BIT) != 0
+
+    def decided(self, msgs, router, eff: np.ndarray, k: int, e: int):
+        """The run's kept deliveries as ``(msg, opts, effective_qos,
+        retain)`` entries, for `Session.deliver_decided`."""
+        opts_at = router.opts_at
+        return [
+            (msgs[i], opts_at(o), q, r)
+            for i, o, q, r, d in zip(
+                self.sm[k:e].tolist(), self.so[k:e].tolist(),
+                eff[k:e].tolist(), self.retain[k:e].tolist(),
+                self.drop[k:e].tolist())
+            if not d
+        ]
 
 
 class PublishBatcher:
@@ -382,6 +546,9 @@ class PublishBatcher:
                 while not self._queue:
                     self._arrival.clear()
                     await self._arrival.wait()
+                # the window's profiler record opens at collection
+                # start, so the accumulation shows up as its own stage
+                rec = self.broker.profiler.begin(0, source="batcher")
                 batch = [self._queue.popleft()]
                 if self._queue or self._inflight:
                     # busy: accumulate up to the window deadline
@@ -401,11 +568,17 @@ class PublishBatcher:
                         except asyncio.TimeoutError:
                             break
                 msgs = [m for m, _ in batch]
+                if rec is not None:
+                    rec.n_msgs = len(batch)
+                    rec.lap("batch_wait")
+                self.broker.publish_prepare(msgs)
+                if rec is not None:
+                    rec.lap("prepare")
                 self._inflight += len(batch)
                 match_fut = loop.run_in_executor(
-                    None, self.broker.publish_match_submit, msgs
+                    None, self.broker.publish_match_submit, msgs, rec
                 )
-                await inflight.put((batch, msgs, match_fut))
+                await inflight.put((batch, msgs, match_fut, rec))
         finally:
             self._dispatch_task.cancel()
             try:
@@ -414,7 +587,7 @@ class PublishBatcher:
                 pass
             exc = ConnectionError("broker stopping")
             while not inflight.empty():
-                batch, _msgs, match_fut = inflight.get_nowait()
+                batch, _msgs, match_fut, _rec = inflight.get_nowait()
                 match_fut.cancel()
                 self._fail(batch, exc)
             self._fail(list(self._queue), exc)
@@ -430,16 +603,16 @@ class PublishBatcher:
     async def _dispatch_loop(self, inflight: asyncio.Queue) -> None:
         loop = asyncio.get_running_loop()
         while True:
-            batch, msgs, match_fut = await inflight.get()
+            batch, msgs, match_fut, rec = await inflight.get()
             try:
                 try:
-                    pending = await match_fut
+                    handle = await match_fut
                     matched = await loop.run_in_executor(
-                        None, self.broker.publish_match_finish, pending
+                        None, self.broker.publish_match_finish, handle
                     )
                 finally:
                     self._inflight -= len(batch)
-                counts = self.broker.publish_dispatch(msgs, matched)
+                counts = self.broker.publish_dispatch(msgs, matched, rec)
             except asyncio.CancelledError:
                 raise
             except Exception as exc:

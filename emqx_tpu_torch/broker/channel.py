@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import secrets
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from .. import topic as T
 from ..codec import mqtt as C
@@ -87,6 +87,24 @@ class Channel:
                 self._cork_buf.extend(packets)
                 return
             self._send(packets)
+
+    def send_wire(self, data, npub: Tuple[int, int, int]) -> bool:
+        """One pre-assembled delivery run (the native window path): the
+        per-QoS sent counters `send_packets` bumps, then ONE `Raw` blob
+        into the corked buffer.  Returns False when the channel is
+        closing and the blob was dropped."""
+        if self._closing:
+            return False
+        m = self.broker.metrics
+        for q in (0, 1, 2):
+            if npub[q]:
+                m[f"messages.qos{q}.sent"] += npub[q]
+        pkt = C.Raw(data, self.version, npub[0] + npub[1] + npub[2])
+        if self._cork_depth:
+            self._cork_buf.append(pkt)
+        else:
+            self._send([pkt])
+        return True
 
     def close(self, reason: str) -> None:
         """CM-initiated close (takeover): tell a v5 client why."""

@@ -45,7 +45,9 @@ class Connection:
             return
         version = self.channel.version
         data = b"".join(C.serialize(p, version) for p in packets)
-        self.broker.metrics.inc("packets.sent", len(packets))
+        # a Raw blob (the native window assembly) carries a whole run
+        self.broker.metrics.inc(
+            "packets.sent", sum(getattr(p, "n_packets", 1) for p in packets))
         self.broker.metrics.inc("bytes.sent", len(data))
         self.writer.write(data)
 

@@ -24,10 +24,26 @@ class Inflight:
     def is_full(self) -> bool:
         return self.max_size > 0 and len(self._d) >= self.max_size
 
+    def room_for(self, n: int) -> bool:
+        """Can the window absorb ``n`` more entries right now?  The
+        native run path's all-or-nothing gate: a run that would
+        overflow takes the per-delivery loop, which queues the
+        overflow one delivery at a time."""
+        return self.max_size <= 0 or len(self._d) + n <= self.max_size
+
     def insert(self, key: int, value: Any) -> None:
         if key in self._d:
             raise KeyError(f"packet id {key} already in flight")
         self._d[key] = value
+
+    def insert_seq(self, lo: int, values) -> None:
+        """Insert ``values`` under the keys ``lo..lo+n-1``, which the
+        caller has proven free (`free_range`): one dict.update."""
+        self._d.update(zip(range(lo, lo + len(values)), values))
+
+    def free_range(self, lo: int, hi: int) -> bool:
+        """True when no key lies in [lo, hi]."""
+        return self._d.keys().isdisjoint(range(lo, hi + 1))
 
     def update(self, key: int, value: Any) -> None:
         if key not in self._d:

@@ -27,8 +27,8 @@ class BrokerServer:
     """A broker, its publish batcher and one TCP listener."""
 
     def __init__(self, config: Optional[BrokerConfig] = None,
-                 device="cuda") -> None:
-        self.broker = Broker(config=config, device=device)
+                 device="cuda", native: bool = True) -> None:
+        self.broker = Broker(config=config, device=device, native=native)
         self._server: Optional[asyncio.AbstractServer] = None
         self._conns: Set[asyncio.Task] = set()
         self._housekeeper: Optional[asyncio.Task] = None

@@ -18,6 +18,8 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
+
 from ..codec import mqtt as C
 from ..message import Message
 from .inflight import Inflight
@@ -130,6 +132,21 @@ class Session:
                 return self._next_pid
         raise RuntimeError("no free packet id")
 
+    def _consecutive_block(self, n: int) -> Optional[int]:
+        """Claim the ``n`` packet ids after ``_next_pid`` when they are
+        consecutive and free (away from the 65535 wrap, with a window
+        that acks, they nearly always are) and return the first; None
+        otherwise, and nothing is claimed.  The ids are those ``n``
+        `_alloc_packet_id` calls would give."""
+        pid = self._next_pid
+        if pid + n <= 65535 and (
+            len(self.inflight) == 0
+            or self.inflight.free_range(pid + 1, pid + n)
+        ):
+            self._next_pid = pid + n
+            return pid + 1
+        return None
+
     # ------------------------------------------------------ subscribe
 
     def subscribe(self, flt: str, opts: SubOpts) -> bool:
@@ -210,6 +227,61 @@ class Session:
             else:
                 out.append(self._publish_packet(msg, opts, qos, pid))
         return out
+
+    def deliver_run_native(
+        self,
+        msgs,
+        sm: np.ndarray,
+        eff: np.ndarray,
+        retain: np.ndarray,
+        drop: np.ndarray,
+        encoder: "C.DispatchEncoder",
+        version: int,
+    ) -> Optional[Tuple[np.ndarray, np.ndarray, Tuple[int, int, int]]]:
+        """The native window path for one client's run, from its
+        decided columns (message index, effective QoS, retain flag,
+        no-local drop; no delivery may carry a subscription
+        identifier): the no-local mask, the encoder's arena slot of
+        each kept delivery, and its packet ids as one block with one
+        bulk inflight insert (away from the 65535 wrap) under a single
+        clock read.  Returns the run's
+        splice plan ``(body, pid, (n_qos0, n_qos1, n_qos2))`` — arena
+        slots and packet ids (-1 for QoS 0) — which the broker
+        assembles with the window's other runs in one native call
+        (`ops.dispatchasm.assemble_window`); the wire equals
+        `deliver_decided`'s.
+
+        None when the inflight window cannot absorb every QoS>0
+        delivery: the caller takes `deliver_decided`, which queues the
+        overflow one delivery at a time."""
+        keep = ~drop
+        if not keep.all():
+            sm, eff, retain = sm[keep], eff[keep], retain[keep]
+        pend = np.flatnonzero(eff > 0)
+        k = len(pend)
+        if k and not self.inflight.room_for(k):
+            return None
+        keys = sm * 6 + eff * 2 + retain
+        body = encoder.key_slots(msgs, version, keys)
+        pid = np.full(len(body), -1, np.int64)
+        n1 = 0
+        if k:
+            now = time.time()  # one clock read per run
+            pq = eff[pend].tolist()
+            entries = [_InflightEntry(_PUBLISHING, msgs[i], q, now)
+                       for i, q in zip(sm[pend].tolist(), pq)]
+            lo = self._consecutive_block(k)
+            if lo is not None:  # one bulk insert
+                pids = list(range(lo, lo + k))
+                self.inflight.insert_seq(lo, entries)
+            else:  # the wrap or a collision: the sequential allocator
+                pids = []
+                for entry in entries:
+                    pids.append(self._alloc_packet_id())
+                    self.inflight.insert(pids[-1], entry)
+            pid[pend] = pids
+            n1 = pq.count(1)
+        return body, pid, (len(body) - k, n1, k - n1)
 
     def _queued(self, msg: Message, opts: SubOpts, qos: int) -> Message:
         # bake the effective qos + subopts into the queued copy so the

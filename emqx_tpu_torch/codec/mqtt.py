@@ -14,9 +14,12 @@ The parser enforces a max remaining-length guard like the reference
 
 from __future__ import annotations
 
+import ctypes
 import struct
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Tuple, Union
+
+import numpy as np
 
 # protocol versions (CONNECT 'Protocol Level' byte)
 MQTT_V3 = 3  # MQIsdp, MQTT 3.1
@@ -921,19 +924,40 @@ def serialize(pkt: Packet, version: int = MQTT_V5) -> bytes:
 _PID_STRUCT = struct.Struct(">H")
 
 
+class Raw:
+    """Pre-assembled wire bytes riding the packet pipeline: one blob
+    carries a whole delivery run (the native window assembly), and
+    `serialize` returns it verbatim through the ``_wire`` contract.
+    ``n_packets`` keeps packet counts honest (one blob = many
+    PUBLISHes); ``type`` is the reserved packet type 0, so per-packet
+    loops never take it for a PUBLISH."""
+
+    __slots__ = ("_wire", "n_packets")
+    type = 0
+    qos = 0
+
+    def __init__(self, data, version: int, n_packets: int) -> None:
+        self._wire = (version, data)
+        self.n_packets = n_packets
+
+
 class DispatchEncoder:
     """Window-scoped encode-once cache for PUBLISH fan-out.
 
     Serializes each unique (message, effective QoS, retain, version)
-    body once per window and hands out packets whose ``_wire``
-    attribute carries the pre-rendered frame (`serialize` returns it
-    verbatim when the negotiated version matches):
+    body once per window.  Two ways out:
 
-      * QoS 0: one shared ``Publish`` object + one shared frame for
-        every subscriber;
-      * QoS > 0: the frame is split around the packet-id slot into
-        shared ``memoryview`` segments; per subscriber only the 2-byte
-        packet id is patched in.
+      * packets whose ``_wire`` attribute carries the pre-rendered
+        frame (`serialize` returns it verbatim when the negotiated
+        version matches) — the per-delivery path: QoS 0 shares one
+        ``Publish`` and one frame between subscribers; QoS > 0 splits
+        the frame around the packet-id slot into shared ``memoryview``
+        segments and patches only the packet id per subscriber;
+      * an **arena** for the native window assembly
+        (`ops.dispatchasm`): every unique body's frame appended to one
+        bytearray, with per-body head/tail span tables around the
+        2-byte packet-id slot (``slot_for``, ``key_slots``,
+        ``span_arrays``, ``native_views``).
 
     Only the standard delivery shape qualifies (no per-subscriber
     subscription identifier); anything else takes the normal
@@ -941,40 +965,141 @@ class DispatchEncoder:
     keys on ``id(msg)``: the encoder must not outlive its dispatch
     window (messages do)."""
 
-    __slots__ = ("_parts", "_q0")
+    __slots__ = ("_parts", "_q0", "arena", "slot_index", "head_lens",
+                 "tail_lens", "_head_off", "_tail_off", "_span_np",
+                 "_span_ptrs", "_arena_export", "_key_tbl")
 
     def __init__(self) -> None:
         self._parts: Dict[Tuple, Tuple] = {}
         self._q0: Dict[Tuple, Publish] = {}
+        # the arena and its span tables (slot = list index);
+        # slot_index: (id(msg), qos, retain, version) -> slot
+        self.arena = bytearray()
+        self.slot_index: Dict[Tuple, int] = {}
+        self.head_lens: List[int] = []
+        self.tail_lens: List[int] = []
+        self._head_off: List[int] = []
+        self._tail_off: List[int] = []
+        self._span_np: Optional[Tuple] = None
+        self._span_ptrs: Optional[Tuple] = None
+        self._arena_export = None  # the pinned ctypes view of the arena
+        # version -> numpy body-key -> slot table (key = msg_idx * 6 +
+        # effective_qos * 2 + retain), the vectorized front of slot_for
+        self._key_tbl: Dict[int, np.ndarray] = {}
+
+    @staticmethod
+    def _frame(msg, qos: int, retain: bool, version: int):
+        """``(props, wire, head_len)``: the serialized PUBLISH (packet
+        id 1 as a placeholder when qos > 0) and the length of the head
+        before its packet-id slot (QoS 0: the whole frame)."""
+        props: Properties = dict(msg.properties)
+        left = msg.remaining_expiry()
+        if left is not None:
+            props["message_expiry_interval"] = left  # [MQTT-3.3.2-6]
+        wire = serialize(
+            Publish(
+                topic=msg.topic,
+                payload=msg.payload,
+                qos=qos,
+                retain=retain,
+                packet_id=1 if qos else None,
+                properties=props,
+            ),
+            version,
+        )
+        if qos == 0:
+            return props, wire, len(wire)
+        i = 1  # skip fixed header byte + remaining-length varint
+        while wire[i] & 0x80:
+            i += 1
+        return props, wire, i + 1 + 2 + len(msg.topic.encode("utf-8"))
+
+    # ------------------------------------------- native window assembly
+
+    def slot_for(self, msg, qos: int, retain: bool, version: int) -> int:
+        """Arena slot for one unique body: serialize once, append the
+        frame to the arena, and record the head/tail spans around the
+        packet-id slot."""
+        key = (id(msg), qos, retain, version)
+        s = self.slot_index.get(key)
+        if s is None:
+            _props, wire, hl = self._frame(msg, qos, retain, version)
+            # release the pinned ctypes export BEFORE growing the
+            # arena (a live export blocks bytearray resizing)
+            self._arena_export = None
+            off = len(self.arena)
+            self.arena += wire
+            if qos == 0:
+                to, tl = 0, 0
+            else:
+                to, tl = off + hl + 2, len(wire) - hl - 2
+            s = len(self._head_off)
+            self._head_off.append(off)
+            self.head_lens.append(hl)
+            self._tail_off.append(to)
+            self.tail_lens.append(tl)
+            self._span_np = None
+            self._span_ptrs = None
+            self.slot_index[key] = s
+        return s
+
+    def key_slots(self, msgs, version: int, keys: np.ndarray) -> np.ndarray:
+        """Arena slots of one run's body keys (``msg_idx * 6 +
+        effective_qos * 2 + retain``): one table gather for the bodies
+        the window already encoded, `slot_for` only for new ones.
+        Returns the int64 ``body`` column."""
+        tbl = self._key_tbl.get(version)
+        need = 6 * len(msgs)
+        if tbl is None or len(tbl) < need:
+            tbl = self._key_tbl[version] = np.full(need, -1, np.int64)
+        body = tbl[keys]
+        if len(body) and body.min() < 0:
+            for key in np.unique(keys[body < 0]).tolist():
+                i, qr = divmod(key, 6)
+                qos, retain = divmod(qr, 2)
+                tbl[key] = self.slot_for(msgs[i], qos, bool(retain),
+                                         version)
+            body = tbl[keys]
+        return body
+
+    def span_arrays(self) -> Tuple:
+        """``(head_off, head_len, tail_off, tail_len)`` as int64 arrays
+        (rebuilt after new slots), indexed by a ``body`` column."""
+        a = self._span_np
+        if a is None:
+            a = self._span_np = tuple(
+                np.asarray(x, np.int64) for x in (
+                    self._head_off, self.head_lens, self._tail_off,
+                    self.tail_lens))
+        return a
+
+    def native_views(self) -> Tuple:
+        """``(arena, head_off, head_len, tail_off, tail_len)`` as ctypes
+        pointers for the native splice, cached until the next new slot
+        (which releases the arena's export before it grows the
+        arena)."""
+        ptrs = self._span_ptrs
+        if ptrs is None:
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            ptrs = self._span_ptrs = tuple(
+                a.ctypes.data_as(i64p) for a in self.span_arrays())
+        if self._arena_export is None and self.arena:
+            self._arena_export = (
+                ctypes.c_uint8 * len(self.arena)).from_buffer(self.arena)
+        return (self._arena_export,) + ptrs
+
+    # -------------------------------------------- per-delivery packets
 
     def _parts_for(self, msg, qos: int, retain: bool, version: int):
         key = (id(msg), qos, retain, version)
         entry = self._parts.get(key)
         if entry is None:
-            props: Properties = dict(msg.properties)
-            left = msg.remaining_expiry()
-            if left is not None:
-                props["message_expiry_interval"] = left  # [MQTT-3.3.2-6]
-            wire = serialize(
-                Publish(
-                    topic=msg.topic,
-                    payload=msg.payload,
-                    qos=qos,
-                    retain=retain,
-                    packet_id=1 if qos else None,
-                    properties=props,
-                ),
-                version,
-            )
+            props, wire, hl = self._frame(msg, qos, retain, version)
             if qos == 0:
                 entry = (props, wire, b"")
             else:
-                i = 1  # skip fixed header byte + remaining-length varint
-                while wire[i] & 0x80:
-                    i += 1
-                off = i + 1 + 2 + len(msg.topic.encode("utf-8"))
                 mv = memoryview(wire)
-                entry = (props, mv[:off], mv[off + 2:])
+                entry = (props, mv[:hl], mv[hl + 2:])
             self._parts[key] = entry
         return entry
 

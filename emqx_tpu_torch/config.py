@@ -49,8 +49,21 @@ class BrokerEngineConfig:
 
 
 @dataclass
+class ProfilerConfig:
+    """The window profiler (`observability.Profiler`): stage-latency
+    histograms and a ring of the last ``ring_size`` dispatch windows,
+    on by default (two ``perf_counter`` reads a stage, one lock a
+    window)."""
+
+    enable: bool = True
+    ring_size: int = 256
+    events_cap: int = 256
+
+
+@dataclass
 class BrokerConfig:
     mqtt: MqttConfig = field(default_factory=MqttConfig)
     engine: BrokerEngineConfig = field(default_factory=BrokerEngineConfig)
+    profiler: ProfilerConfig = field(default_factory=ProfilerConfig)
     bind: str = "0.0.0.0"
     port: int = 1883

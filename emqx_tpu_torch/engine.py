@@ -18,17 +18,32 @@ engine's `rules_evaluator` (`rules.evaluator.RulesEvaluator`).
 
 ``device="cuda"`` (the default) runs the kernels and raises without a
 card; ``device="cpu"`` runs their plain PyTorch versions.
+
+The host path is C++ by default (``native=True``): the host tries
+(`ops.trie_native.NativeTrie`), the window's topic encode (a row
+cache whose misses go through `TokenDict.native`) and the automaton
+build's filter encode and sorts.  The libraries build at construction
+and a failed build raises; ``native=False`` runs the Python referees
+(`ops.trie_host.HostTrie`, `ops.dictionary.encode_topics`, numpy's
+sorts) with the same results.
+
+``profiler`` (an `observability.Profiler`, set by the broker) receives
+the window's ``tokenize`` stage — the split, row encode and dedup
+before the launch — and ``rebuild`` and ``upload`` events, the latter
+with the bytes the tables put on the device.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, Hashable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from . import topic as T
+from .ops import _native
 from .ops.automaton import (
     Automaton, build_automaton, expand_codes_dedup, expand_codes_flat,
 )
@@ -36,7 +51,7 @@ from .ops.dictionary import PAD_TOK, SENTINEL, TokenDict, encode_topics
 from .ops.match_kernel import (
     decide_packed, match_batch, match_batch_compact, pack_opts,
 )
-from .ops.trie_host import HostTrie
+from .ops.trie_native import make_trie
 from .rules.evaluator import RulesEvaluator
 from .state import (
     DeviceTables, HostStage, resolve_device, tables_from_reference,
@@ -115,7 +130,7 @@ class _ResidualView:
 
     __slots__ = ("_wild", "_min_seq")
 
-    def __init__(self, wild: HostTrie, watermark: int) -> None:
+    def __init__(self, wild, watermark: int) -> None:
         self._wild = wild
         self._min_seq = watermark + 1
 
@@ -136,21 +151,33 @@ class MatchEngine:
         m_cap: int = 128,
         rebuild_threshold: int = 4096,
         device="cuda",
+        native: bool = True,
     ) -> None:
         self.device = resolve_device(device)
+        self.native = native
+        if native:
+            _native.load_all()  # raises when a library does not build
         self.max_levels = max_levels
         self.f_width = f_width
         self.m_cap = m_cap
         self.rebuild_threshold = rebuild_threshold
+        self.profiler = None  # an observability.Profiler, or None
         self._exact: Dict[str, Set[Hashable]] = {}
-        self._wild = HostTrie()  # every wildcard filter: oracle + build source
+        # every wildcard filter: oracle + build source
+        self._wild = make_trie(native)
         self._delta: Dict[Hashable, Tuple[str, ...]] = {}  # since last build
-        self._deep = HostTrie()  # filters deeper than max_levels
+        self._deep = make_trie(native)  # filters deeper than max_levels
         self._by_fid: Dict[Hashable, str] = {}
         # a delete masks the fid in the built snapshot; replaced (never
         # mutated) at rebuild so an in-flight window's snapshot holds
         self._deleted_base: Set[Hashable] = set()
         self._tdict = TokenDict()
+        # kernel levels -> [words -> row, token rows, lengths, dollar
+        # flags, rows used]: the window encode's row cache, dropped
+        # whenever the dictionary grows (a word unknown when a row was
+        # encoded may be a filter literal now)
+        self._enc_cache: Dict[int, list] = {}
+        self._enc_gen = 0
         self._aut: Optional[Automaton] = None
         self._tables: Optional[DeviceTables] = None
         self._fid_arr: Optional[np.ndarray] = None
@@ -240,6 +267,7 @@ class MatchEngine:
     def rebuild(self) -> None:
         """Build a fresh automaton from every wildcard filter and upload
         its tables (synchronous)."""
+        t0 = time.perf_counter()
         with self._mlock:
             filters = [
                 (fid, ws) for fid, ws in self._wild.filters()
@@ -250,17 +278,27 @@ class MatchEngine:
             self._watermark = self._wild.last_seq()
             self._deleted_base = set()
             self.counters["rebuilds"] += 1
+        self._event("rebuild", t0, n_filters=len(filters))
+
+    def _event(self, kind: str, t0: float, **meta) -> None:
+        prof = self.profiler
+        if prof is not None:
+            prof.event(kind, time.perf_counter() - t0, **meta)
 
     def _build(self, filters):
         """``(automaton, device tables, position -> fid)`` for the
         wildcard ``filters``."""
         aut = build_automaton(filters, self._tdict,
-                              max_levels=self.max_levels)
+                              max_levels=self.max_levels,
+                              native=self.native)
         _pad_nodes_pow2(aut)
+        t0 = time.perf_counter()
         tables = tables_from_reference(
             aut.fp_rows, aut.node_rows, aut.salt, aut.code_off,
             aut.code_idx, self.device,
         )
+        self._event("upload", t0,
+                    bytes=aut.fp_rows.nbytes + aut.node_rows.nbytes)
         return aut, tables, make_fid_arr([fid for fid, _ in filters])
 
     # --------------------------------------------------------------- match
@@ -280,20 +318,22 @@ class MatchEngine:
     def match_batch_submit(self, topics: Sequence[str]):
         """Phase 1: tokenize the window, dedup it, and launch the
         compact match kernel without waiting for its results."""
+        t0 = time.perf_counter()
         words = [T.words(t) for t in topics]
-        snap = self._snapshot()
-        aut, tables = snap[0], snap[1]
+        with self._mlock:
+            snap = self._snapshot()
+            aut, tables = snap[0], snap[1]
+            if aut is not None and aut.n_nodes > 1:
+                idx, mat, lens, dol = self._encode_rows(
+                    words, aut.kernel_levels)
+                # publish windows are Zipf-heavy: match each distinct
+                # topic once; the row index is the dedup key
+                uniq, inv = np.unique(idx, return_inverse=True)
+                tokens, lengths, dollar = _pad_batch(
+                    mat[uniq], lens[uniq], dol[uniq])
+        self._stage("tokenize", t0)
         if aut is None or aut.n_nodes <= 1:
             return ("host", self._match_host_window(words))
-        # publish windows are Zipf-heavy: match each distinct topic once
-        index: Dict[T.Words, int] = {}
-        inv = np.fromiter(
-            (index.setdefault(ws, len(index)) for ws in words),
-            np.int64, len(words),
-        )
-        tokens, lengths, dollar = _pad_batch(
-            *encode_topics(self._tdict, list(index), aut.kernel_levels)
-        )
         dev = self.device
         enc = (
             torch.from_numpy(tokens).to(dev),
@@ -306,7 +346,67 @@ class MatchEngine:
             f_width=self.f_width, m_cap=self.m_cap, c_cap=c_cap,
         )
         return ("dev", snap, topics, words,
-                (flat, counts, total, enc, len(index), inv))
+                (flat, counts, total, enc, len(uniq), inv))
+
+    def _stage(self, name: str, t0: float) -> None:
+        prof = self.profiler
+        if prof is not None:
+            prof.stage(name, time.perf_counter() - t0)
+
+    def _encode_rows(self, words, levels: int):
+        """Tokenize a window through the row cache; returns ``(idx,
+        mat, lens, dol)``, the window's row of each topic in the
+        cache's token, length and dollar columns.  A topic seen before
+        costs one dict lookup; the misses are encoded in one batch, by
+        the native encoder (`TokenDict.native`) or with
+        ``native=False`` by `encode_topics`, with the same rows.  The
+        caller holds ``_mlock``, which also serializes the dictionary's
+        growth (rebuilds)."""
+        gen = len(self._tdict)
+        if gen != self._enc_gen:
+            self._enc_cache.clear()
+            self._enc_gen = gen
+        entry = self._enc_cache.get(levels)
+        if entry is None or entry[4] >= 262144:
+            cap = 4096
+            entry = self._enc_cache[levels] = [
+                {}, np.full((cap, levels), PAD_TOK, np.int32),
+                np.zeros(cap, np.int32), np.zeros(cap, bool), 0,
+            ]
+        index, mat, lens, dol, used = entry
+        js = list(map(index.get, words))
+        if None in js:
+            miss_rows: Dict[T.Words, int] = {}
+            miss_ws: List[T.Words] = []
+            for i, j in enumerate(js):
+                if j is None:
+                    ws = words[i]
+                    r = miss_rows.get(ws)
+                    if r is None:
+                        r = miss_rows[ws] = used + len(miss_ws)
+                        miss_ws.append(ws)
+                    js[i] = r
+            need = used + len(miss_ws)
+            if need > len(lens):  # grow by doubling
+                cap = len(lens)
+                while cap < need:
+                    cap *= 2
+                m2 = np.full((cap, levels), PAD_TOK, np.int32)
+                m2[:used] = mat[:used]
+                mat = m2
+                lens = np.resize(lens, cap)
+                dol = np.resize(dol, cap)
+                entry[1], entry[2], entry[3] = mat, lens, dol
+            if self.native:
+                self._tdict.native().encode_topics_into(
+                    [T.join(ws) for ws in miss_ws], levels,
+                    mat[used:need], lens[used:need], dol[used:need])
+            else:
+                mat[used:need], lens[used:need], dol[used:need] = (
+                    encode_topics(self._tdict, miss_ws, levels))
+            index.update(miss_rows)
+            entry[4] = need
+        return np.fromiter(js, np.int64, count=len(words)), mat, lens, dol
 
     def _snapshot(self):
         """What one window matches against: the built automaton, its
@@ -366,6 +466,10 @@ class MatchEngine:
     def _overlay(self, topics, words, rows, gpos, ovf, snap
                  ) -> List[Set[Hashable]]:
         fid_arr, residual, deep, deleted = snap[2], snap[3], snap[4], snap[5]
+        # the host tiers' sizes once a window, not once a row (the
+        # native trie answers them through a ctypes call)
+        residual = residual if len(residual) else None
+        deep = deep if len(deep) else None
         fids_flat = fid_arr[gpos]
         per_row = np.bincount(rows, minlength=len(words))
         chunks = np.split(fids_flat, np.cumsum(per_row)[:-1])
@@ -379,9 +483,9 @@ class MatchEngine:
                 fids -= deleted
             if self._exact:
                 fids |= self._exact.get(topics[i], set())
-            if len(residual):
+            if residual is not None:
                 fids |= residual.match_words(ws)
-            if len(deep):
+            if deep is not None:
                 fids |= deep.match_words(ws)
             out.append(fids)
         return out

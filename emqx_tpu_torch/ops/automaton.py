@@ -17,8 +17,11 @@ matching with one wide row gather per lookup:
   * terminal -> filter-id fan-out stays host-side CSR, keeping device
     output compressed.
 
-The build is vectorized numpy (sort/unique per depth).  Its tables
-are bit-identical to the JAX package's build for the same filters.
+The build is vectorized numpy, with its filter encode and its sorts
+(argsort, unique per depth) in C++ (`TokenDict.encode_filters_into`,
+`sortutil_native`) unless ``native=False`` asks for the Python and
+numpy referees.  Its tables are bit-identical to the JAX package's
+build for the same filters, either way.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from .dictionary import PAD_TOK, PLUS_TOK, SENTINEL, TokenDict, encode_filter
+from .sortutil_native import sorts
 
 # Tokens are >= PAD_TOK; shift keeps packed keys non-negative.
 _TOK_SHIFT = 16
@@ -204,6 +208,7 @@ def _build_fp_table(
     children: np.ndarray,
     load: float,
     min_buckets: int = 4,
+    native: bool = True,
 ) -> Tuple[np.ndarray, int]:
     """Vectorized single-probe fingerprint-table build.
 
@@ -211,6 +216,7 @@ def _build_fp_table(
     table; a same-bucket fingerprint collision bumps the salt), so the
     kernel does exactly one row gather per lookup.  Returns
     ``(rows [nb, 2*BUCKET], salt)``."""
+    argsort, unique_inverse = sorts(native)
     e = len(parents)
     nb = 4
     while nb < min_buckets or nb * BUCKET * load < max(e, 1):
@@ -220,7 +226,7 @@ def _build_fp_table(
         h0 = bucket_hash(parents, toks, salt)
         fp = edge_fp(parents, toks, salt)
         b = (h0 & np.uint32(nb - 1)).astype(np.int64)
-        order = np.argsort(b, kind="stable")
+        order = argsort(b)
         bs = b[order]
         # bs is sorted: derive run starts/counts without np.unique's
         # internal (GIL-held) re-sort
@@ -240,7 +246,7 @@ def _build_fp_table(
         key64 = (
             fp[order].astype(np.int64) | (bs << 32)
         )
-        if len(np.unique(key64)) != e:
+        if len(unique_inverse(key64)[0]) != e:
             salt += 1
             continue
         rank = np.arange(e, dtype=np.int64) - np.repeat(start, cnts)
@@ -254,8 +260,12 @@ def encode_filters(
     filters: Sequence[Tuple[object, Tuple[str, ...]]],
     tdict: TokenDict,
     max_levels: int = 16,
+    native: bool = True,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, List]:
-    """Encode ``(fid, words)`` pairs into build-input arrays.
+    """Encode ``(fid, words)`` pairs into build-input arrays: in one
+    native call (`TokenDict.encode_filters_into`), or with
+    ``native=False`` through the per-filter Python loop, which gives
+    the same arrays and token ids.
 
     Split from assembly so a caller can keep the arrays of an existing
     build and re-encode only its delta.
@@ -265,6 +275,9 @@ def encode_filters(
     blen = np.zeros(nf, np.int32)
     is_hash = np.zeros(nf, bool)
     flist: List[Tuple[object, Tuple[str, ...]]] = list(filters)
+    if native:
+        tdict.encode_filters_into(flist, max_levels, mat, blen, is_hash)
+        return mat, blen, is_hash, flist
     for i, (fid, ws) in enumerate(flist):
         body, hsh = encode_filter(tdict, ws)
         if len(body) > max_levels:
@@ -281,17 +294,21 @@ def build_automaton(
     max_levels: int = 16,
     load: float = 0.25,
     hash_buckets: int = 0,
+    native: bool = True,
 ) -> Automaton:
     """Build the automaton from ``(fid, filter_words)`` pairs.
 
     ``hash_buckets`` forces a minimum bucket count so multiple shard
     automata can share one traced kernel shape (stacked over a mesh).
+    ``native`` selects the C++ encoder and sorts (the default) or their
+    Python and numpy referees; the tables are the same.
     """
     return assemble_automaton(
-        *encode_filters(filters, tdict, max_levels),
+        *encode_filters(filters, tdict, max_levels, native=native),
         max_levels=max_levels,
         load=load,
         hash_buckets=hash_buckets,
+        native=native,
     )
 
 
@@ -303,6 +320,7 @@ def assemble_automaton(
     max_levels: int = 16,
     load: float = 0.25,
     hash_buckets: int = 0,
+    native: bool = True,
 ) -> Automaton:
     """Assemble from pre-encoded arrays (fully vectorized numpy — the
     GIL-friendly half of the build).
@@ -319,6 +337,7 @@ def assemble_automaton(
     e_tok: List[np.ndarray] = []
     e_child: List[np.ndarray] = []
     depth = int(blen.max()) if nf else 0
+    argsort, unique_inverse = sorts(native)
 
     for d in range(depth):
         act = np.nonzero(blen > d)[0]
@@ -327,7 +346,7 @@ def assemble_automaton(
         p = parent[act]
         t = mat[act, d].astype(np.int64)
         key = (p << 32) | (t + _TOK_SHIFT)
-        uniq, inv = np.unique(key, return_inverse=True)
+        uniq, inv = unique_inverse(key)
         child = n_nodes + np.arange(len(uniq), dtype=np.int64)
         parent[act] = child[inv]
         e_parent.append((uniq >> 32).astype(np.int32))
@@ -356,7 +375,8 @@ def assemble_automaton(
     # a mod-size hash table cannot be padded after the fact, so a forced
     # size (for shard-stacking) is honored at build time
     fp_rows, salt = _build_fp_table(
-        ep[lit], et[lit], ec[lit], load, min_buckets=max(hash_buckets, 4)
+        ep[lit], et[lit], ec[lit], load, min_buckets=max(hash_buckets, 4),
+        native=native,
     )
 
     term = parent.astype(np.int64)
@@ -365,7 +385,7 @@ def assemble_automaton(
     codes_all = term * 2 + is_hash.astype(np.int64)
     pos_alive = np.nonzero(alive)[0]
     codes_alive = codes_all[pos_alive]
-    order = pos_alive[np.argsort(codes_alive, kind="stable")]
+    order = pos_alive[argsort(codes_alive)]
     counts = np.bincount(codes_alive, minlength=2 * n_nodes).astype(
         np.int64
     )

@@ -15,9 +15,12 @@ Reserved negative ids (never produced by ``add``):
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from .tokdict_native import NativeEncoder
 
 UNKNOWN_TOK = -2
 PLUS_TOK = -3
@@ -29,10 +32,19 @@ SENTINEL = np.int32(2**31 - 1)
 
 class TokenDict:
     """Append-only word -> id map shared by table builds and encoders.
+
+    Lookups stay on the Python dict.  Batch encodes go through a
+    native mirror (`tokdict_native.NativeEncoder`, created by
+    `native`) that splits and maps in one GIL-released C++ call and
+    reports new words back, so both maps always hold the same word ->
+    id relation; once the mirror exists it allocates the ids.
     Mutations are not thread-safe — callers serialize them."""
 
     def __init__(self) -> None:
         self._ids: Dict[str, int] = {}
+        self._native = None  # the NativeEncoder, once created
+        # two encoders seeded moments apart would alias token ids
+        self._nat_lock = threading.Lock()
 
     def __len__(self) -> int:
         return len(self._ids)
@@ -40,12 +52,35 @@ class TokenDict:
     def add(self, word: str) -> int:
         wid = self._ids.get(word)
         if wid is None:
-            wid = self._ids[word] = len(self._ids)
+            nat = self._native
+            wid = nat.add(word) if nat is not None else len(self._ids)
+            self._ids[word] = wid
         return wid
 
     def get(self, word: str) -> int:
         """Lookup without inserting; unknown words -> UNKNOWN_TOK."""
         return self._ids.get(word, UNKNOWN_TOK)
+
+    def native(self):
+        """The native batch encoder, created and seeded with the words
+        already here on first use; raises RuntimeError when its library
+        does not build."""
+        if self._native is None:
+            with self._nat_lock:
+                if self._native is None:
+                    self._native = NativeEncoder(self._ids)
+        return self._native
+
+    def encode_filters_into(
+        self, items, max_levels: int,
+        mat: np.ndarray, blen: np.ndarray, ish: np.ndarray,
+    ) -> None:
+        """Encode ``(fid, words)`` pairs into the given arrays (row i =
+        item i) through the native encoder; new words get ids as
+        `encode_filter` would give them.  Raises ValueError for a filter
+        body deeper than ``max_levels``."""
+        self.native().encode_filters_into(
+            self._ids, items, max_levels, mat, blen, ish)
 
 
 def encode_topics(

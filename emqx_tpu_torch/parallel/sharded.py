@@ -22,6 +22,7 @@ per-device partial counts: the JAX package's ``psum`` over ``sub``.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Hashable, List, Optional, Sequence, Tuple
 
@@ -33,7 +34,7 @@ from ..engine import MatchEngine, make_fid_arr
 from ..ops.automaton import (
     Automaton, assemble_automaton, encode_filters, expand_codes_host,
 )
-from ..ops.dictionary import PAD_TOK, SENTINEL, TokenDict, encode_topics
+from ..ops.dictionary import PAD_TOK, SENTINEL, TokenDict
 from ..ops.match_kernel import sharded_match_local
 from ..state import (
     ShardedTables, resolve_device, sharded_tables_from_reference,
@@ -150,22 +151,23 @@ def assemble_sharded(
     max_levels: int,
     min_buckets: int = 4,
     min_nodes: int = 16,
+    native: bool = True,
 ) -> ShardedIndex:
     """Assemble per-shard encoded arrays (`encode_filters` outputs)
     into one stacked index with identical geometry (shared hash size,
     padded node count), so one launch serves every shard.
     ``min_buckets``/``min_nodes`` pin sticky capacity classes across
-    rebuilds."""
+    rebuilds; ``native`` selects the sorts (`assemble_automaton`)."""
     shards = [
         assemble_automaton(*inp, max_levels=max_levels,
-                           hash_buckets=min_buckets)
+                           hash_buckets=min_buckets, native=native)
         for inp in shard_inputs
     ]
     nb = max(len(a.fp_rows) for a in shards)
     if any(len(a.fp_rows) != nb for a in shards):
         shards = [
             assemble_automaton(*inp, max_levels=max_levels,
-                               hash_buckets=nb)
+                               hash_buckets=nb, native=native)
             for inp in shard_inputs
         ]
     n_nodes = max(max(a.n_nodes for a in shards), min_nodes)
@@ -200,6 +202,7 @@ def build_sharded_index(
     tdict: TokenDict,
     n_shards: int,
     max_levels: int = 16,
+    native: bool = True,
 ) -> ShardedIndex:
     """Partition filters into ``n_shards`` automata with identical
     geometry (same hash size / node count / probe bound)."""
@@ -207,8 +210,9 @@ def build_sharded_index(
     for fid, ws in filters:
         parts[shard_of(fid, n_shards)].append((fid, ws))
     return assemble_sharded(
-        [encode_filters(p, tdict, max_levels) for p in parts],
-        max_levels,
+        [encode_filters(p, tdict, max_levels, native=native)
+         for p in parts],
+        max_levels, native=native,
     )
 
 
@@ -297,6 +301,7 @@ class ShardedMatchEngine(MatchEngine):
         max_levels: int = 16,
         rebuild_threshold: int = 4096,
         device=None,
+        native: bool = True,
     ) -> None:
         super().__init__(
             max_levels=index.max_levels if index is not None else max_levels,
@@ -304,6 +309,7 @@ class ShardedMatchEngine(MatchEngine):
             m_cap=m_cap,
             rebuild_threshold=rebuild_threshold,
             device=mesh.devices[0, 0] if device is None else device,
+            native=native,
         )
         self.mesh = mesh
         # sticky geometry classes (never shrink): rebuilds keep one
@@ -339,26 +345,38 @@ class ShardedMatchEngine(MatchEngine):
         for fid, ws in filters:
             parts[shard_of(fid, n_shards)].append((fid, ws))
         index = assemble_sharded(
-            [encode_filters(p, self._tdict, self.max_levels) for p in parts],
+            [encode_filters(p, self._tdict, self.max_levels,
+                            native=self.native) for p in parts],
             self.max_levels,
             min_buckets=self._shard_min_buckets,
             min_nodes=self._shard_min_nodes,
+            native=self.native,
         )
         self._shard_min_buckets = index.tables[0].shape[1]
         self._shard_min_nodes = index.tables[1].shape[1]
+        t0 = time.perf_counter()
         tables = sharded_tables_from_reference(*index.tables, self.mesh)
+        self._event("upload", t0, bytes=index.tables[0].nbytes
+                    + index.tables[1].nbytes + index.tables[2].nbytes)
         return index, tables, make_fid_arr(
             [fid for p in parts for fid, _ in p])
 
     def match_batch_submit(self, topics: Sequence[str]):
         """Match the window now (the sharded launch and its downloads
         are synchronous) and hand the result through submit/finish."""
+        t0 = time.perf_counter()
         words = [T.words(t) for t in topics]
-        snap = self._snapshot()
-        index: Optional[ShardedIndex] = snap[0]
+        with self._mlock:
+            snap = self._snapshot()
+            index: Optional[ShardedIndex] = snap[0]
+            if index is not None and index.n_nodes > 1:
+                idx, mat, lens, dol = self._encode_rows(
+                    words, index.kernel_levels)
+                enc = mat[idx], lens[idx], dol[idx]
+        self._stage("tokenize", t0)
         if index is None or index.n_nodes <= 1:
             return ("host", self._match_host_window(words))
-        rows, gpos, ovf = self._flat_from_snapshot(snap, words)
+        rows, gpos, ovf = self._match_encoded(snap, *enc)
         self.counters["dev_windows"] += 1
         self.counters["rows"] += len(words)
         self.counters["ovf_rows"] += int(ovf.sum())
@@ -366,12 +384,11 @@ class ShardedMatchEngine(MatchEngine):
             return ("done", self._overlay(topics, words, rows, gpos, ovf,
                                           snap))
 
-    def _flat_from_snapshot(self, snap, words: Sequence[T.Words]):
+    def _match_encoded(self, snap, tokens, lengths, dollar):
+        """Launch K5 on the encoded window; returns ``(rows, global
+        filter positions, overflowed rows)``."""
         index: ShardedIndex = snap[0]
         tables: ShardedTables = snap[1]
-        tokens, lengths, dollar = encode_topics(
-            self._tdict, words, index.kernel_levels
-        )
         # pad the batch to a power of two (at least 16), then to a
         # pub-axis multiple: a bounded set of shapes
         b = tokens.shape[0]

@@ -119,10 +119,38 @@ PUBS = [
 
 
 @pytest.mark.parametrize("expiry", [0, 60])
-def test_wire_bytes_equal_reference(expiry):
+def test_wire_bytes_equal_reference(expiry, monkeypatch):
+    """The default broker: connected runs splice through the native
+    window assembly."""
+    from emqx_tpu_torch.ops import dispatchasm
+
+    calls = []
+    orig = dispatchasm.assemble_window
+    monkeypatch.setattr(dispatchasm, "assemble_window",
+                        lambda *a: calls.append(1) or orig(*a))
+    _wire_world(expiry, native=True)
+    assert calls
+
+
+@pytest.mark.parametrize("expiry", [0, 60])
+def test_wire_bytes_python_path_equal_reference(expiry, monkeypatch):
+    """``Broker(native=False)``: the Python referees of the host path
+    (host tries, topic encode, sorts, per-delivery encode) write the
+    same bytes, and the native splice never runs."""
+    from emqx_tpu_torch.ops import dispatchasm
+
+    def refuse(*a):
+        raise AssertionError("native assembly on the Python path")
+
+    monkeypatch.setattr(dispatchasm, "assemble_window", refuse)
+    _wire_world(expiry, native=False)
+
+
+def _wire_world(expiry, native):
     ref_cfg = RefConfig()
     ref_cfg.mqtt.shared_subscription = False  # the port's default
-    ref, port = RefBroker(config=ref_cfg), Broker(device="cpu")
+    ref, port = RefBroker(config=ref_cfg), Broker(device="cpu",
+                                                  native=native)
     clients = {}
     for cid, (ver, subs, subid) in SUBS.items():
         c = clients[cid] = Pair(ref, port, ver)

@@ -148,3 +148,84 @@ def test_host_stage_packs_one_upload():
         assert tc.tolist() == [True, False, True]
     (got,) = st.download(tb)
     assert got.dtype == np.int8 and got.shape == (5000,)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_engine_native_equals_python_path_and_reference(seed):
+    """The churn world through three engines: the port's native host
+    path (the default), its Python referees (``native=False``) and the
+    JAX package's engine give the same fid sets, window by window."""
+    rng = random.Random(100 + seed)
+    kw = dict(max_levels=4, f_width=4, m_cap=16, rebuild_threshold=40)
+    nat = MatchEngine(device="cpu", **kw)
+    py = MatchEngine(device="cpu", native=False, **kw)
+    ref = RefEngine(use_device=True, **kw)
+    assert type(nat._wild).__name__ == "NativeTrie"
+    assert type(py._wild).__name__ == "HostTrie"
+    live = {}
+    fid = 0
+    for step in range(5):
+        batch = []
+        for _ in range(30):
+            flt = _filter(rng)
+            try:
+                RT.validate_filter(flt)
+            except ValueError:
+                continue
+            batch.append((flt, fid if fid % 3 else f"s{fid}"))
+            fid += 1
+        for eng in (nat, py, ref):
+            eng.insert_many(batch)
+        live.update({f: flt for flt, f in batch})
+        for f in rng.sample(sorted(live, key=str), 6):
+            assert nat.delete(f) == py.delete(f) == ref.delete(f)
+            del live[f]
+        if step == 1:
+            for eng in (nat, py, ref):
+                eng.rebuild()
+        # repeated topics hit the row cache; new words (after a rebuild)
+        # drop it
+        topics = [_topic(rng) for _ in range(48)] * 2
+        got = [eng.match_batch(topics) for eng in (nat, py, ref)]
+        for i, t in enumerate(topics):
+            assert got[0][i] == got[1][i] == got[2][i] == _oracle(live, t), t
+        # filters deeper than max_levels live in the deep host tier
+        deep = "/".join(["a"] * 6) + "/#"
+        for eng in (nat, py, ref):
+            eng.insert(deep, f"deep{step}")
+        live[f"deep{step}"] = deep
+    assert nat._aut.node_rows.tolist() == py._aut.node_rows.tolist()
+    assert nat._aut.fp_rows.tolist() == py._aut.fp_rows.tolist()
+    assert nat._tdict._ids == py._tdict._ids
+    assert nat.counters == py.counters
+    assert nat.counters["dev_windows"] >= 3
+
+
+def test_engine_overflow_and_clip_worlds_equal_on_both_host_paths():
+    """The overflow and compact-clip worlds above, through the native
+    host path and its Python referees: the same fid sets."""
+    engines = [MatchEngine(device="cpu", max_levels=8, f_width=2, m_cap=4,
+                           native=native) for native in (True, False)]
+    for eng in engines:
+        for i in range(12):
+            pat = ["+"] * 4
+            pat[i % 4] = "w%d" % (i % 3)
+            eng.insert("/".join(pat), i)
+        eng.rebuild()
+    topics = ["w0/w1/w2/w0", "w1/w1/w1/w1", "x/y/z/w"]
+    assert engines[0].match_batch(topics) == engines[1].match_batch(topics)
+    assert engines[0].counters["ovf_rows"] == engines[1].counters[
+        "ovf_rows"] >= 1
+    shapes = ["#", "{p}/#", "+/#", "{p}/{q}", "{p}/+", "+/{q}", "+/+",
+              "{p}/{q}/#", "{p}/+/#", "+/{q}/#", "+/+/#"]
+    engines = [MatchEngine(device="cpu", max_levels=8, f_width=8, m_cap=64,
+                           native=native) for native in (True, False)]
+    for eng in engines:
+        for k in range(4):
+            for j, shape in enumerate(shapes):
+                eng.insert(shape.format(p=f"p{k}", q=f"q{k}"), 20 * k + j)
+        eng.rebuild()
+    topics = ["p0/q0", "p1/q1", "p2/q2", "p3/q3", "p0/q0"]
+    assert engines[0].match_batch(topics) == engines[1].match_batch(topics)
+    assert engines[0].counters["clip_reruns"] == \
+        engines[1].counters["clip_reruns"] == 1

@@ -22,6 +22,12 @@ import emqx_tpu_torch.broker.channel
 import emqx_tpu_torch.broker.listener
 import emqx_tpu_torch.ops.match_kernel
 import emqx_tpu_torch.ops._kernels
+import emqx_tpu_torch.ops._native
+import emqx_tpu_torch.ops.dispatchasm
+import emqx_tpu_torch.ops.sortutil_native
+import emqx_tpu_torch.ops.tokdict_native
+import emqx_tpu_torch.ops.trie_native
+import emqx_tpu_torch.observability
 import emqx_tpu_torch.parallel
 import emqx_tpu_torch.parallel.sharded
 import emqx_tpu_torch.rules
@@ -97,3 +103,64 @@ def test_cuda_tensor_without_kernel_build_raises():
     t = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         _kernels._stream(t.device)
+
+
+def test_failed_native_build_raises_and_python_path_still_works(
+        monkeypatch, tmp_path):
+    """No silent fallback: with a compiler that fails, the default
+    engine and broker raise; ``native=False`` needs no library."""
+    from emqx_tpu_torch.broker.broker import Broker
+    from emqx_tpu_torch.engine import MatchEngine
+    from emqx_tpu_torch.ops import _native
+
+    monkeypatch.setattr(_native, "CXX", "false")
+    monkeypatch.setattr(_native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_native, "_libs", {})
+    with pytest.raises(RuntimeError, match="native library build failed"):
+        MatchEngine(device="cpu")
+    with pytest.raises(RuntimeError, match="native library build failed"):
+        Broker(device="cpu")
+    eng = MatchEngine(device="cpu", native=False)
+    eng.insert("a/+", 1)
+    eng.rebuild()
+    assert eng.match_batch(["a/b", "c"]) == [{1}, set()]
+    assert Broker(device="cpu", native=False).publish_many([]) == []
+    assert list(tmp_path.glob("*.so")) == []
+    monkeypatch.setattr(_native, "CXX", "no-such-compiler-here")
+    with pytest.raises(RuntimeError, match="cannot run the C\\+\\+ compiler"):
+        _native.load("sortutil")
+
+
+_LOADER_CHECK = """
+import os, sys, tempfile
+repo = sys.argv[1]
+opened = []
+def audit(event, args):
+    if event == "open" and isinstance(args[0], str):
+        opened.append(os.path.abspath(args[0]))
+    elif event == "subprocess.Popen":
+        opened.extend(os.path.abspath(a) for a in args[1]
+                      if isinstance(a, str) and os.sep in a)
+sys.addaudithook(audit)
+from emqx_tpu_torch.ops import _native
+_native.BUILD_DIR = tempfile.mkdtemp()
+_native.load_all()
+bad = [p for p in opened
+       if p.startswith(os.path.join(repo, "native") + os.sep)
+       or p.startswith(os.path.join(repo, "emqx_tpu") + os.sep)]
+srcs = {p for p in opened if p.endswith(".cpp")}
+print("BAD", bad)
+print("SRCS", sorted(srcs))
+"""
+
+
+def test_native_loader_reads_only_the_ports_sources():
+    """The port's loader compiles its own copies under
+    ``emqx_tpu_torch/native/`` and opens nothing under the top-level
+    ``native/`` or ``emqx_tpu/``."""
+    proc = _run("-c", _LOADER_CHECK, REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+    mine = sorted(os.path.join(REPO, "emqx_tpu_torch", "native", f"{n}.cpp")
+                  for n in ("dispatchasm", "hosttrie", "sortutil", "tokdict"))
+    assert f"SRCS {mine}" in proc.stdout, proc.stdout
