@@ -56,6 +56,18 @@ whose kernel launches it counts.  Phases:
                   rebuild (and on a 2-card mesh where there are two);
                   K5 at the median launch of its first 20 windows, held
                   against its plain version, then timed
+  churn           the churn path: MatchEngine with 1M filters at the
+                  default thresholds, 20,000 wildcard inserts in
+                  insert_many batches of 256 (1 in 8 deleted again) with
+                  a 4,096-topic window after each batch, every window
+                  against the host trie: with the background rebuild
+                  (launches counted), then the synchronous one; folds,
+                  rebuilds, K1 launches on the delta automaton, the
+                  insert_many and window p50/p99/max; K1 (and K2, the
+                  clip rerun) on the delta automaton at the median
+                  launch, held against the plain versions, then timed;
+                  the sharded engine (4 shards on one card, and on 2
+                  cards where there are two) under 5,120 inserts
   broker          CLI round trip, then the in-process broker under load
                   (the main path), then with native=False and native in
                   turns; each run's per-stage medians from
@@ -1307,6 +1319,361 @@ def phase_sharded_engine(results, filters) -> None:
         print("multi-card: skipped, 1 card", flush=True)
 
 
+# ------------------------------------------------------------ churn path
+
+CHURN_INSERTS, CHURN_BATCH = 20_000, 256
+SHARDED_CHURN_INSERTS = 5_120
+
+
+def churn_filters(n: int, pops):
+    """``n`` wildcard filters of the churn, fids 9,000,000 on: new
+    subscribers of the load's four families (`workload.make_filters`),
+    each on a key drawn uniformly from its family's population (seeded),
+    so that the churn adds to each topic's fan-out about what the same
+    number of background filters would."""
+    import numpy as np
+
+    n_vehicles, n_dev, n_site, n_alert = pops
+    rng = np.random.default_rng(17)
+    out = []
+    for k, r in enumerate(rng.integers(0, 1 << 30, n)):
+        kind = k % 10
+        if kind < 5:
+            flt = f"vehicles/v{r % n_vehicles}/sensors/#"
+        elif kind < 7:
+            flt = f"dev/g{r % n_dev}/+/d{r % 7}"
+        elif kind < 9:
+            flt = f"site/+/floor/f{r % n_site}/#"
+        else:
+            flt = f"alerts/z{r % n_alert}/+/+"
+        out.append((flt, 9_000_000 + k))
+    return out
+
+
+def pct(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
+
+
+def churn_run(eng, pops, n_inserts, label, card, record=None) -> dict:
+    """20 windows of 4,096 Zipf topics, then ``n_inserts`` churn filters
+    in `insert_many` batches of 256, 1 in 8 deleted again right after,
+    with a window after each batch; every window against the host trie
+    in the same state.  With ``record`` (a list), the launches of K1 on
+    the delta automaton (the pending handles of `_flat_dispatch` made
+    outside `_flat_submit`) are kept there."""
+    import numpy as np
+
+    from emqx_tpu_torch import topic as T
+    from emqx_tpu_torch import workload as W
+
+    rng = np.random.default_rng(11)
+    c0 = dict(eng.counters)
+    unhook = []
+    if record is not None:
+        in_base = [False]
+        disp, sub = eng._flat_dispatch, eng._flat_submit
+
+        def flat_dispatch(tables, enc):
+            out = disp(tables, enc)
+            if not in_base[0]:
+                record.append(out)
+            return out
+
+        def flat_submit(snap, enc):
+            in_base[0] = True
+            try:
+                return sub(snap, enc)
+            finally:
+                in_base[0] = False
+
+        eng._flat_dispatch, eng._flat_submit = flat_dispatch, flat_submit
+        unhook = ["_flat_dispatch", "_flat_submit"]
+
+    parts = []  # per churn window: (submit ms, finish ms, residual,
+    # folded, matched fids)
+
+    def window(acc, what):
+        w = W.make_topics(rng, 4096, pops)
+        st = eng.index_stats()
+        t = time.perf_counter()
+        pend = eng.match_batch_submit(w)
+        t1 = time.perf_counter()
+        got = eng.match_batch_finish(pend)
+        t2 = time.perf_counter()
+        acc.append((t2 - t) * 1e3)
+        if acc is during:
+            parts.append(((t1 - t) * 1e3, (t2 - t1) * 1e3, st["residual"],
+                          st["folded"], sum(map(len, got))))
+        bad = sum(g != eng.match_host(T.words(topic))
+                  for topic, g in zip(w, got))
+        if bad:
+            fail(f"{label}: {bad} topics differ from the host trie {what}")
+
+    before, during, ins, based, ins_flags = [], [], [], [], []
+    # the interpreter's collector pauses every thread: its passes over
+    # the engines' millions of host objects, timed
+    import gc
+
+    gc_t0, gc_pauses = [0.0], []
+
+    def gc_timer(phase_, info):
+        if phase_ == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_pauses.append((info["generation"],
+                              (time.perf_counter() - gc_t0[0]) * 1e3))
+
+    gc.callbacks.append(gc_timer)
+    try:
+        for _ in range(20):
+            window(before, "before churn")
+        pairs = churn_filters(n_inserts, pops)
+        for i in range(0, n_inserts, CHURN_BATCH):
+            batch = pairs[i:i + CHURN_BATCH]
+            flags = (eng._building, eng._folding)
+            t = time.perf_counter()
+            eng.insert_many(batch)
+            ins.append((time.perf_counter() - t) * 1e3)
+            ins_flags.append(flags + (eng._building, eng._folding))
+            for _, fid in batch[::8]:
+                if not eng.delete(fid):
+                    fail(f"{label}: delete of {fid} found nothing")
+            window(during, "during churn")
+        settle(eng, label)
+        window(during, "after the last build")
+        c = {k: eng.counters[k] - c0[k] for k in eng.counters}
+        stats = eng.index_stats()
+        # the same filters, every one in the base: the windows' cost
+        # without the delta tiers, at the churned fan-out
+        eng.rebuild()
+        for _ in range(20):
+            window(based, "after a full rebuild")
+    finally:
+        gc.callbacks.remove(gc_timer)
+        for name in unhook:
+            delattr(eng, name)
+    sub, fin, res, fold, fids = (list(x) for x in zip(*parts))
+    full = [ms for g, ms in gc_pauses if g == 2]
+    print(f"{label}: garbage collector over the run: {len(gc_pauses)} "
+          f"passes, {sum(ms for _, ms in gc_pauses):.1f} ms in all; "
+          f"{len(full)} of the oldest generation, max "
+          f"{max(full, default=0):.1f} ms, each "
+          f"{[round(x, 1) for x in full]}", flush=True)
+    big = [w for w, r in zip(during, res) if r >= 1024]
+    small = [w for w, r in zip(during, res) if r < 1024]
+    print(f"{label}: churn windows, submit (tokenize, launches) p50/max "
+          f"{pct(sub, 50):.3f}/{max(sub):.3f} ms, finish (sync, expand, "
+          f"overlay) p50/max {pct(fin, 50):.3f}/{max(fin):.3f} ms; "
+          f"residual p50/max {pct(res, 50):.0f}/{max(res)}, folded p50 "
+          f"{pct(fold, 50):.0f}; window p50 with residual >= 1024: "
+          f"{pct(big, 50):.3f} ms ({len(big)} windows), below: "
+          f"{pct(small, 50):.3f} ms ({len(small)}); matched fids a window "
+          f"p50 {pct(fids, 50):.0f}; after a full rebuild (no delta tiers) "
+          f"window p50/max {pct(based, 50):.3f}/{max(based):.3f} ms "
+          f"[{card}]", flush=True)
+    slow_w = sorted(zip(during, parts), key=lambda e: e[0])[-3:]
+    slow_i = sorted(zip(ins, ins_flags), key=lambda e: e[0])[-3:]
+    print(f"{label}: slowest churn windows (ms; submit, finish, residual, "
+          f"folded, fids): {[(round(w, 3), *(round(x, 3) for x in p[:2]), *p[2:]) for w, p in slow_w]}; "
+          f"slowest insert_many calls (ms; building, folding before and "
+          f"after): {[(round(t, 3), *f) for t, f in slow_i]}", flush=True)
+    out = {
+        "folds": c["folds"], "rebuilds": c["rebuilds"],
+        "daut_k1": c["daut_windows"], "clip_reruns": c["clip_reruns"],
+        "insert_ms": [pct(ins, 50), pct(ins, 99), max(ins)],
+        "window_before_ms": [pct(before, 50), pct(before, 99), max(before)],
+        "window_during_ms": [pct(during, 50), pct(during, 99), max(during)],
+        "windows": len(before) + len(during), "stats": stats,
+        "window_rebuilt_ms": [pct(based, 50), pct(based, 99), max(based)],
+        "submit_p50_ms": pct(sub, 50), "finish_p50_ms": pct(fin, 50),
+        "residual_max": max(res), "fids_p50": pct(fids, 50),
+        "gc_gen2_ms": full,
+    }
+    print(f"{label}: {n_inserts} wildcard inserts in insert_many batches of "
+          f"{CHURN_BATCH}, 1 in 8 deleted again, {out['windows']} windows of "
+          f"4096 topics equal the host trie; folds {out['folds']}, rebuilds "
+          f"{out['rebuilds']}, K1 launches on the delta automaton "
+          f"{out['daut_k1']}, clip reruns {out['clip_reruns']}; insert_many "
+          f"p50/p99/max {out['insert_ms'][0]:.3f}/{out['insert_ms'][1]:.3f}/"
+          f"{out['insert_ms'][2]:.3f} ms; window p50/p99/max before churn "
+          f"{'/'.join(f'{x:.3f}' for x in out['window_before_ms'])} ms, "
+          f"during {'/'.join(f'{x:.3f}' for x in out['window_during_ms'])} "
+          f"ms; index {out['stats']}", flush=True)
+    return out
+
+
+def churn_events(label, prof) -> list:
+    ev = [(e["kind"], e["dur_ms"], e.get("n_filters", e.get("n_new")))
+          for e in prof.events(limit=256) if e["kind"] != "upload"]
+    print(f"  {label} engine events (kind, ms, filters): {ev}", flush=True)
+    return ev
+
+
+def settle(eng, label) -> None:
+    """Join the engine's builder and fold threads (bounded)."""
+    for th in (eng._build_thread, eng._fold_thread):
+        if th is not None:
+            th.join(300)
+            if th.is_alive():
+                fail(f"{label}: a builder thread did not finish")
+
+
+def load_filters(eng, filters, label) -> None:
+    """The 1M filters into ``eng`` in one `insert_many`, built
+    synchronously before the churn.  (With the background rebuild on,
+    that one call would start a build and, since the whole delta is
+    residual, a fold of all 1M filters, discarded at the swap but
+    leaving the delta automaton's sticky capacity class at the 1M
+    build's size: the churn would then fold into 131,072 nodes, not
+    4,096.)"""
+    from emqx_tpu_torch.observability import Profiler
+
+    t0 = time.perf_counter()
+    background, eng.background_rebuild = eng.background_rebuild, False
+    eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    if eng._delta:
+        eng.rebuild()
+    eng.background_rebuild = background
+    settle(eng, label)
+    eng.profiler = Profiler()
+    print(f"{label}: {len(filters)} filters built in "
+          f"{time.perf_counter() - t0:.1f} s; thresholds rebuild "
+          f"{eng.rebuild_threshold}, fold {eng.delta_aut_threshold}, factor "
+          f"{eng.delta_fold_factor}", flush=True)
+
+
+def churn_engine(filters, background: bool):
+    """A MatchEngine on the card with the 1M filters, built, at the
+    default thresholds."""
+    from emqx_tpu_torch.engine import MatchEngine
+
+    eng = MatchEngine(background_rebuild=background)
+    load_filters(eng, filters,
+                 f"churn engine (background_rebuild={background})")
+    return eng
+
+
+def churn_k1(card, log, f, m) -> dict:
+    """K1 on the delta automaton at the median launch of the churn run
+    (by its distinct topics), and K2 (the clip rerun) on the same
+    window: each held against its plain version, exactly, then timed."""
+    import types
+
+    import torch
+
+    from emqx_tpu_torch.ops import _kernels
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    entry = sorted(log, key=lambda e: e[5])[(len(log) - 1) // 2]
+    tab, flat, _, _, batch, n_uniq, _ = entry
+    tabs = (tab.fp_rows, tab.node_rows, tab.salt)
+    c_cap = flat.shape[0]
+    b, levels = batch[0].shape
+    label = (f"match_batch_compact (delta automaton, churn, median launch) "
+             f"B={b} N={tab.node_rows.shape[0]} L={levels}")
+    exact_equal(label, mk.match_batch_compact(
+        *tabs, *batch, f_width=f, m_cap=m, c_cap=c_cap),
+        mk.match_batch_compact_plain(*tabs, *batch, f_width=f, m_cap=m,
+                                     c_cap=c_cap))
+    exact_equal(label.replace("match_batch_compact", "match_batch"),
+                mk.match_batch(*tabs, *batch, f_width=f, m_cap=m),
+                mk.match_batch_plain(*tabs, *batch, f_width=f, m_cap=m))
+    dev = batch[0].device
+    outs = (torch.empty(c_cap, dtype=torch.int32, device=dev),
+            torch.empty(b, dtype=torch.int16, device=dev),
+            torch.empty(1, dtype=torch.int32, device=dev),
+            torch.empty(_kernels.compact_scratch_words(b, levels, f, m),
+                        dtype=torch.int64, device=dev))
+
+    def bare():
+        _kernels.match_compact(*tabs, *batch, f, m, c_cap, *outs)
+
+    def plain():
+        mk.match_batch_compact_plain(*tabs, *batch, f_width=f, m_cap=m,
+                                     c_cap=c_cap)
+
+    ms = cuda_ms(bare, 50, 10)
+    dev_ms = cuda_ms(bare, 50, 10, queued=True)
+    plain_ms = cuda_ms(plain, 3, 1)
+    n_bytes, ops, *_ = match_bytes(types.SimpleNamespace(
+        fp_rows=tabs[0], node_rows=tabs[1], salt=tabs[2]), batch, f,
+        c_cap=c_cap, m_cap=m)
+    b_ms, b_by = bound(n_bytes, ops)
+    print(f"parity {label}: K1 and K2 (the clip rerun) equal their plain "
+          f"versions ({len(log)} launches on the delta automaton, "
+          f"{n_uniq} distinct topics at the median)", flush=True)
+    print(f"time {label} F={f} M={m}: kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+          f"by {b_by} ({n_bytes} B; {ops} ops), no library call [{card}]",
+          flush=True)
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, launches=len(log), b=int(b),
+                nodes=int(tab.node_rows.shape[0]), levels=int(levels))
+
+
+def phase_churn(results, filters) -> None:
+    """The churn path at the broker load's size: 1M background filters,
+    the default thresholds, 20,000 wildcard inserts interleaved with
+    windows, with the background rebuild (the broker's default) and
+    then, for its insert stall, the synchronous one.  The launches of
+    the background run are counted with the counts zeroed just before
+    it."""
+    import torch
+
+    from emqx_tpu_torch import workload as W
+    from emqx_tpu_torch.ops import match_kernel as mk
+    from emqx_tpu_torch.parallel.sharded import ShardedMatchEngine, make_mesh
+
+    phase("churn")
+    card = results["card"]
+    pops = W.populations(len(filters), 8)
+    out = results["churn"] = {}
+    eng = churn_engine(filters, True)
+    log = []
+    mk.reset_launches()  # counts of the churn path start here
+    out["background"] = churn_run(eng, pops, CHURN_INSERTS,
+                                  "churn (background rebuild)", card, log)
+    launches = mk.launches()
+    out["background"]["events"] = churn_events("churn (background)",
+                                               eng.profiler)
+    if out["background"]["folds"] < 1 or out["background"]["rebuilds"] < 1:
+        fail(f"churn: no fold or no rebuild: {out['background']}")
+    if not log or launches["match_batch_compact"] < len(log):
+        fail(f"churn: K1 on the delta automaton launched {len(log)} times "
+             f"({launches})")
+    out["launches"] = launches
+    results["kernels"]["match_batch_compact"]["churn"] = churn_k1(
+        card, log, eng.f_width, eng.m_cap)
+    del eng, log
+    eng = churn_engine(filters, False)
+    out["synchronous"] = churn_run(eng, pops, CHURN_INSERTS,
+                                   "churn (synchronous rebuild)", card)
+    out["synchronous"]["events"] = churn_events("churn (synchronous)",
+                                                eng.profiler)
+    del eng
+    print(f"churn insert_many stall (max): background rebuild "
+          f"{out['background']['insert_ms'][2]:.3f} ms, synchronous "
+          f"{out['synchronous']['insert_ms'][2]:.3f} ms; p99 "
+          f"{out['background']['insert_ms'][1]:.3f} against "
+          f"{out['synchronous']['insert_ms'][1]:.3f} ms [{card}]",
+          flush=True)
+    meshes = [("4 shards of one card", make_mesh(
+        devices=[torch.device("cuda", 0)] * N_SHARDS, sub=N_SHARDS))]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(("2 cards", make_mesh(2, sub=2)))
+    else:
+        print("sharded churn, multi-card: skipped, 1 card", flush=True)
+    for what, mesh in meshes:
+        eng = ShardedMatchEngine(mesh, background_rebuild=True)
+        load_filters(eng, filters, f"sharded churn engine ({what})")
+        out[f"sharded, {what}"] = churn_run(
+            eng, pops, SHARDED_CHURN_INSERTS,
+            f"sharded churn ({what}, background rebuild)", card)
+        del eng
+
+
 def phase_engine(run, filters):
     import numpy as np
 
@@ -2347,10 +2714,13 @@ def phase_native_times(results, eng, py, filters, windows) -> None:
           f"{out['trie_window_ms'][0]:.3f} ms, HostTrie "
           f"{out['trie_window_ms'][1]:.3f} ms [{card}]", flush=True)
     # churn below the rebuild threshold: a residual the window overlays
+    # (matched on the host: no fold into the delta automaton here; the
+    # churn phase drives that)
     rng = np.random.default_rng(5)
     churn = [(f"vehicles/v{int(v)}/sensors/+", f"churn{k}")
              for k, v in enumerate(rng.integers(0, 1000, 2000))]
     for e in (eng, py):
+        e.delta_aut_threshold = 10**9
         e.insert_many(churn)
         if len(e._delta) != len(churn):
             fail("native times: the churn rebuilt the automaton")
@@ -2455,6 +2825,7 @@ def main() -> None:
     filters, _pops = W.make_filters(1_000_000, 8)
     phase_engine(results, filters)
     phase_sharded_engine(results, filters)
+    phase_churn(results, filters)
     phase_broker(results, filters)
     phase_main_shapes(results)
 
@@ -2470,10 +2841,11 @@ def main() -> None:
             "wrapper_ms": k["wrapper_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
-            **{x: k[x] for x in ("main_path", "stress", "empty_launch_ms")
-               if x in k},
+            **{x: k[x] for x in ("main_path", "churn", "stress",
+                                 "empty_launch_ms") if x in k},
         })
     print(f"native summary: {json.dumps(results['native'])}", flush=True)
+    print(f"churn summary: {json.dumps(results['churn'])}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

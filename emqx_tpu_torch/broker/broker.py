@@ -90,6 +90,7 @@ class Broker:
             rebuild_threshold=eng.rebuild_threshold,
             device=device,
             native=native,
+            background_rebuild=eng.background_rebuild,
         ))
         prof = self.config.profiler
         self.profiler = Profiler(

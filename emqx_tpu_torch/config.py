@@ -41,6 +41,9 @@ class BrokerEngineConfig:
     f_width: int = 16
     m_cap: int = 128
     rebuild_threshold: int = 4096
+    # rebuild the base automaton in a builder thread, off the insert
+    # path (the delta tiers keep results exact meanwhile)
+    background_rebuild: bool = True
     batch_window_ms: float = 1.0  # micro-batch accumulation window
     batch_max: int = 4096
     # windows matched concurrently: the collector fills window N+1..N+k

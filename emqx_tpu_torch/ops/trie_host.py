@@ -77,6 +77,11 @@ class HostTrie:
         self._seqs[fid] = self._seq
         return self._seq
 
+    def insert_batch(self, items) -> List[int]:
+        """Insert ``(flt, fid, ws)`` triples (the interface twin of
+        `NativeTrie.insert_batch`); returns the per-item sequence tags."""
+        return [self.insert(flt, fid, ws=ws) for flt, fid, ws in items]
+
     def delete_id(self, fid: Hashable) -> bool:
         ws = self._filters.pop(fid, None)
         if ws is None:

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import topic as T
-from ..engine import MatchEngine, make_fid_arr
+from ..engine import MatchEngine, _EncArena, make_fid_arr
 from ..ops.automaton import (
     Automaton, assemble_automaton, encode_filters, expand_codes_host,
 )
@@ -118,6 +118,10 @@ class ShardedIndex:
     tables: Tuple[np.ndarray, ...]
     max_levels: int
     kernel_levels: int
+    # filter positions of each shard as assembled: an engine's encode
+    # arena goes on appending to a shard's filter list while this index
+    # serves, so the offsets must not follow the list
+    sizes: Tuple[int, ...]
 
     @property
     def n_shards(self) -> int:
@@ -132,9 +136,9 @@ class ShardedIndex:
         """Global filter-position offset of each shard (shard-local
         positions + offset = position into the concatenated fid list)."""
         out, acc = [], 0
-        for a in self.shards:
+        for n in self.sizes:
             out.append(acc)
-            acc += len(a.filters)
+            acc += n
         return out
 
 
@@ -194,6 +198,7 @@ def assemble_sharded(
         tables=(ht, nrows, salts),
         max_levels=max_levels,
         kernel_levels=max(a.kernel_levels for a in shards),
+        sizes=tuple(len(inp[3]) for inp in shard_inputs),
     )
 
 
@@ -282,14 +287,16 @@ def sharded_match(
 
 class ShardedMatchEngine(MatchEngine):
     """The mutable `MatchEngine` with its base automaton partitioned
-    over the mesh's ``sub`` axis and matched by `sharded_match`: the
-    same insert/delete/residual/overlay semantics.
+    over the mesh's ``sub`` axis and matched by `sharded_match` (K5):
+    the same insert/delete/residual/overlay semantics, the same delta
+    automaton (one automaton on ``device``, matched by K1 beside K5)
+    and the same background rebuild, with one encode arena per shard.
 
     ``index``/``tdict`` may seed the engine with a pre-built
     `ShardedIndex`; its filters re-enter through `insert` and one
     rebuild re-shards them with this engine's own `TokenDict`.
     ``device`` (default: the mesh's first device) runs the rest of the
-    engine's device work (decide, rules)."""
+    engine's device work (the delta automaton, decide, rules)."""
 
     def __init__(
         self,
@@ -302,6 +309,7 @@ class ShardedMatchEngine(MatchEngine):
         rebuild_threshold: int = 4096,
         device=None,
         native: bool = True,
+        background_rebuild: bool = False,
     ) -> None:
         super().__init__(
             max_levels=index.max_levels if index is not None else max_levels,
@@ -310,6 +318,7 @@ class ShardedMatchEngine(MatchEngine):
             rebuild_threshold=rebuild_threshold,
             device=mesh.devices[0, 0] if device is None else device,
             native=native,
+            background_rebuild=background_rebuild,
         )
         self.mesh = mesh
         # sticky geometry classes (never shrink): rebuilds keep one
@@ -336,59 +345,61 @@ class ShardedMatchEngine(MatchEngine):
                 self.insert(T.join(ws), fid)
         self.rebuild()
 
-    def _build(self, filters):
-        """Partition the wildcard filters by `shard_of`, assemble them
-        with the sticky geometry and place the tables on the mesh; the
-        fid array is concatenated in shard order."""
+    def _build(self, inputs, hash_buckets: int = 0):
+        """The incremental sharded build: one `_EncArena` per shard,
+        `shard_of` routing each delta item and tombstone to its arena,
+        so only the delta is encoded; the shards are assembled with the
+        sticky geometry and placed on the mesh, each card's share on its
+        side stream.  The fid array is concatenated in shard order."""
         n_shards = self.mesh.shape["sub"]
         parts: List[List] = [[] for _ in range(n_shards)]
-        for fid, ws in filters:
+        drops: List[List] = [[] for _ in range(n_shards)]
+        for fid, ws in inputs[1]:
             parts[shard_of(fid, n_shards)].append((fid, ws))
+        with self._enc_lock:
+            if inputs[0] == "full":
+                arenas = [_EncArena(self.max_levels, self.native)
+                          for _ in range(n_shards)]
+            else:
+                arenas = self._build_cache
+                for fid in inputs[2]:
+                    drops[shard_of(fid, n_shards)].append(fid)
+            for arena, items, dropped in zip(arenas, parts, drops):
+                arena.apply(items, dropped, self._tdict)
+            views = [a.views() for a in arenas]
+            fid_views = [a.fid_view() for a in arenas]
+            n_live = sum(len(a.rows) for a in arenas)
         index = assemble_sharded(
-            [encode_filters(p, self._tdict, self.max_levels,
-                            native=self.native) for p in parts],
-            self.max_levels,
+            views, self.max_levels,
             min_buckets=self._shard_min_buckets,
             min_nodes=self._shard_min_nodes,
             native=self.native,
         )
         self._shard_min_buckets = index.tables[0].shape[1]
         self._shard_min_nodes = index.tables[1].shape[1]
+        if all(v.dtype != object for v in fid_views):
+            fid_arr = np.concatenate(fid_views)
+        else:
+            fid_arr = make_fid_arr([f for v in fid_views for f in v.tolist()])
         t0 = time.perf_counter()
-        tables = sharded_tables_from_reference(*index.tables, self.mesh)
+        tables = sharded_tables_from_reference(*index.tables, self.mesh,
+                                               self._streams)
         self._event("upload", t0, bytes=index.tables[0].nbytes
                     + index.tables[1].nbytes + index.tables[2].nbytes)
-        return index, tables, make_fid_arr(
-            [fid for p in parts for fid, _ in p])
+        return index, tables, fid_arr, n_live, arenas
 
-    def match_batch_submit(self, topics: Sequence[str]):
-        """Match the window now (the sharded launch and its downloads
-        are synchronous) and hand the result through submit/finish."""
-        t0 = time.perf_counter()
-        words = [T.words(t) for t in topics]
-        with self._mlock:
-            snap = self._snapshot()
-            index: Optional[ShardedIndex] = snap[0]
-            if index is not None and index.n_nodes > 1:
-                idx, mat, lens, dol = self._encode_rows(
-                    words, index.kernel_levels)
-                enc = mat[idx], lens[idx], dol[idx]
-        self._stage("tokenize", t0)
-        if index is None or index.n_nodes <= 1:
-            return ("host", self._match_host_window(words))
-        rows, gpos, ovf = self._match_encoded(snap, *enc)
-        self.counters["dev_windows"] += 1
-        self.counters["rows"] += len(words)
-        self.counters["ovf_rows"] += int(ovf.sum())
-        with self._mlock:
-            return ("done", self._overlay(topics, words, rows, gpos, ovf,
-                                          snap))
+    def _encode_base(self, snap, words):
+        """The window's rows at the index's levels (not deduplicated)."""
+        idx, mat, lens, dol = self._encode_rows(words, snap[0].kernel_levels)
+        return mat[idx], lens[idx], dol[idx]
 
-    def _match_encoded(self, snap, tokens, lengths, dollar):
-        """Launch K5 on the encoded window; returns ``(rows, global
-        filter positions, overflowed rows)``."""
+    def _flat_submit(self, snap, enc):
+        """Launch K5 on the window and complete it at once (the sharded
+        launch and its downloads are synchronous): ``("done", (rows,
+        global filter positions, overflowed rows))``."""
         index: ShardedIndex = snap[0]
         tables: ShardedTables = snap[1]
+        tokens, lengths, dollar = enc
         # pad the batch to a power of two (at least 16), then to a
         # pub-axis multiple: a bounded set of shapes
         b = tokens.shape[0]
@@ -418,4 +429,4 @@ class ShardedMatchEngine(MatchEngine):
         rows = np.concatenate(rows_all)
         gpos = np.concatenate(gpos_all)
         order = np.argsort(rows, kind="stable")
-        return rows[order], gpos[order], ovf_rows
+        return ("done", (rows[order], gpos[order], ovf_rows))

@@ -13,7 +13,8 @@ by either package.
 index (``ShardedIndex.tables`` of either package) on a mesh
 (`parallel.sharded.Mesh`): each device gets the slices of the shards
 of its block stacked there, as `ops.match_kernel.sharded_match_local`
-takes them.
+takes them.  Both upload through `put_arrays`, which the engines' fold
+and builder threads give a side stream of the card (`UploadStreams`).
 
 `rules_program_from_reference` and `columns_from_reference` do the same
 for the rule engine: a stacked WHERE program (`StackedRules` arrays of
@@ -64,8 +65,61 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+class UploadStreams:
+    """One side stream per card for table uploads made off the window
+    path (the engines' builder and fold threads), so that a large
+    upload does not queue in front of the next window's launch on the
+    default stream."""
+
+    def __init__(self) -> None:
+        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+    def get(self, device: torch.device) -> Optional["torch.cuda.Stream"]:
+        if device.type != "cuda":
+            return None
+        s = self._streams.get(device)
+        if s is None:
+            s = self._streams.setdefault(device, torch.cuda.Stream(device))
+        return s
+
+
+def put_arrays(arrays: Sequence[np.ndarray], device: torch.device,
+               stream=None) -> List[torch.Tensor]:
+    """``arrays`` (C-contiguous numpy) as tensors on ``device``.  With a
+    side ``stream`` on a card: packed into one pinned staging buffer,
+    copied up on that stream, each tensor recorded on the card's default
+    stream (where windows read it, so that the caching allocator hands
+    its blocks out again only after the last window that read them) and
+    the stream synchronised before returning, so a caller may publish
+    the tensors to any thread.  Without a stream: a plain copy on the
+    current stream; on the CPU the tensors share the arrays' memory."""
+    if device.type != "cuda" or stream is None:
+        return [torch.from_numpy(a).to(device) for a in arrays]
+    offs, size = [], 0
+    for a in arrays:
+        offs.append(size)
+        size += -(-a.nbytes // 256) * 256
+    host = torch.empty(max(size, 1), dtype=torch.uint8, pin_memory=True)
+    hbuf = host.numpy()
+    for a, o in zip(arrays, offs):
+        hbuf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    consumer = torch.cuda.default_stream(device)
+    out = []
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        for a, o in zip(arrays, offs):
+            src = host[o:o + a.nbytes].view(_TORCH_DTYPE[a.dtype]).view(
+                a.shape)
+            t = torch.empty(a.shape, dtype=src.dtype, device=device)
+            t.copy_(src, non_blocking=True)
+            t.record_stream(consumer)
+            out.append(t)
+    stream.synchronize()
+    return out
+
+
 def tables_from_reference(fp_rows, node_rows, salt, code_off, code_idx,
-                          device) -> DeviceTables:
+                          device, stream=None) -> DeviceTables:
+    """``stream``: a side stream for the upload (`put_arrays`)."""
     fp = np.ascontiguousarray(fp_rows, dtype=np.int32)
     nodes = np.ascontiguousarray(node_rows, dtype=np.int32)
     nb = fp.shape[0]
@@ -74,9 +128,10 @@ def tables_from_reference(fp_rows, node_rows, salt, code_off, code_idx,
     if nodes.ndim != 2 or nodes.shape[1] != 8 or nodes.shape[0] < 1:
         raise ValueError("node_rows must be [N>=1, 8]")
     dev = resolve_device(device)
+    fp_t, nodes_t = put_arrays((fp, nodes), dev, stream)
     return DeviceTables(
-        fp_rows=torch.from_numpy(fp).to(dev),
-        node_rows=torch.from_numpy(nodes).to(dev),
+        fp_rows=fp_t,
+        node_rows=nodes_t,
         salt=int(salt),
         code_off=np.asarray(code_off),
         code_idx=np.asarray(code_idx),
@@ -93,10 +148,12 @@ class ShardedTables(NamedTuple):
 
 
 def sharded_tables_from_reference(fp_rows, node_rows, salts,
-                                  mesh) -> ShardedTables:
+                                  mesh, streams=None) -> ShardedTables:
     """Place stacked shard tables (``fp_rows [K, nb, 2*BUCKET]``,
     ``node_rows [K, N, 8]``, ``salts [K]`` uint32) on ``mesh``: each
-    device gets the shards of its block, stacked."""
+    device gets the shards of its block, stacked.  ``streams`` (an
+    `UploadStreams`) uploads each card's share on that card's side
+    stream (`put_arrays`)."""
     fp = np.ascontiguousarray(fp_rows, dtype=np.int32)
     nodes = np.ascontiguousarray(node_rows, dtype=np.int32)
     sl = np.asarray(salts)
@@ -117,12 +174,9 @@ def sharded_tables_from_reference(fp_rows, node_rows, salts,
         raise ValueError(f"salts must be [{k}], got {sl.shape}")
     out = ShardedTables({}, {}, {})
     for dev, shards, _ in mesh.blocks:
-        out.fp_rows[dev] = torch.from_numpy(
-            np.ascontiguousarray(fp[shards])).to(dev)
-        out.node_rows[dev] = torch.from_numpy(
-            np.ascontiguousarray(nodes[shards])).to(dev)
-        out.salts[dev] = torch.from_numpy(
-            np.ascontiguousarray(sl[shards])).to(dev)
+        out.fp_rows[dev], out.node_rows[dev], out.salts[dev] = put_arrays(
+            [np.ascontiguousarray(a[shards]) for a in (fp, nodes, sl)],
+            dev, None if streams is None else streams.get(dev))
     return out
 
 
@@ -261,6 +315,7 @@ def predicate_program_from_code(code, device) -> PredicateDeviceCode:
 _TORCH_DTYPE = {np.dtype(d): t for d, t in (
     (np.float64, torch.float64), (np.int32, torch.int32),
     (np.int8, torch.int8), (np.uint8, torch.uint8), (np.bool_, torch.bool),
+    (np.uint32, torch.uint32),
 )}
 
 

@@ -295,6 +295,144 @@ def test_engine_on_card_equals_host_trie(cuda):
     assert mk.match_batch_compact.launches >= 1
 
 
+
+def _churn_topics_delta_world(eng):
+    """A base of unrelated filters, then a delta automaton (fold pinned
+    synchronous) of many distinct shapes over a/b/c, so that each of
+    the window's topics matches several codes of the delta automaton
+    and its compact buffer clips."""
+    trie = HostTrie()
+    for i in range(300):
+        eng.insert(f"base/{i % 17}/+/{i}", i)
+        trie.insert(f"base/{i % 17}/+/{i}", i)
+    eng.rebuild()
+    shapes = ["a/+/+", "+/b/+", "a/b/+", "+/+/c", "a/#", "#", "+/#",
+              "a/+/c", "+/b/c", "a/b/#"]
+    for k in range(400):
+        flt = shapes[k % len(shapes)].replace("a", f"a{k % 12}")
+        eng.insert(flt, 1000 + k)
+        trie.insert(flt, 1000 + k)
+    names = [f"a{i % 12}/b/c" for i in range(40)] + ["base/3/x/3", "zz"]
+    return trie, names
+
+
+@pytest.mark.cuda
+def test_delta_automaton_k1_and_clip_rerun_equal_plain(cuda):
+    """K1 on the delta automaton (padded to 4,096 nodes and 2,048
+    buckets, walked at max_levels + 1), with the engine's clip rerun on
+    K2, against the plain versions and the host trie."""
+    eng = MatchEngine(max_levels=8, f_width=8, m_cap=64,
+                      rebuild_threshold=10**9, delta_aut_threshold=16)
+    eng._fold_async = False
+    trie, names = _churn_topics_delta_world(eng)
+    assert eng._daut is not None and eng.counters["folds"] >= 1
+    tab = eng._dtables
+    assert tab.node_rows.shape[0] >= 4096 and tab.fp_rows.shape[0] >= 2048
+    from emqx_tpu_torch import topic as T
+
+    tokens, lengths, dollar, _, _ = eng._encode_window(
+        [T.words(t) for t in names], eng._daut.kernel_levels)
+    batch = [torch.from_numpy(a).to(cuda) for a in (tokens, lengths, dollar)]
+    args = (tab.fp_rows, tab.node_rows, tab.salt, *batch)
+    for c_cap in (8, 4096):
+        got = mk.match_batch_compact(*args, f_width=8, m_cap=64, c_cap=c_cap)
+        want = mk.match_batch_compact_plain(*args, f_width=8, m_cap=64,
+                                            c_cap=c_cap)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
+    for g, w in zip(mk.match_batch(*args, f_width=8, m_cap=64),
+                    mk.match_batch_plain(*args, f_width=8, m_cap=64)):
+        assert torch.equal(g.cpu(), w.cpu())
+    mk.reset_launches()
+    clips = eng.counters["clip_reruns"]
+    for t, g in zip(names, eng.match_batch(names)):
+        assert g == trie.match(t), t
+    assert eng.counters["daut_windows"] >= 1
+    assert eng.counters["clip_reruns"] > clips
+    assert mk.match_batch.launches >= 1
+    assert mk.match_batch_compact.launches == 2  # the delta, the base
+
+
+@pytest.mark.cuda
+def test_background_swap_under_a_running_window(cuda):
+    """A window submitted on the old base finishes after a background
+    build was swapped in by the next window (whose snapshot is the new
+    base); both equal the host trie, and the old tables stay valid for
+    the window that holds them."""
+    eng = MatchEngine(max_levels=8, f_width=8, m_cap=64,
+                      rebuild_threshold=256, background_rebuild=True)
+    trie = HostTrie()
+    for i in range(2000):
+        eng.insert(f"s/{i % 31}/+/{i % 5}", i)
+        trie.insert(f"s/{i % 31}/+/{i % 5}", i)
+    eng.rebuild()
+    names = [f"s/{i % 31}/x/{i % 5}" for i in range(500)]
+    first = eng.match_batch_submit(names)
+    old = eng._tables
+    pairs = [(f"n/{i % 13}/+", 10**6 + i) for i in range(600)]
+    eng.insert_many(pairs)
+    for flt, fid in pairs:
+        trie.insert(flt, fid)
+    eng._build_thread.join(60)
+    assert not eng._build_thread.is_alive()
+    later = names[:100] + [f"n/{i}/y" for i in range(13)]
+    second = eng.match_batch_submit(later)  # polls the swap
+    assert eng._tables is not old and eng.counters["rebuilds"] >= 2
+    del old
+    torch.cuda.empty_cache()
+    for t, g in zip(later, eng.match_batch_finish(second)):
+        assert g == trie.match(t), t
+    for t, g in zip(names, eng.match_batch_finish(first)):
+        assert g == trie.match(t), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cards", [1, 2])
+def test_sharded_churn_on_cards_equals_host_trie(cuda, n_cards):
+    """The sharded engine's churn path on one card (4 shards) and on two
+    (one shard a card): background builds upload each card's share
+    from the builder thread on that card's side stream, folds put the
+    delta automaton on the first card, and every window equals the host
+    trie."""
+    from emqx_tpu_torch import topic as T
+    from emqx_tpu_torch.parallel import sharded as sh
+
+    if torch.cuda.device_count() < n_cards:
+        pytest.skip(f"needs {n_cards} CUDA devices")
+    mesh = (sh.make_mesh(devices=[cuda] * 4, sub=4) if n_cards == 1
+            else sh.make_mesh(2, sub=2))
+    eng = sh.ShardedMatchEngine(mesh, max_levels=8, f_width=8, m_cap=64,
+                                rebuild_threshold=256,
+                                background_rebuild=True)
+    eng.delta_aut_threshold = 64
+    filters, topics = _world(5, 1500, 400)
+    filters = [(fid, ws) for fid, ws in filters if "/".join(ws)]
+    eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    eng.rebuild()
+    names = ["/".join(t) for t in topics if t] + [
+        f"c/{i % 9}/x" for i in range(50)]
+
+    def check():
+        for t, g in zip(names, eng.match_batch(names)):
+            assert g == eng.match_host(T.words(t)), t
+
+    check()
+    for k in range(12):
+        batch = [(f"c/{i % 9}/+", 10**6 + k * 64 + i) for i in range(64)]
+        eng.insert_many(batch)
+        for _, fid in batch[::8]:
+            assert eng.delete(fid)
+        check()
+    for t in (eng._build_thread, eng._fold_thread):
+        if t is not None:
+            t.join(60)
+            assert not t.is_alive()
+    check()
+    c = eng.counters
+    assert c["folds"] >= 1 and c["rebuilds"] >= 3 and c["daut_windows"] >= 1
+    for dev, _, _ in mesh.blocks:
+        assert eng._tables.fp_rows[dev].device == dev
+
 # ------------------------------------------------------- rules (K4)
 
 RULE_CORPUS = [

@@ -16,6 +16,7 @@ import sys
 import emqx_tpu_torch
 import emqx_tpu_torch.engine
 import emqx_tpu_torch.state
+import emqx_tpu_torch.tp
 import emqx_tpu_torch.router
 import emqx_tpu_torch.broker.broker
 import emqx_tpu_torch.broker.channel
