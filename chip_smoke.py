@@ -12,7 +12,8 @@ the match engine with 1M subscriptions, the sharded match engine with
 the same subscriptions split over 4 shards of one card, and the broker
 — over TCP, as a user would — with 1M background subscriptions: first
 the publish path, then the publish path with config 4's 100 rules,
-whose kernel launches it counts.  Phases:
+whose kernel launches it counts, then shared subscriptions and the
+retained store.  Phases:
 
   device          the card's name and power limit (nvidia-smi)
   build           nvcc of the kernel sources, with its seconds, and each
@@ -80,6 +81,25 @@ whose kernel launches it counts.  Phases:
   main-path shapes  the N of every K3 launch of the broker run and the
                   (R, W) of every K4 launch of the rules broker run,
                   with K3 and K4 timed on their median launch's window
+  shared broker   the broker's world with $share groups over TCP: g1 (4
+                  members on load/+/+), g2 (3 on load/#) and a direct
+                  load/# subscriber, round_robin, 4,000 QoS 1 messages:
+                  exactly one member of each group and the direct
+                  subscriber take each message, the round_robin split,
+                  K1 and K3 launched (K3 once a decide window); then a g1
+                  member leaves and 256 more reach the other three; then
+                  a seeded $share script in process on the card against
+                  the CPU under the four order-free strategies, byte for
+                  byte
+  retained        100,000 retained last-known-state messages (one per
+                  device of config 3's populations) stored through
+                  publish_many windows of 4,096 with the 1M filters (K1
+                  each window); replayed over TCP to 16 MQTT 5
+                  subscribers, each replay equal to a brute-force
+                  topic.match and every PUBLISH with retain=1;
+                  retain_handling 1 and 2 and $share replay nothing; 10%
+                  deleted by empty retained publishes and replayed again;
+                  Retainer.match p50/p99 per filter class
   kernels         one JSON line per kernel (launches from the runs of
                   each kernel's path)
 
@@ -198,15 +218,17 @@ def exact_equal(name: str, got, want) -> float:
 
 
 class Client:
-    """Minimal asyncio MQTT 3.1.1 client over the port's codec."""
+    """Minimal asyncio MQTT client over the port's codec (3.1.1, or 5.0
+    with ``version=5``)."""
 
-    def __init__(self, port: int, client_id: str) -> None:
+    def __init__(self, port: int, client_id: str, version: int = 4) -> None:
         from emqx_tpu_torch.codec import mqtt as C
 
         self.C = C
         self.port = port
         self.client_id = client_id
-        self.parser = C.StreamParser(version=C.MQTT_V4)
+        self.version = version
+        self.parser = C.StreamParser(version=version)
         self.inbox: asyncio.Queue = asyncio.Queue()
         self.raw = bytearray()  # every byte the broker sent
         self.reader = self.writer = None
@@ -218,7 +240,7 @@ class Client:
             "127.0.0.1", self.port
         )
         self._pump = asyncio.get_running_loop().create_task(self._read())
-        self.send(C.Connect(client_id=self.client_id, proto_ver=C.MQTT_V4))
+        self.send(C.Connect(client_id=self.client_id, proto_ver=self.version))
         ack = await self.expect(C.CONNACK)
         if ack.reason_code != 0:
             fail(f"CONNACK {ack.reason_code} for {self.client_id}")
@@ -234,7 +256,7 @@ class Client:
                 await self.inbox.put(pkt)
 
     def send(self, pkt) -> None:
-        self.writer.write(self.C.serialize(pkt, self.C.MQTT_V4))
+        self.writer.write(self.C.serialize(pkt, self.version))
 
     async def expect(self, ptype: int, timeout: float = 30.0):
         pkt = await asyncio.wait_for(self.inbox.get(), timeout)
@@ -243,13 +265,19 @@ class Client:
                  f"got {pkt!r}")
         return pkt
 
-    async def subscribe(self, flt: str, qos: int) -> None:
+    async def subscribe(self, flt: str, qos: int, rh: int = 0) -> None:
         C = self.C
         self.send(C.Subscribe(packet_id=1, subscriptions=[
-            C.Subscription(topic_filter=flt, qos=qos)]))
+            C.Subscription(topic_filter=flt, qos=qos, retain_handling=rh)]))
         ack = await self.expect(C.SUBACK)
         if ack.reason_codes != [qos]:
             fail(f"SUBACK {ack.reason_codes} for {flt}")
+
+    async def quiet(self) -> None:
+        """PINGREQ, and PINGRESP as the next packet: nothing the broker
+        wrote before it (a replay, a queued delivery) is still unread."""
+        self.send(self.C.Pingreq())
+        await self.expect(self.C.PINGRESP)
 
     async def close(self) -> None:
         if self._pump is not None:
@@ -1977,6 +2005,34 @@ SUB_FILTERS = ("load/#", "load/+/#", "load/+/+", "+/+/+", "#", "+/#",
 N_PUB, N_MSG = 4, 1000
 
 
+async def publish_load(cl, p: int, n: int, k0: int = 0) -> None:
+    """Publisher ``p`` sends QoS 1 messages ``k0 .. k0 + n - 1`` on
+    ``load/p{p}/m{k % 16}``, each payload ``p:k:send time``, at most 32
+    unacknowledged, and returns when every PUBACK is in."""
+    C = cl.C
+    window = asyncio.Semaphore(32)
+    n_acked = 0
+
+    async def acks():
+        nonlocal n_acked
+        while n_acked < n:
+            pkt = await asyncio.wait_for(cl.inbox.get(), 60)
+            if pkt is None or pkt.type != C.PUBACK:
+                fail(f"pub{p}: expected PUBACK, got {pkt!r}")
+            n_acked += 1
+            window.release()
+
+    task = asyncio.get_running_loop().create_task(acks())
+    for k in range(k0, k0 + n):
+        await window.acquire()
+        payload = f"{p}:{k}:{time.perf_counter()!r}".encode()
+        cl.send(C.Publish(topic=f"load/p{p}/m{k % 16}", payload=payload,
+                          qos=1, packet_id=k % 65535 + 1))
+        if k % 32 == 0:
+            await cl.writer.drain()
+    await task
+
+
 async def broker_load(results, filters, native: bool = True,
                       main_path: bool = True) -> dict:
     """The main path: 1M background subscriptions in the engine, 8
@@ -2041,34 +2097,6 @@ async def broker_load(results, filters, native: bool = True,
                 seen[j].add(key)
                 lat.append(time.perf_counter() - float(ts))
 
-        async def produce(p, cl):
-            window = asyncio.Semaphore(32)
-            pids = itertools.count(1)
-            acked = asyncio.Event()
-            n_acked = 0
-
-            async def acks():
-                nonlocal n_acked
-                while n_acked < N_MSG:
-                    pkt = await asyncio.wait_for(cl.inbox.get(), 60)
-                    if pkt is None or pkt.type != C.PUBACK:
-                        fail(f"pub{p}: expected PUBACK, got {pkt!r}")
-                    n_acked += 1
-                    window.release()
-                acked.set()
-
-            task = asyncio.get_running_loop().create_task(acks())
-            for k in range(N_MSG):
-                await window.acquire()
-                payload = f"{p}:{k}:{time.perf_counter()!r}".encode()
-                cl.send(C.Publish(topic=f"load/p{p}/m{k % 16}",
-                                  payload=payload, qos=1,
-                                  packet_id=next(pids)))
-                if k % 32 == 0:
-                    await cl.writer.drain()
-            await acked.wait()
-            await task
-
         log = MainPathLog(eng, ("decide",))
         decides = eng.counters["decide_windows"]
         mk.reset_launches()  # counts of the main path start here
@@ -2076,7 +2104,7 @@ async def broker_load(results, filters, native: bool = True,
         try:
             await asyncio.wait_for(asyncio.gather(
                 *(consume(j, cl) for j, cl in enumerate(subs)),
-                *(produce(p, cl) for p, cl in enumerate(pubs)),
+                *(publish_load(cl, p, N_MSG) for p, cl in enumerate(pubs)),
             ), 600)
         finally:
             log.remove()
@@ -2130,9 +2158,10 @@ REPUBLISH_SQL = ('SELECT payload.v AS v, topic, clientid FROM '
 
 class Capture:
     """An in-process MQTT 3.1.1 subscriber on a broker's channel: the
-    bytes its connection would write, as the TCP client reads them."""
+    bytes its connection would write, as the TCP client reads them.
+    ``flt`` is one filter at QoS 0, or a list of ``(filter, qos)``."""
 
-    def __init__(self, broker, client_id: str, flt: str) -> None:
+    def __init__(self, broker, client_id: str, flt) -> None:
         from emqx_tpu_torch.broker.channel import Channel
         from emqx_tpu_torch.codec import mqtt as C
 
@@ -2145,7 +2174,9 @@ class Capture:
         self.ch = Channel(broker, send=send, close=lambda reason: None)
         for pkt in (C.Connect(client_id=client_id, proto_ver=C.MQTT_V4),
                     C.Subscribe(packet_id=1, subscriptions=[
-                        C.Subscription(topic_filter=flt, qos=0)])):
+                        C.Subscription(topic_filter=f, qos=q)
+                        for f, q in ([(flt, 0)] if isinstance(flt, str)
+                                     else flt)])):
             for q in C.StreamParser(version=C.MQTT_V4).feed(
                     C.serialize(pkt, C.MQTT_V4)):
                 self.ch.handle_in(q)
@@ -2404,6 +2435,453 @@ def phase_broker(results, filters):
     phase("rules broker")
     asyncio.run(rules_load(results, filters))
 
+
+
+# ------------------------------------------------- shared subscriptions
+
+SHARED_GROUPS = (("$share/g1/load/+/+", 4), ("$share/g2/load/#", 3),
+                 ("load/#", 1))  # (filter, members): two groups, one direct
+SHARED_LEAVE_MSG = 256
+ORDER_FREE = ("round_robin", "round_robin_per_group", "hash_clientid",
+              "hash_topic")
+
+
+async def shared_load(results, filters, device: str = "cuda") -> dict:
+    """``$share`` groups on the broker phase's world: 1M background
+    filters in the engine, group g1 (4 members on ``load/+/+``), group
+    g2 (3 on ``load/#``) and one direct subscriber on ``load/#``, all QoS
+    1, strategy ``round_robin``; 4 publishers send 1,000 QoS 1 messages
+    each over TCP through the batcher.  Each message must reach exactly
+    one member of each group and the direct subscriber, g1's members
+    1,000 each, g2's 1,333 or 1,334; then a g1 member leaves with its
+    clean session and 256 more messages reach the other three once."""
+    from emqx_tpu_torch import topic as T
+    from emqx_tpu_torch.broker.listener import BrokerServer
+    from emqx_tpu_torch.config import BrokerConfig
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    cfg = BrokerConfig(bind="127.0.0.1", port=0)
+    cfg.mqtt.max_mqueue_len = 4 * N_PUB * N_MSG
+    server = BrokerServer(cfg, device=device)
+    broker = server.broker
+    broker.router.shared.strategy = "round_robin"
+    eng = broker.router.engine
+    t0 = time.perf_counter()
+    eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    await server.start()
+    subs = []  # (group index, client)
+    try:
+        for g, (flt, n) in enumerate(SHARED_GROUPS):
+            for j in range(n):
+                cl = Client(server.port, f"sh{g}-{j}")
+                await cl.connect()
+                await cl.subscribe(flt, 1)
+                subs.append((g, cl))
+        eng.rebuild()
+        print(f"shared broker: {len(filters)} background filters + "
+              f"{len(subs)} subscribers in {len(SHARED_GROUPS)} groups "
+              f"({', '.join(f'{f} x{n}' for f, n in SHARED_GROUPS)}) on the "
+              f"card ({eng._aut.n_nodes} nodes) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        C = subs[0][1].C
+        pubs = []
+        for p in range(N_PUB):
+            cl = Client(server.port, f"shpub{p}")
+            await cl.connect()
+            pubs.append(cl)
+        got = [[] for _ in subs]  # keys each subscriber received
+        lat = []
+        need = [0] * len(SHARED_GROUPS)  # deliveries still owed per group
+        done = asyncio.Event()
+
+        async def consume(i, g, cl):
+            while True:
+                pkt = await cl.inbox.get()
+                if pkt is None:
+                    fail(f"shared subscriber {cl.client_id} disconnected")
+                if pkt.type != C.PUBLISH:
+                    continue
+                cl.send(C.Puback(packet_id=pkt.packet_id))
+                p, k, ts = pkt.payload.split(b":")
+                got[i].append((int(p), int(k)))
+                lat.append(time.perf_counter() - float(ts))
+                need[g] -= 1
+                if not any(need):
+                    done.set()
+
+        async def run(n, k0, pubs_):
+            for g in range(len(need)):
+                need[g] += n * len(pubs_)
+            done.clear()
+            tasks = [asyncio.get_running_loop().create_task(
+                consume(i, g, cl)) for i, (g, cl) in enumerate(subs)]
+            try:
+                await asyncio.wait_for(asyncio.gather(
+                    *(publish_load(cl, p, n, k0) for p, cl in pubs_)), 600)
+                await asyncio.wait_for(done.wait(), 60)
+            except asyncio.TimeoutError:
+                fail(f"shared broker: deliveries owed per group {need}; "
+                     f"received {[len(x) for x in got]}; metrics "
+                     f"{dict(broker.metrics)}")
+            finally:
+                for t in tasks:
+                    t.cancel()
+            for _g, cl in subs:  # no extra delivery is on its way
+                await cl.quiet()
+
+        def check(label, keys, members):
+            for g in range(len(SHARED_GROUPS)):
+                mine = [got[i] for i in members if subs[i][0] == g]
+                flat = [k for m in mine for k in m]
+                if len(flat) != len(set(flat)) or set(flat) != keys:
+                    fail(f"shared broker ({label}): group {g} got "
+                         f"{len(flat)} deliveries, {len(set(flat))} "
+                         f"distinct, of {len(keys)} messages")
+
+        decides = eng.counters["decide_windows"]
+        mk.reset_launches()  # counts of the shared path start here
+        t0 = time.perf_counter()
+        await run(N_MSG, 0, list(enumerate(pubs)))
+        wall = time.perf_counter() - t0
+        launches = mk.launches()
+        decides = eng.counters["decide_windows"] - decides
+        expected = N_PUB * N_MSG
+        keys = {(p, k) for p in range(N_PUB) for k in range(N_MSG)}
+        check("load", keys, range(len(subs)))
+        split = {g: sorted(len(got[i]) for i, (gi, _) in enumerate(subs)
+                           if gi == g) for g in range(len(SHARED_GROUPS))}
+        if split[0] != [N_MSG] * 4 or split[1] != [1333, 1333, 1334]:
+            fail(f"shared broker: round_robin split {split}")
+        for k in ("match_batch_compact", "decide_packed"):
+            if launches[k] < 1:
+                fail(f"shared broker: {k} never launched: {launches}")
+        if launches["decide_packed"] != decides:
+            fail(f"shared broker: {launches['decide_packed']} K3 launches "
+                 f"for {decides} decide windows")
+        dropped = broker.metrics["delivery.dropped"]
+        if dropped:
+            fail(f"shared broker dropped {dropped} deliveries")
+        n_del = sum(map(len, got))
+        lat.sort()
+        p50 = lat[len(lat) // 2] * 1e3
+        p99 = lat[int(len(lat) * 0.99)] * 1e3
+        c = eng.counters
+        print(f"shared broker: {expected} QoS 1 messages from {N_PUB} "
+              f"publishers each delivered exactly once to one member of "
+              f"g1 and of g2 and to the direct subscriber ({n_del} "
+              f"deliveries) in {wall:.3f} s: {expected / wall:.1f} msgs/s "
+              f"in, {n_del / wall:.1f} deliveries/s; delivery latency p50 "
+              f"{p50:.3f} ms p99 {p99:.3f} ms; round_robin split g1 "
+              f"{split[0]}, g2 {split[1]}, direct {split[2]}; "
+              f"{c['dev_windows']} match windows, {c['clip_reruns']} clip "
+              f"reruns, {decides} decide windows; launches {launches} "
+              f"[{results['card']}]", flush=True)
+        stages = stage_medians("shared broker", broker.profiler)
+        # a g1 member leaves with its clean session: the other three
+        # take the next messages, each exactly once
+        left = next(i for i, (g, _) in enumerate(subs) if g == 0)
+        await subs[left][1].close()
+        real = T.parse_share(SHARED_GROUPS[0][0]).topic
+        for _ in range(1000):
+            if len(broker.router.shared.members("g1", real)) == 3:
+                break
+            await asyncio.sleep(0.01)
+        else:
+            fail("shared broker: the leaving g1 member is still in g1")
+        subs.pop(left)
+        got.pop(left)
+        for m in got:
+            m.clear()
+        await run(SHARED_LEAVE_MSG, N_MSG, [(0, pubs[0])])
+        check("after a leave",
+              {(0, k) for k in range(N_MSG, N_MSG + SHARED_LEAVE_MSG)},
+              range(len(subs)))
+        after = sorted(len(got[i]) for i, (g, _) in enumerate(subs)
+                       if g == 0)
+        print(f"shared broker: after one g1 member left with its clean "
+              f"session, {SHARED_LEAVE_MSG} more messages reached the other "
+              f"three g1 members exactly once ({after}) [{results['card']}]",
+              flush=True)
+        for _g, cl in subs:
+            await cl.close()
+        for cl in pubs:
+            await cl.close()
+    finally:
+        await server.stop()
+    for name, k in (("match_batch_compact", "match_batch_compact"),
+                    ("decide_batch", "decide_packed")):
+        results["kernels"][name]["shared"] = {"launches": launches[k]}
+    return {"msgs_per_s": expected / wall, "deliveries_per_s": n_del / wall,
+            "p50_ms": p50, "p99_ms": p99, "stages": stages}
+
+
+def shared_wire(device: str, strategy: str, subs, msgs, window: int):
+    """Every client's bytes after ``subs`` subscribe in process
+    (`Capture`, MQTT 3.1.1) and ``msgs`` go through
+    ``Broker.publish_many`` in windows of ``window``."""
+    from emqx_tpu_torch.broker.broker import Broker
+    from emqx_tpu_torch.message import Message
+
+    b = Broker(device=device, shared_strategy=strategy)
+    caps = {cid: Capture(b, cid, flts) for cid, flts in subs}
+    b.router.engine.rebuild()
+    for k in range(0, len(msgs), window):
+        b.publish_many([Message(topic=t, qos=q, from_client=f,
+                                payload=b"%d" % (k + i))
+                        for i, (t, q, f) in enumerate(msgs[k:k + window])])
+    return {cid: bytes(c.raw) for cid, c in caps.items()}
+
+
+def shared_parity(results) -> None:
+    """The same seeded script of ``$share`` groups and direct
+    subscribers through ``Broker(device="cuda")`` and
+    ``Broker(device="cpu")`` under each order-free strategy: equal wire
+    bytes to every client."""
+    import numpy as np
+
+    from emqx_tpu_torch import workload as W
+
+    subs, msgs = W.shared_script(np.random.default_rng(11), 200, 24, 4096)
+    for strategy in ORDER_FREE:
+        t0 = time.perf_counter()
+        card = shared_wire("cuda", strategy, subs, msgs, 512)
+        cpu = shared_wire("cpu", strategy, subs, msgs, 512)
+        bad = [cid for cid in card if card[cid] != cpu[cid]]
+        if bad:
+            fail(f"shared parity ({strategy}): the card's bytes differ "
+                 f"from the CPU's for {len(bad)} clients, e.g. {bad[:3]}")
+        print(f"shared parity ({strategy}): {len(subs)} clients in 24 "
+              f"groups, {len(msgs)} messages in windows of 512: the card's "
+              f"broker writes the CPU broker's {sum(map(len, card.values()))} "
+              f"bytes ({time.perf_counter() - t0:.1f} s) "
+              f"[{results['card']}]", flush=True)
+
+
+def phase_shared_broker(results, filters) -> None:
+    phase("shared broker")
+    results["shared"] = asyncio.run(shared_load(results, filters))
+    shared_parity(results)
+
+
+# ------------------------------------------------------------ retainer
+
+RETAIN_WINDOW = 4096  # config 3's batch_max: one publish window
+
+
+def retained_filters(pops):
+    """16 subscriptions: ``(filter, qos, broad)``, 14 of the four
+    families of `workload.make_filters` (one device, a few, none) and
+    the two broad ones."""
+    nv, nd, _ns, na = pops
+    return [
+        (f"vehicles/v0/sensors/#", 1, False),
+        (f"vehicles/v17/sensors/#", 0, False),
+        (f"vehicles/v{nv - 1}/sensors/#", 1, False),
+        (f"vehicles/v{nv + 5}/sensors/#", 1, False),
+        (f"dev/g3/+/d3", 1, False),
+        (f"dev/g{nd - 1}/+/d{(nd - 1) % 7}", 0, False),
+        (f"dev/g10/+/d0", 1, False),
+        ("dev/+/+/d3", 1, False),
+        (f"site/+/floor/f5/#", 1, False),
+        (f"site/+/floor/f{na - 1}/#", 0, False),
+        (f"site/+/floor/f{na + 5}/#", 1, False),
+        ("site/s3/floor/+/a", 1, False),
+        ("alerts/z1/+/+", 1, False),
+        ("alerts/z2/+/+", 0, False),
+        ("vehicles/+/sensors/state", 0, True),
+        ("site/#", 1, True),
+    ]
+
+
+async def replay_all(port, flts, live, label, card) -> dict:
+    """Each filter on a new MQTT 5 connection: SUBSCRIBE, then every
+    replayed PUBLISH (acked), then a PINGREQ whose PINGRESP must come
+    next.  The replayed topics must equal a brute-force `topic.match`
+    over ``live`` (the stored topics), each once, all with retain=1.
+    Returns the time from SUBSCRIBE to the last replayed PUBLISH of
+    each broad filter."""
+    from emqx_tpu_torch import topic as T
+
+    words = [T.words(t) for t in live]
+    out = {}
+    for j, (flt, qos, broad) in enumerate(flts):
+        fw = T.words(flt)
+        want = {t for t, w in zip(live, words) if T.match_words(w, fw)}
+        cl = Client(port, f"ret-{label}-{j}", version=5)
+        await cl.connect()
+        C = cl.C
+        t0 = time.perf_counter()
+        cl.send(C.Subscribe(packet_id=1, subscriptions=[
+            C.Subscription(topic_filter=flt, qos=qos)]))
+        ack = await cl.expect(C.SUBACK)
+        if ack.reason_codes != [qos]:
+            fail(f"retained ({label}): SUBACK {ack.reason_codes} for {flt}")
+        seen = []
+        t_last = t0
+        while len(seen) < len(want):
+            pkt = await cl.expect(C.PUBLISH)
+            t_last = time.perf_counter()
+            if not pkt.retain:
+                fail(f"retained ({label}): {flt} replayed {pkt.topic} "
+                     f"without the retain bit")
+            if pkt.qos:
+                cl.send(C.Puback(packet_id=pkt.packet_id))
+            seen.append(pkt.topic)
+        await cl.quiet()
+        if len(set(seen)) != len(seen) or set(seen) != want:
+            fail(f"retained ({label}): {flt} replayed {len(seen)} topics "
+                 f"({len(set(seen))} distinct), the brute force "
+                 f"{len(want)}")
+        if broad:
+            out[flt] = {"replayed": len(seen),
+                        "subscribe_to_last_ms": (t_last - t0) * 1e3}
+        await cl.close()
+    print(f"retained ({label}): {len(flts)} MQTT 5 subscribers, every "
+          f"replay equal to the brute force over the {len(live)} stored "
+          f"topics, each PUBLISH with retain=1; broad filters "
+          f"{json.dumps(out)} [{card}]", flush=True)
+    return out
+
+
+async def retained_load(results, filters, device: str = "cuda") -> dict:
+    """One retained last-known-state message per device of config 3's
+    populations: stored through ``Broker.publish_many`` windows of
+    4,096 with the 1M filters in the engine (K1 every window), replayed
+    over TCP to 16 MQTT 5 subscribers, then 10% deleted by empty
+    retained publishes and replayed again; `Retainer.match` timed per
+    filter class."""
+    import numpy as np
+
+    from emqx_tpu_torch import workload as W
+    from emqx_tpu_torch.broker.listener import BrokerServer
+    from emqx_tpu_torch.config import BrokerConfig
+    from emqx_tpu_torch.message import Message
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    card = results["card"]
+    pops = W.populations(len(filters), 8)
+    topics = W.retained_topics(pops)
+    cfg = BrokerConfig(bind="127.0.0.1", port=0)
+    # the 62,500-message QoS 0 and 12,500-message QoS 1 replays queue
+    # past the inflight window: a queue that holds them drops none
+    cfg.mqtt.max_mqueue_len = len(topics)
+    server = BrokerServer(cfg, device=device)
+    broker = server.broker
+    eng = broker.router.engine
+    eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    eng.rebuild()
+    await server.start()
+    try:
+        def store(msgs):
+            n_win = 0
+            for k in range(0, len(msgs), RETAIN_WINDOW):
+                broker.publish_many(msgs[k:k + RETAIN_WINDOW])
+                n_win += 1
+            return n_win
+
+        msgs = [Message(topic=t, qos=1, retain=True, from_client="fleet",
+                        payload=(f'{{"state":"ok","v":{i % 61},"ts":'
+                                 f'{1752000000000 + i},"seq":{i:06d}}}'
+                                 ).encode())
+                for i, t in enumerate(topics)]
+        dev = eng.counters["dev_windows"]
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        n_win = store(msgs)
+        wall = time.perf_counter() - t0
+        launches = mk.launches()
+        dev = eng.counters["dev_windows"] - dev
+        if len(broker.retainer) != len(topics) or \
+                broker.metrics["messages.retained"] != len(topics):
+            fail(f"retained: {len(broker.retainer)} stored of {len(topics)}")
+        if launches["match_batch_compact"] < n_win or dev < n_win:
+            fail(f"retained: {n_win} windows, {dev} on the card, "
+                 f"launches {launches}")
+        size = sum(len(m.payload) for m in msgs) / len(msgs)
+        print(f"retained: {len(topics)} retained messages (payload mean "
+              f"{size:.1f} B) stored through {n_win} publish_many windows "
+              f"of {RETAIN_WINDOW} on the card with {len(filters)} filters "
+              f"in {wall:.3f} s: {len(topics) / wall:.1f} msgs/s; retainer "
+              f"count {len(broker.retainer)}; K1 launches "
+              f"{launches['match_batch_compact']} [{card}]", flush=True)
+        # the store windows' stages: `prepare` is the retainer's trie
+        store_stages = stage_medians("retained store", broker.profiler)
+        flts = retained_filters(pops)
+        broad = await replay_all(server.port, flts, topics, "stored", card)
+        # a re-subscribe with retain_handling 1, and a new subscription
+        # with 2, replay nothing; nor does a shared subscription
+        cl = Client(server.port, "ret-rh", version=5)
+        await cl.connect()
+        for flt, rh in (("vehicles/v0/sensors/#", 0),
+                        ("vehicles/v0/sensors/#", 1),
+                        ("vehicles/v17/sensors/#", 2),
+                        ("$share/g/vehicles/#", 0)):
+            await cl.subscribe(flt, 1, rh)
+            if rh == 0 and not flt.startswith("$share"):
+                pkt = await cl.expect(cl.C.PUBLISH)  # the first replays
+                cl.send(cl.C.Puback(packet_id=pkt.packet_id))
+            await cl.quiet()
+        await cl.close()
+        print("retained: a re-subscribe with retain_handling 1, a new "
+              "subscription with 2 and $share/g/vehicles/# replayed "
+              "nothing", flush=True)
+        # delete every tenth topic by an empty retained publish
+        gone = set(topics[::10])
+        t0 = time.perf_counter()
+        store([Message(topic=t, qos=0, retain=True, from_client="fleet")
+               for t in topics[::10]])
+        wall_del = time.perf_counter() - t0
+        live = [t for t in topics if t not in gone]
+        if len(broker.retainer) != len(live) or \
+                set(broker.retainer.topics()) != set(live):
+            fail(f"retained: {len(broker.retainer)} left of {len(live)} "
+                 f"after deleting {len(gone)}")
+        print(f"retained: {len(gone)} deleted by empty retained publishes "
+              f"in {wall_del:.3f} s; {len(broker.retainer)} left", flush=True)
+        broad_after = await replay_all(server.port, flts, live, "after delete",
+                                       card)
+        # Retainer.match per filter class, in process
+        rng = np.random.default_rng(5)
+        nv, nd, _ns, na = pops
+        classes = {
+            "one vehicle": [f"vehicles/v{i}/sensors/#"
+                            for i in rng.integers(0, nv, 200)],
+            "one device group": [f"dev/g{j}/+/d{j % 7}"
+                                 for j in rng.integers(0, nd, 200)],
+            "one site": [f"site/+/floor/f{k}/#"
+                         for k in rng.integers(0, na, 200)],
+            "none (alerts)": [f"alerts/z{m}/+/+"
+                              for m in rng.integers(0, na, 200)],
+            "dev/+/+/d3": ["dev/+/+/d3"] * 20,
+            "site/#": ["site/#"] * 20,
+            "vehicles/+/sensors/state": ["vehicles/+/sensors/state"] * 20,
+        }
+        match = {}
+        for name, fs in classes.items():
+            ts = []
+            for f in fs:
+                t = time.perf_counter()
+                broker.retainer.match(f)
+                ts.append((time.perf_counter() - t) * 1e3)
+            ts.sort()
+            match[name] = {"n": len(ts), "p50_ms": ts[len(ts) // 2],
+                           "p99_ms": ts[min(int(len(ts) * 0.99),
+                                            len(ts) - 1)]}
+        print(f"retained: Retainer.match per filter class over "
+              f"{len(broker.retainer)} topics: {json.dumps(match)} [{card}]",
+              flush=True)
+    finally:
+        await server.stop()
+    return {"stored": len(topics), "store_msgs_per_s": len(topics) / wall,
+            "windows": n_win, "k1_launches": launches["match_batch_compact"],
+            "store_stages": store_stages,
+            "broad": broad, "broad_after_delete": broad_after,
+            "deleted": len(gone), "match": match}
+
+
+def phase_retained(results, filters) -> None:
+    phase("retained")
+    results["retained"] = asyncio.run(retained_load(results, filters))
 
 
 # ------------------------------------------------------ native host path
@@ -2828,6 +3306,8 @@ def main() -> None:
     phase_churn(results, filters)
     phase_broker(results, filters)
     phase_main_shapes(results)
+    phase_shared_broker(results, filters)
+    phase_retained(results, filters)
 
     phase("kernels")
     rows = []
@@ -2841,11 +3321,13 @@ def main() -> None:
             "wrapper_ms": k["wrapper_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
-            **{x: k[x] for x in ("main_path", "churn", "stress",
+            **{x: k[x] for x in ("main_path", "churn", "shared", "stress",
                                  "empty_launch_ms") if x in k},
         })
     print(f"native summary: {json.dumps(results['native'])}", flush=True)
     print(f"churn summary: {json.dumps(results['churn'])}", flush=True)
+    print(f"shared summary: {json.dumps(results['shared'])}", flush=True)
+    print(f"retained summary: {json.dumps(results['retained'])}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

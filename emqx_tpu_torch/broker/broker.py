@@ -1,13 +1,17 @@
 """Broker core: publish routing + fan-out dispatch.
 
-``publish_many`` routes a window of messages through three stages:
+``publish_many`` routes a window of messages through these stages:
 
+  0. prepare — ingress accounting, and the retained store
+     (`Retainer.store`) of every retained publish, before the match;
   1. match — `MatchEngine.match_batch_submit/finish`: one compact match
      kernel launch for the window's distinct topics, codes expanded to
      filters on the host, the host tiers overlaid;
   2. decide — `Router.expand_window` CSR-expands the matched filters
-     into flat ``(msg_idx, client_row, opts_row)`` delivery columns,
-     and `MatchEngine.decide_window` packs every delivery's effective
+     into flat ``(msg_idx, client_row, opts_row)`` delivery columns;
+     each shared group a message matched adds its pick of one live
+     member (`SharedSubManager.pick`) to the same columns, and
+     `MatchEngine.decide_window` packs every delivery's effective
      QoS, no-local drop and retain flag in one kernel launch;
   3. deliver — one run per subscriber, in publish order, encoded once
      per window (`DispatchEncoder`): each connected run's decided
@@ -49,15 +53,18 @@ from ..codec import mqtt as C
 from ..config import BrokerConfig
 from ..engine import MatchEngine
 from ..message import Message
+from ..modules import ExclusiveSub
 from ..observability import Profiler
 from ..ops import dispatchasm
 from ..ops.match_kernel import (
     DEC_DROP_BIT, DEC_QMAX_SHIFT, DEC_RETAIN_BIT, DEC_SUBID_BIT,
 )
+from ..retainer import Retainer
 from ..router import Router
 from ..rules.engine import RuleEngine
 from .cm import ConnectionManager
-from .session import Session
+from .session import Session, SubOpts
+from .shared import SharedSubManager
 
 log = logging.getLogger("emqx_tpu_torch.broker")
 
@@ -73,11 +80,12 @@ class Broker:
     """``native`` (the default) runs the C++ host path — the engine's
     trie tiers, window encode and automaton sorts, and the window's
     wire splice — and raises when its libraries do not build;
-    ``native=False`` runs their Python referees."""
+    ``native=False`` runs their Python referees.  ``shared_strategy``
+    is the `SharedSubManager`'s pick strategy for ``$share/`` groups."""
 
     def __init__(
         self, config: Optional[BrokerConfig] = None, device="cuda",
-        native: bool = True,
+        native: bool = True, shared_strategy: str = "random",
     ) -> None:
         self.config = config or BrokerConfig()
         self.metrics = Metrics()
@@ -91,7 +99,7 @@ class Broker:
             device=device,
             native=native,
             background_rebuild=eng.background_rebuild,
-        ))
+        ), shared=SharedSubManager(strategy=shared_strategy))
         prof = self.config.profiler
         self.profiler = Profiler(
             ring_size=prof.ring_size, events_cap=prof.events_cap,
@@ -100,6 +108,14 @@ class Broker:
         # the engine's tokenize stage and its rebuild/upload events
         # land in the same profiler as the window stages
         self.router.engine.profiler = self.profiler
+        ret = self.config.retainer
+        self.retainer = Retainer(
+            max_retained_messages=ret.max_retained_messages,
+            max_payload_size=ret.max_payload_size,
+            msg_expiry_interval=ret.msg_expiry_interval,
+            enable=ret.enable,
+        )
+        self.exclusive = ExclusiveSub()
         self.cm = ConnectionManager(self._make_session)
         self.cm.on_discarded = self._session_discarded
         self.rules = RuleEngine(broker=self)
@@ -142,11 +158,31 @@ class Broker:
     def _session_discarded(self, session: Session) -> None:
         self.metrics.inc("session.discarded")
         self.router.cleanup_client(session.clientid)
+        self.exclusive.release_all(session.clientid)
 
     def session_terminated(self, clientid: str, session: Session) -> None:
-        """A session ending with expiry <= 0: drop its router state."""
+        """A session ending with expiry <= 0: drop its router state and
+        its ``$exclusive/`` holds."""
         self.router.cleanup_client(clientid)
+        self.exclusive.release_all(clientid)
         self.metrics.inc("session.terminated")
+
+    # ---------------------------------------------------- subscribe
+
+    def subscribe(self, clientid: str, flt: str, opts: SubOpts,
+                  is_new_sub: bool = True) -> List[Message]:
+        """Register the subscription; returns the retained messages to
+        replay per retain_handling ([MQTT-3.3.1-9..11])."""
+        self.router.subscribe(clientid, flt, opts)
+        if opts.share_group is not None:
+            return []  # retained never replay to shared subs [MQTT-4.8.2-27]
+        rh = opts.retain_handling
+        if rh == 2 or (rh == 1 and not is_new_sub):
+            return []
+        return self.retainer.match(flt)
+
+    def unsubscribe(self, clientid: str, flt: str) -> bool:
+        return self.router.unsubscribe(clientid, flt)
 
     # ------------------------------------------------------- wills
 
@@ -181,8 +217,14 @@ class Broker:
             self.publish_match_submit(msgs, rec)), rec)
 
     def publish_prepare(self, msgs: Sequence[Message]) -> None:
-        """Stage 0 (loop thread): the window's ingress accounting."""
+        """Stage 0 (loop thread): the window's ingress accounting, and
+        the retained store of its retained publishes (an empty payload
+        deletes)."""
         self.metrics.inc("messages.publish", len(msgs))
+        for msg in msgs:
+            if msg.retain and not msg.sys:
+                if self.retainer.store(msg) and msg.payload:
+                    self.metrics.inc("messages.retained")
 
     def publish_match_submit(self, msgs: Sequence[Message], rec=None):
         """Stage 1a (any thread): launch the window's match.  ``rec``,
@@ -247,18 +289,38 @@ class Broker:
         deliver one run per client, splice the native runs' wire in one
         call.  A connected client's run counts every delivery (no-local
         drops included) toward its message's delivery count; a detached
-        persistent session counts what it queued.  Rule hits go to
+        persistent session counts what it queued.  A message that only a
+        shared group received was delivered.  Rule hits go to
         ``rule_sink`` as ``(message, raw rule ids)``; a message only
         rules matched counts as dropped for no subscribers, as in the
         JAX package."""
         router = self.router
         n = len(msgs)
         cnt = np.zeros(n, np.int64)  # deliveries per message
-        msg_idx, rows, opts_rows, rules = router.expand_window(matched)
+        msg_idx, rows, opts_rows, rules, shared = router.expand_window(
+            matched)
         if rec is not None:
             rec.lap("expand")
         for i, rids in rules:
             rule_sink.append((msgs[i], rids))
+        if shared:
+            # one live member per (msg, filter, group), appended AFTER
+            # the direct deliveries: the stable sort below keeps direct
+            # entries ahead of shared ones for equal keys, and one K3
+            # launch decides both
+            s_msg: List[int] = []
+            s_rows: List[int] = []
+            s_opts: List[int] = []
+            for i, real, group in shared:
+                self._shared_pick(msgs[i], i, real, group,
+                                  s_msg, s_rows, s_opts)
+            if s_rows:
+                msg_idx = np.concatenate(
+                    [msg_idx, np.asarray(s_msg, dtype=np.int64)])
+                rows = np.concatenate(
+                    [rows, np.asarray(s_rows, dtype=np.int64)])
+                opts_rows = np.concatenate(
+                    [opts_rows, np.asarray(s_opts, dtype=np.int64)])
         mloc: Counter = Counter()
         corked: List = []
         n_clients = 0
@@ -336,6 +398,29 @@ class Broker:
             mloc["messages.dropped.no_subscribers"] += n_none
         self.metrics.update(mloc)
         return counts
+
+    def _shared_pick(
+        self, msg: Message, msg_i: int, real: str, group: str,
+        s_msg: List[int], s_rows: List[int], s_opts_rows: List[int],
+    ) -> None:
+        """Pick one live group member, skipping members whose session
+        is gone (redispatch, emqx_shared_sub.erl:144-166), and append
+        the pick to the window's shared delivery columns: the member's
+        row and its subscription's opts-table slot."""
+        router = self.router
+        tried: Set[str] = set()
+        while True:
+            picked = router.shared.pick(group, real, msg, exclude=tried)
+            if picked is None:
+                return
+            if self.cm.lookup(picked) is not None:
+                # a member's row and slot live as long as its membership
+                s_msg.append(msg_i)
+                s_rows.append(router.row_of_client(picked))
+                s_opts_rows.append(router.shared_slot_of(real, group,
+                                                         picked))
+                return
+            tried.add(picked)
 
     def _assemble_window(self, plan, enc: "C.DispatchEncoder") -> None:
         """Splice every planned run's wire in ONE native call

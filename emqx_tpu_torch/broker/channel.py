@@ -1,9 +1,11 @@
 """Channel: the per-connection MQTT protocol state machine.
 
-Handles CONNECT/CONNACK, SUBSCRIBE/SUBACK, UNSUBSCRIBE/UNSUBACK,
-PUBLISH at QoS 0/1/2 with PUBACK, PUBREC/PUBREL/PUBCOMP in both
-directions, PINGREQ and DISCONNECT, on MQTT 3.1.1 and 5.0.  Every
-client is allowed (no authentication or authorization yet).  Pure
+Handles CONNECT/CONNACK, SUBSCRIBE/SUBACK (``$share/`` and
+``$exclusive/`` filters, retained replay after the SUBACK),
+UNSUBSCRIBE/UNSUBACK, PUBLISH at QoS 0/1/2 with PUBACK,
+PUBREC/PUBREL/PUBCOMP in both directions, PINGREQ and DISCONNECT, on
+MQTT 3.1.1 and 5.0.  Every client is allowed (no authentication or
+authorization yet).  Pure
 state machine: the owning `Connection` feeds parsed packets in and
 gets packets out through ``send``.
 """
@@ -17,6 +19,7 @@ from typing import Dict, List, Optional, Tuple
 from .. import topic as T
 from ..codec import mqtt as C
 from ..message import Message
+from ..modules import ExclusiveSub
 from .broker import Broker
 from .session import Session, SubOpts
 
@@ -37,6 +40,7 @@ RC_TOPIC_ALIAS_INVALID = 0x94
 RC_SESSION_TAKEN_OVER = 0x8E
 RC_TOPIC_FILTER_INVALID = 0x8F
 RC_TOPIC_NAME_INVALID = 0x90
+RC_QUOTA_EXCEEDED = 0x97
 RC_SHARED_SUB_UNSUPPORTED = 0x9E
 RC_WILDCARD_SUB_UNSUPPORTED = 0xA2
 
@@ -365,28 +369,48 @@ class Channel:
     # ----------------------------------------------------- subscribe
 
     def _handle_subscribe(self, pkt: C.Subscribe) -> None:
+        """SUBACK first, then the granted filters' retained messages,
+        through the session (inflight window, then mqueue), in one
+        write."""
         subid = pkt.properties.get("subscription_identifier")
         if isinstance(subid, list):
             subid = subid[0] if subid else None
-        rcs = [self._do_subscribe(sub, subid) for sub in pkt.subscriptions]
+        retained_jobs: List[Tuple[Message, SubOpts]] = []
+        rcs = [self._do_subscribe(sub, subid, retained_jobs)
+               for sub in pkt.subscriptions]
         if self.version != C.MQTT_V5:
             rcs = [rc if rc <= 2 else 0x80 for rc in rcs]
         self.send_packets([C.Suback(packet_id=pkt.packet_id,
                                     reason_codes=rcs)])
+        if retained_jobs:
+            self.send_packets(self.session.deliver(retained_jobs))
 
-    def _do_subscribe(self, sub: C.Subscription,
-                      subid: Optional[int]) -> int:
+    def _do_subscribe(
+        self, sub: C.Subscription, subid: Optional[int],
+        retained_jobs: List[Tuple[Message, SubOpts]],
+    ) -> int:
         mqtt = self.broker.config.mqtt
         flt = sub.topic_filter
         try:
             T.validate_filter(flt)
         except ValueError:
             return RC_TOPIC_FILTER_INVALID
-        if T.parse_share(flt) is not None:
+        exclusive = flt.startswith(ExclusiveSub.PREFIX)
+        if exclusive:
+            if not mqtt.exclusive_subscription:
+                return RC_TOPIC_FILTER_INVALID
+            flt = flt[len(ExclusiveSub.PREFIX):]
+            if not flt:
+                return RC_TOPIC_FILTER_INVALID
+            # the lock is taken LAST, after every check below: an error
+            # return must not leave a stale hold
+        shared = T.parse_share(flt)
+        if shared is not None and not mqtt.shared_subscription:
             return RC_SHARED_SUB_UNSUPPORTED
-        if T.is_wildcard(flt) and not mqtt.wildcard_subscription:
+        real = shared.topic if shared else flt
+        if T.is_wildcard(real) and not mqtt.wildcard_subscription:
             return RC_WILDCARD_SUB_UNSUPPORTED
-        if T.levels(flt) > mqtt.max_topic_levels:
+        if T.levels(real) > mqtt.max_topic_levels:
             return RC_TOPIC_FILTER_INVALID
         granted = min(sub.qos, mqtt.max_qos_allowed)
         opts = SubOpts(
@@ -396,16 +420,30 @@ class Channel:
             retain_handling=sub.retain_handling,
             subid=subid,
         )
-        self.session.subscribe(flt, opts)
-        self.broker.router.subscribe(self.clientid, flt, opts)
+        if shared is not None and sub.no_local:
+            return RC_PROTOCOL_ERROR  # [MQTT-3.8.3-4]
+        if exclusive and not self.broker.exclusive.acquire(
+            self.clientid, flt
+        ):
+            return RC_QUOTA_EXCEEDED  # already held by another client
+        is_new = self.session.subscribe(flt, opts)
+        for rmsg in self.broker.subscribe(self.clientid, flt, opts,
+                                          is_new_sub=is_new):
+            # retained replay keeps the retain bit set [MQTT-3.3.1-8]
+            retained_jobs.append((rmsg, SubOpts(
+                qos=opts.qos, retain_as_published=True, subid=opts.subid,
+            )))
         return granted
 
     def _handle_unsubscribe(self, pkt: C.Unsubscribe) -> None:
         rcs: List[int] = []
         for flt in pkt.topic_filters:
+            if flt.startswith(ExclusiveSub.PREFIX):
+                flt = flt[len(ExclusiveSub.PREFIX):]
+                self.broker.exclusive.release(self.clientid, flt)
             had = self.session.unsubscribe(flt) is not None
             if had:
-                self.broker.router.unsubscribe(self.clientid, flt)
+                self.broker.unsubscribe(self.clientid, flt)
             rcs.append(RC_NORMAL if had else RC_NO_SUBSCRIPTION_EXISTED)
         self.send_packets(
             [C.Unsuback(packet_id=pkt.packet_id, reason_codes=rcs)]

@@ -94,6 +94,22 @@ class ConnectionManager:
 
     # ---------------------------------------------------- lifecycle
 
+    def remove(self, clientid: str) -> bool:
+        """Silently drop an entry (no discard callback)."""
+        return self._entries.pop(clientid, None) is not None
+
+    def kick(self, clientid: str) -> bool:
+        """Forcibly remove a client: close the live channel and discard
+        the session."""
+        e = self._entries.pop(clientid, None)
+        if e is None:
+            return False
+        if e.channel is not None:
+            e.channel.close("kicked")
+        if self.on_discarded:
+            self.on_discarded(e.session)
+        return True
+
     def disconnect(self, clientid: str, channel: ChannelLike) -> None:
         """Channel died/closed.  Sessions with expiry keep their state
         for resume; clean sessions are dropped."""

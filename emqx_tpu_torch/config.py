@@ -1,4 +1,4 @@
-"""Typed broker configuration: the knobs this slice's broker reads,
+"""Typed broker configuration: the knobs the port's broker reads,
 with the JAX package's defaults."""
 
 from __future__ import annotations
@@ -16,8 +16,8 @@ class MqttConfig:
     max_topic_alias: int = 65535
     retain_available: bool = True
     wildcard_subscription: bool = True
-    # shared subscriptions wait for a later slice; CONNACK says so
-    shared_subscription: bool = False
+    shared_subscription: bool = True
+    exclusive_subscription: bool = False
     max_inflight: int = 32
     max_awaiting_rel: int = 100
     await_rel_timeout: float = 300.0
@@ -64,9 +64,18 @@ class ProfilerConfig:
 
 
 @dataclass
+class RetainerConfig:
+    enable: bool = True
+    max_retained_messages: int = 0  # 0 = unlimited
+    max_payload_size: int = 1024 * 1024
+    msg_expiry_interval: float = 0.0  # 0 = never
+
+
+@dataclass
 class BrokerConfig:
     mqtt: MqttConfig = field(default_factory=MqttConfig)
     engine: BrokerEngineConfig = field(default_factory=BrokerEngineConfig)
     profiler: ProfilerConfig = field(default_factory=ProfilerConfig)
+    retainer: RetainerConfig = field(default_factory=RetainerConfig)
     bind: str = "0.0.0.0"
     port: int = 1883

@@ -14,8 +14,11 @@ arrays in one pass (`expand_window`).  The SubOpts attribute columns
 (``("rule", rule_id, i)``, inserted straight into the engine by the
 rule engine) come back from `expand_window` grouped per message.
 
-Shared subscriptions wait for a later slice; a ``$share/`` filter is
-refused at subscribe.
+Shared subscriptions route through the same engine entry for the real
+filter; group membership and per-message picks live in
+`SharedSubManager`, and each shared subscription's options take a slot
+of the same opts table, so a window's shared picks ride the decision
+columns like direct deliveries.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 
 from . import topic as T
 from .broker.session import SubOpts
+from .broker.shared import SharedSubManager
 from .engine import MatchEngine
 
 _EMPTY_I64 = np.empty(0, dtype=np.int64)
@@ -87,11 +91,18 @@ class _CsrBucket:
 
 
 class Router:
-    def __init__(self, engine: MatchEngine) -> None:
+    def __init__(self, engine: MatchEngine,
+                 shared: Optional[SharedSubManager] = None) -> None:
         self.engine = engine
-        # real filter -> {clientid -> SubOpts}: the source of truth
+        self.shared = shared if shared is not None else SharedSubManager()
+        # real filter -> {clientid -> SubOpts} (direct): the source of
+        # truth
         self._subs: Dict[str, Dict[str, SubOpts]] = {}
-        # clientid -> set of filter strings
+        # real filter -> {(group, clientid) -> SubOpts} (shared)
+        self._shared_opts: Dict[str, Dict[Tuple[str, str], SubOpts]] = {}
+        # (real, group, clientid) -> opts table slot
+        self._shared_slot: Dict[Tuple[str, str, str], int] = {}
+        # clientid -> set of full filter strings ($share prefix kept)
         self._by_client: Dict[str, Set[str]] = {}
         # --- interning tables + CSR fan-out index -------------------
         self._client_rows: Dict[str, int] = {}   # clientid -> row
@@ -185,45 +196,81 @@ class Router:
     # ------------------------------------------------------- mutation
 
     def subscribe(self, clientid: str, flt: str, opts: SubOpts) -> None:
-        """Register `clientid`'s subscription to `flt`."""
-        if T.parse_share(flt) is not None:
-            raise ValueError(f"shared subscriptions are not supported: "
-                             f"{flt!r}")
-        subs = self._subs.get(flt)
-        if subs is None:
-            subs = self._subs[flt] = {}
-            self.engine.insert(flt, flt)
-        subs[clientid] = opts
-        row = self._intern(clientid)
-        bucket = self._csr.get(flt)
-        if bucket is None:
-            bucket = self._csr[flt] = _CsrBucket()
-        slot = bucket.opts_row_of(row)
-        if slot is None:
-            bucket.add(row, self._alloc_opts(opts))
-        else:  # options refresh of an existing subscription
-            self._opts_table[slot] = opts
-            self._set_opts_attrs(slot, opts)
+        """Register `clientid`'s subscription to `flt` (which may be a
+        `$share/...` filter)."""
+        shared = T.parse_share(flt)
+        if shared is not None:
+            real = shared.topic
+            opts.share_group = shared.group
+            self._intern(clientid)  # picks resolve to rows at dispatch
+            need_route = self.shared.join(shared.group, real, clientid)
+            self._shared_opts.setdefault(real, {})[
+                (shared.group, clientid)
+            ] = opts
+            skey = (real, shared.group, clientid)
+            sslot = self._shared_slot.get(skey)
+            if sslot is None:
+                self._shared_slot[skey] = self._alloc_opts(opts)
+            else:  # options refresh of an existing shared subscription
+                self._opts_table[sslot] = opts
+                self._set_opts_attrs(sslot, opts)
+            if need_route and real not in self._subs:
+                self.engine.insert(real, real)
+        else:
+            real = flt
+            subs = self._subs.get(real)
+            if subs is None:
+                subs = self._subs[real] = {}
+                if not self._shared_opts.get(real):
+                    self.engine.insert(real, real)
+            subs[clientid] = opts
+            row = self._intern(clientid)
+            bucket = self._csr.get(real)
+            if bucket is None:
+                bucket = self._csr[real] = _CsrBucket()
+            slot = bucket.opts_row_of(row)
+            if slot is None:
+                bucket.add(row, self._alloc_opts(opts))
+            else:  # options refresh of an existing subscription
+                self._opts_table[slot] = opts
+                self._set_opts_attrs(slot, opts)
         self._by_client.setdefault(clientid, set()).add(flt)
 
     def unsubscribe(self, clientid: str, flt: str) -> bool:
-        subs = self._subs.get(flt)
-        if subs is None or clientid not in subs:
-            removed = False
-        else:
-            del subs[clientid]
-            if not subs:
-                del self._subs[flt]
-                self.engine.delete(flt)
-            bucket = self._csr.get(flt)
-            row = self._client_rows.get(clientid)
-            if bucket is not None and row is not None:
-                freed = bucket.remove(row)
-                if freed is not None:
-                    self._free_opts(freed)
-                if not bucket.rows:
-                    del self._csr[flt]
+        shared = T.parse_share(flt)
+        if shared is not None:
+            real = shared.topic
+            self.shared.leave(shared.group, real, clientid)
+            opts_map = self._shared_opts.get(real)
+            if opts_map is not None:
+                opts_map.pop((shared.group, clientid), None)
+                if not opts_map:
+                    del self._shared_opts[real]
+            sslot = self._shared_slot.pop(
+                (real, shared.group, clientid), None
+            )
+            if sslot is not None:
+                self._free_opts(sslot)
             removed = True
+        else:
+            real = flt
+            subs = self._subs.get(real)
+            if subs is None or clientid not in subs:
+                removed = False
+            else:
+                del subs[clientid]
+                if not subs:
+                    del self._subs[real]
+                bucket = self._csr.get(real)
+                row = self._client_rows.get(clientid)
+                if bucket is not None and row is not None:
+                    freed = bucket.remove(row)
+                    if freed is not None:
+                        self._free_opts(freed)
+                    if not bucket.rows:
+                        del self._csr[real]
+                removed = True
+        self._maybe_drop_route(real)
         filters = self._by_client.get(clientid)
         if filters is not None:
             filters.discard(flt)
@@ -232,39 +279,69 @@ class Router:
                 self._release_client(clientid)
         return removed
 
+    def _maybe_drop_route(self, real: str) -> None:
+        """The real filter's route lives while a direct subscriber or a
+        group remains."""
+        if real not in self._subs and real not in self._shared_opts:
+            self.engine.delete(real)
+
     def cleanup_client(self, clientid: str) -> None:
-        """Drop every subscription of a dead client."""
+        """Drop every subscription of a dead client (its groups too)."""
         for flt in list(self._by_client.get(clientid, ())):
             self.unsubscribe(clientid, flt)
 
+    def topics(self) -> List[str]:
+        """All indexed real filters."""
+        return list(self._subs.keys() | self._shared_opts.keys())
+
     def subscription_count(self) -> int:
-        """Total (client, filter) subscription pairs (rule fids are not
-        subscriptions and are not counted)."""
-        return sum(len(v) for v in self._subs.values())
+        """Total (client, filter) subscription pairs, shared pairs
+        included (rule fids are not subscriptions and are not
+        counted)."""
+        return sum(len(v) for v in self._subs.values()) + sum(
+            len(v) for v in self._shared_opts.values()
+        )
+
+    def shared_opts(
+        self, real: str, group: str, clientid: str
+    ) -> Optional[SubOpts]:
+        m = self._shared_opts.get(real)
+        return None if m is None else m.get((group, clientid))
+
+    def shared_slot_of(
+        self, real: str, group: str, clientid: str
+    ) -> Optional[int]:
+        """Opts-table slot of one shared subscription (the row a
+        window's shared pick contributes to the decision columns)."""
+        return self._shared_slot.get((real, group, clientid))
 
     # ----------------------------------------------- window expansion
 
     def expand_window(
         self, matched: Sequence[Set]
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
-               List[Tuple[int, List[str]]]]:
+               List[Tuple[int, List[str]]],
+               List[Tuple[int, str, str]]]:
         """CSR-expand one window's matched fid sets to flat delivery
         columns.
 
-        Returns ``(msg_idx, client_rows, opts_rows, rules)``: three
-        aligned int64 arrays covering every delivery in the window,
-        built by one concatenation over the per-filter CSR columns, and
-        the rule fids grouped per message as ``(msg_idx, [rule_id,
-        ...])`` (RAW: unsorted, a multi-filter rule may repeat; the
-        rule engine dedups).  Fids with no local subscribers (e.g.
-        filters preloaded straight into the engine) cost one dict miss
-        each."""
+        Returns ``(msg_idx, client_rows, opts_rows, rules, shared)``:
+        three aligned int64 arrays covering every DIRECT delivery in
+        the window, built by one concatenation over the per-filter CSR
+        columns; the rule fids grouped per message as ``(msg_idx,
+        [rule_id, ...])`` (RAW: unsorted, a multi-filter rule may
+        repeat; the rule engine dedups); and the shared-group fids as
+        ``(msg_idx, real_filter, group)`` for the shared picks.  Fids
+        with no local state (e.g. filters preloaded straight into the
+        engine) cost two dict misses each."""
         seg_rows: List[np.ndarray] = []
         seg_opts: List[np.ndarray] = []
         seg_msg: List[int] = []
         seg_len: List[int] = []
         rules: List[Tuple[int, List[str]]] = []
+        shared: List[Tuple[int, str, str]] = []
         csr = self._csr
+        groups_for = self.shared.groups_for
         rule_i = -1
         rule_ids: List[str] = []
         for i, fids in enumerate(matched):
@@ -283,8 +360,10 @@ class Router:
                     seg_opts.append(o)
                     seg_msg.append(i)
                     seg_len.append(len(r))
+                for group in groups_for(fid):
+                    shared.append((i, fid, group))
         if not seg_rows:
-            return _EMPTY_I64, _EMPTY_I64, _EMPTY_I64, rules
+            return _EMPTY_I64, _EMPTY_I64, _EMPTY_I64, rules, shared
         if len(seg_rows) == 1:
             client_rows, opts_rows = seg_rows[0], seg_opts[0]
             msg_idx = np.full(seg_len[0], seg_msg[0], dtype=np.int64)
@@ -294,4 +373,4 @@ class Router:
             msg_idx = np.repeat(
                 np.asarray(seg_msg, dtype=np.int64), seg_len
             )
-        return msg_idx, client_rows, opts_rows, rules
+        return msg_idx, client_rows, opts_rows, rules, shared

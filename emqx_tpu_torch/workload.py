@@ -14,6 +14,10 @@ seeded by `seed_words`, it yields exactly what
 `full_frontier` is the match kernels' worst case: a filter set whose
 frontier doubles every level, to fill and overflow the widest frontier.
 
+`shared_script` is a seeded world of ``$share`` groups beside direct
+subscribers, and `retained_topics` one last-known-state topic per
+device of a fleet.
+
 `make_rules` and `make_rule_payloads` add config 4's rule-engine half:
 SQL rules whose FROM filters cover the fleet topic families and whose
 WHERE clauses are the predicate shapes of ``bench.py``'s rules bench,
@@ -232,3 +236,44 @@ def full_frontier(rng: np.random.Generator, n_topics: int,
               for _ in range(max(n_topics - 2, 0))]
     topics += ["$SYS/a/b", "/".join(["a"] * (3 * depth))][:n_topics]
     return filters, topics
+
+
+SHARED_FILTERS = ("sh/+/+", "sh/#", "sh/a/+", "sh/+/b", "sh/a/b", "+/a/#")
+
+
+def shared_script(rng: np.random.Generator, n_clients: int, n_groups: int,
+                  n_msgs: int):
+    """A seeded world of ``$share`` groups beside direct subscribers.
+
+    Returns ``(subs, msgs)``: ``subs`` as ``[(clientid, [(filter,
+    qos)])]``, each client a member of one group (group ``j`` holds one
+    filter, ``SHARED_FILTERS[j % 6]``) and one in three also a direct
+    subscriber of a filter of the same pool; ``msgs`` as ``[(topic, qos,
+    from_client)]`` over ``sh/{a,b,c}/{a,b,c}``, ``x/a/b`` and a topic
+    no filter matches."""
+    topics = [f"sh/{a}/{b}" for a in "abc" for b in "abc"]
+    topics += ["x/a/b", "none"]
+    subs = []
+    for i in range(n_clients):
+        j = int(rng.integers(0, n_groups))
+        flts = [(f"$share/g{j}/{SHARED_FILTERS[j % len(SHARED_FILTERS)]}",
+                 int(rng.integers(0, 3)))]
+        if rng.integers(0, 3) == 0:
+            flts.append((SHARED_FILTERS[int(rng.integers(
+                0, len(SHARED_FILTERS)))], int(rng.integers(0, 3))))
+        subs.append((f"c{i}", flts))
+    msgs = [(topics[int(rng.integers(0, len(topics)))],
+             int(rng.integers(0, 3)), f"p{int(rng.integers(0, 5))}")
+            for _ in range(n_msgs)]
+    return subs, msgs
+
+
+def retained_topics(pops) -> List[str]:
+    """One last-known-state topic per device: ``vehicles/v{i}/sensors/
+    state`` for each vehicle, ``dev/g{j}/x/d{j % 7}`` for each device
+    group and ``site/s{k % 7}/floor/f{k}/a`` for each alert zone's count
+    of sites (``pops`` from `populations`)."""
+    n_vehicles, n_dev, _n_site, n_alert = pops
+    return ([f"vehicles/v{i}/sensors/state" for i in range(n_vehicles)]
+            + [f"dev/g{j}/x/d{j % 7}" for j in range(n_dev)]
+            + [f"site/s{k % 7}/floor/f{k}/a" for k in range(n_alert)])

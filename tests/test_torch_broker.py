@@ -15,7 +15,6 @@ import pytest
 from emqx_tpu.broker.broker import Broker as RefBroker
 from emqx_tpu.broker.channel import Channel as RefChannel
 from emqx_tpu.codec import mqtt as C
-from emqx_tpu.config import BrokerConfig as RefConfig
 
 from emqx_tpu_torch.broker.broker import Broker
 from emqx_tpu_torch.broker.channel import Channel
@@ -147,10 +146,7 @@ def test_wire_bytes_python_path_equal_reference(expiry, monkeypatch):
 
 
 def _wire_world(expiry, native):
-    ref_cfg = RefConfig()
-    ref_cfg.mqtt.shared_subscription = False  # the port's default
-    ref, port = RefBroker(config=ref_cfg), Broker(device="cpu",
-                                                  native=native)
+    ref, port = RefBroker(), Broker(device="cpu", native=native)
     clients = {}
     for cid, (ver, subs, subid) in SUBS.items():
         c = clients[cid] = Pair(ref, port, ver)
@@ -200,6 +196,19 @@ def _wire_world(expiry, native):
         c.assert_same(f"after unsubscribe {cid}")
     # every client saw real traffic
     assert all(len(c.port.writes) >= 2 for c in clients.values())
+    # a late subscriber gets the retained r/1 and r/2 after its SUBACK
+    late = clients["late"] = Pair(ref, port, C.MQTT_V5)
+    late.send(C.Connect(client_id="late", proto_ver=C.MQTT_V5,
+                        keepalive=30))
+    late.send(C.Subscribe(packet_id=1, subscriptions=[
+        C.Subscription(topic_filter="r/+", qos=2)]))
+    while sum(c.auto_ack() for c in clients.values()):
+        pass
+    late.assert_same("late subscriber")
+    replay = [p for p in C.StreamParser(version=C.MQTT_V5).feed(
+        b"".join(late.port.writes)) if p.type == C.PUBLISH]
+    assert [(p.topic, p.payload, p.retain) for p in replay] == [
+        ("r/1", b"retained", True), ("r/2", b"retained2", True)]
     # s3 comes back: with a session expiry its queued QoS>0 deliveries
     # resume behind a session-present CONNACK; without one it starts
     # clean

@@ -435,6 +435,57 @@ def test_sharded_churn_on_cards_equals_host_trie(cuda, n_cards):
 
 # ------------------------------------------------------- rules (K4)
 
+def _shared_wire(device, strategy, subs, msgs, window):
+    """Every client's bytes after ``subs`` subscribe (MQTT 3.1.1, in
+    process) and ``msgs`` go through ``Broker.publish_many`` in windows
+    of ``window``; and the broker's engine counters."""
+    from emqx_tpu_torch.broker.broker import Broker
+    from emqx_tpu_torch.broker.channel import Channel
+    from emqx_tpu_torch.codec import mqtt as C
+    from emqx_tpu_torch.message import Message
+
+    b = Broker(device=device, shared_strategy=strategy)
+    raw = {}
+    for cid, flts in subs:
+        buf = raw[cid] = bytearray()
+        ch = Channel(b, send=lambda pkts, buf=buf: buf.extend(
+            b"".join(C.serialize(p, C.MQTT_V4) for p in pkts)),
+            close=lambda reason: None)
+        for pkt in (C.Connect(client_id=cid, proto_ver=C.MQTT_V4),
+                    C.Subscribe(packet_id=1, subscriptions=[
+                        C.Subscription(topic_filter=f, qos=q)
+                        for f, q in flts])):
+            for q in C.StreamParser(version=C.MQTT_V4).feed(
+                    C.serialize(pkt, C.MQTT_V4)):
+                ch.handle_in(q)
+    b.router.engine.rebuild()
+    for k in range(0, len(msgs), window):
+        b.publish_many([Message(topic=t, qos=q, from_client=f,
+                                payload=b"%d" % (k + i))
+                        for i, (t, q, f) in enumerate(msgs[k:k + window])])
+    return {cid: bytes(v) for cid, v in raw.items()}, b.router.engine.counters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["round_robin", "round_robin_per_group",
+                                      "hash_clientid", "hash_topic"])
+def test_shared_window_on_card_equals_cpu(cuda, strategy):
+    """chip_smoke's shared parity at a small size: ``$share`` groups
+    beside direct subscribers, the broker on the card (K1, K3) against
+    the broker on the CPU: the same bytes to every client."""
+    from emqx_tpu_torch import workload as W
+
+    subs, msgs = W.shared_script(np.random.default_rng(4), 40, 6, 600)
+    mk.reset_launches()
+    got, counters = _shared_wire("cuda", strategy, subs, msgs, 128)
+    launches = mk.launches()
+    want, _ = _shared_wire("cpu", strategy, subs, msgs, 128)
+    assert got == want
+    assert sum(map(len, got.values())) > 10_000
+    assert launches["match_batch_compact"] >= 1
+    assert launches["decide_packed"] == counters["decide_windows"] >= 1
+
+
 RULE_CORPUS = [
     "payload.a > 2", "payload.a >= payload.b", "payload.a = 3",
     "payload.s = 'x'", "payload.s != 'nowhere'", "payload.s IN ('x', 'q')",

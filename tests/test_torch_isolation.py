@@ -20,6 +20,9 @@ import emqx_tpu_torch.tp
 import emqx_tpu_torch.router
 import emqx_tpu_torch.broker.broker
 import emqx_tpu_torch.broker.channel
+import emqx_tpu_torch.broker.shared
+import emqx_tpu_torch.retainer
+import emqx_tpu_torch.modules
 import emqx_tpu_torch.broker.listener
 import emqx_tpu_torch.ops.match_kernel
 import emqx_tpu_torch.ops._kernels

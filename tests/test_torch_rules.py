@@ -177,7 +177,6 @@ def _run(rules, windows, side, scalar=False):
     if side == "ref":
         cfg = RefConfig()
         cfg.engine.use_device = False
-        cfg.mqtt.shared_subscription = False
         b = RefBroker(config=cfg)
         R, msg_cls, chan, codec = ref_engine, RefMessage, RefChannel, C
     else:
