@@ -12,8 +12,9 @@ the match engine with 1M subscriptions, the sharded match engine with
 the same subscriptions split over 4 shards of one card, and the broker
 — over TCP, as a user would — with 1M background subscriptions: first
 the publish path, then the publish path with config 4's 100 rules,
-whose kernel launches it counts, then shared subscriptions and the
-retained store.  Phases:
+whose kernel launches it counts, then shared subscriptions, the
+retained store, and the publish path behind authentication, the ACL,
+a topic rewrite, delayed publish, topic metrics and $SYS.  Phases:
 
   device          the card's name and power limit (nvidia-smi)
   build           nvcc of the kernel sources, with its seconds, and each
@@ -100,6 +101,24 @@ retained store.  Phases:
                   retain_handling 1 and 2 and $share replay nothing; 10%
                   deleted by empty retained publishes and replayed again;
                   Retainer.match p50/p99 per filter class
+  access broker   the broker's world behind the control surface over
+                  TCP: 100,000 users (salted SHA-256, one superuser,
+                  anonymous refused), EMQX's default ACL shape with a
+                  %c publish subtree (authz_default deny), a rewrite of
+                  raw/<client>/... onto load/..., TopicMetrics on
+                  load/#, a 1 s $SYS heartbeat to a superuser watcher;
+                  one bad password refused, # and $SYS/# refused (0x87);
+                  4 MQTT 5 publishers x 1,000 QoS 1 messages, every 8th
+                  outside the subtree (PUBACK 0x87, never matched),
+                  after 64 $delayed/1/ messages the server's
+                  housekeeping releases: each accepted and delayed
+                  message exactly once to 7 subscribers, TopicMetrics
+                  in/out equal to the counts, heartbeats received, K1
+                  and K3 launched (K3 once a decide window); msgs/s
+                  against the broker phase; 512 authenticated CONNECTs
+                  in waves of 64, CONNECT->CONNACK p50/p99; then
+                  `workload.access_script` in process on the card
+                  against the CPU, byte for byte
   kernels         one JSON line per kernel (launches from the runs of
                   each kernel's path)
 
@@ -221,29 +240,36 @@ class Client:
     """Minimal asyncio MQTT client over the port's codec (3.1.1, or 5.0
     with ``version=5``)."""
 
-    def __init__(self, port: int, client_id: str, version: int = 4) -> None:
+    def __init__(self, port: int, client_id: str, version: int = 4,
+                 username=None, password=None) -> None:
         from emqx_tpu_torch.codec import mqtt as C
 
         self.C = C
         self.port = port
         self.client_id = client_id
         self.version = version
+        self.username = username
+        self.password = password
         self.parser = C.StreamParser(version=version)
         self.inbox: asyncio.Queue = asyncio.Queue()
         self.raw = bytearray()  # every byte the broker sent
         self.reader = self.writer = None
         self._pump = None
 
-    async def connect(self) -> None:
+    async def connect(self, rc: int = 0) -> None:
+        """CONNECT (with the client's credentials, if any) and fail
+        unless the CONNACK carries reason code ``rc``."""
         C = self.C
         self.reader, self.writer = await asyncio.open_connection(
             "127.0.0.1", self.port
         )
         self._pump = asyncio.get_running_loop().create_task(self._read())
-        self.send(C.Connect(client_id=self.client_id, proto_ver=self.version))
+        self.send(C.Connect(client_id=self.client_id, proto_ver=self.version,
+                            username=self.username, password=self.password))
         ack = await self.expect(C.CONNACK)
-        if ack.reason_code != 0:
-            fail(f"CONNACK {ack.reason_code} for {self.client_id}")
+        if ack.reason_code != rc:
+            fail(f"CONNACK {ack.reason_code} for {self.client_id}, "
+                 f"expected {rc}")
 
     async def _read(self) -> None:
         while True:
@@ -2084,7 +2110,7 @@ async def broker_load(results, filters, native: bool = True,
                 except asyncio.TimeoutError:
                     fail(f"sub{j} stalled at {len(seen[j])} of {expected}; "
                          f"received {[len(x) for x in seen]}; broker "
-                         f"metrics {dict(server.broker.metrics)}")
+                         f"metrics {server.broker.metrics.all()}")
                 if pkt is None:
                     fail(f"sub{j} disconnected")
                 if pkt.type != C.PUBLISH:
@@ -2227,14 +2253,15 @@ async def rules_load(results, filters) -> None:
     if eng._delta:
         eng.rebuild()
     # record each publish window as dispatch receives it (republished
-    # messages are published from inside a window: not recorded), and
-    # the time the rule engine takes per window
+    # messages are published from inside a window, the server's $SYS
+    # heartbeats in windows of their own: neither recorded), and the
+    # time the rule engine takes per window
     windows, lap = [], [0.0, 0]
     depth = [0]
     dispatch, apply_batch = broker.publish_dispatch, broker.rules.apply_batch
 
     def recording_dispatch(msgs, matched, rec=None):
-        if depth[0] == 0:
+        if depth[0] == 0 and not all(m.sys for m in msgs):
             windows.append([dataclasses.replace(m) for m in msgs])
         depth[0] += 1
         try:
@@ -2522,7 +2549,7 @@ async def shared_load(results, filters, device: str = "cuda") -> dict:
             except asyncio.TimeoutError:
                 fail(f"shared broker: deliveries owed per group {need}; "
                      f"received {[len(x) for x in got]}; metrics "
-                     f"{dict(broker.metrics)}")
+                     f"{broker.metrics.all()}")
             finally:
                 for t in tasks:
                     t.cancel()
@@ -2882,6 +2909,308 @@ async def retained_load(results, filters, device: str = "cuda") -> dict:
 def phase_retained(results, filters) -> None:
     phase("retained")
     results["retained"] = asyncio.run(retained_load(results, filters))
+
+
+# ------------------------------------------------------- access broker
+
+ACCESS_USERS = 100_000  # one of them the superuser
+ACCESS_DELAYED = 64
+ACCESS_CONNECTS, ACCESS_WAVE = 512, 64
+ACCESS_SUBS = tuple(f for f in SUB_FILTERS if f != "#")  # "#" is refused
+
+
+async def access_publish(cl, p: int, n: int) -> int:
+    """Publisher ``p`` (client ``ap{p}``, MQTT 5) sends ``n`` QoS 1
+    messages on ``raw/ap{p}/m{k % 16}``, every 8th on another client's
+    subtree, each payload ``p:k:send time``, at most 32 unacknowledged;
+    every refused one must come back PUBACK 0x87 and every other one
+    PUBACK 0.  Returns the refused count."""
+    C = cl.C
+    window = asyncio.Semaphore(32)
+    n_acked = refused = 0
+    want = {}
+
+    async def acks():
+        nonlocal n_acked, refused
+        while n_acked < n:
+            pkt = await asyncio.wait_for(cl.inbox.get(), 60)
+            if pkt is None or pkt.type != C.PUBACK:
+                fail(f"ap{p}: expected PUBACK, got {pkt!r}")
+            if pkt.reason_code != want.pop(pkt.packet_id):
+                fail(f"ap{p}: PUBACK {pkt.reason_code:#x} for packet "
+                     f"{pkt.packet_id}")
+            refused += pkt.reason_code == 0x87
+            n_acked += 1
+            window.release()
+
+    task = asyncio.get_running_loop().create_task(acks())
+    for k in range(n):
+        await window.acquire()
+        out = k % 8 == 7
+        topic = f"raw/{'x' if out else ''}ap{p}/m{k % 16}"
+        want[k % 65535 + 1] = 0x87 if out else 0
+        cl.send(C.Publish(topic=topic, qos=1, packet_id=k % 65535 + 1,
+                          payload=f"{p}:{k}:{time.perf_counter()!r}".encode()))
+        if k % 32 == 0:
+            await cl.writer.drain()
+    await task
+    return refused
+
+
+async def access_load(results, filters) -> dict:
+    """The broker phase's world behind the control surface: 1M
+    background filters, a `DictAuthenticator` of 100,000 users (one
+    superuser) with anonymous clients refused, the default-ACL world of
+    `workload.access_acl` (authz_default deny), the load rewrite
+    (raw/<client>/... onto load/<client>/...), `TopicMetrics` on
+    ``load/#`` and a 1 s ``$SYS`` heartbeat.  One bad password is
+    refused; 7 subscribers (the load's filters but ``#``, which the ACL
+    refuses) and a superuser ``$SYS/#`` watcher; 4 MQTT 5 publishers
+    send 1,000 QoS 1 messages each, every 8th outside their subtree
+    (PUBACK 0x87, never matched), after 64 ``$delayed/1/`` messages the
+    server's housekeeping releases; then 512 authenticated CONNECTs in
+    waves of 64, each timed to its CONNACK."""
+    from emqx_tpu_torch import workload as W
+    from emqx_tpu_torch.access import AclProvider, AclRule, DictAuthenticator
+    from emqx_tpu_torch.broker.listener import BrokerServer
+    from emqx_tpu_torch.config import BrokerConfig
+    from emqx_tpu_torch.modules import RewriteRule
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    cfg = BrokerConfig(bind="127.0.0.1", port=0)
+    cfg.mqtt.max_mqueue_len = 4 * N_PUB * N_MSG
+    cfg.auth.allow_anonymous = False
+    cfg.auth.authz_default = "deny"
+    cfg.sys.interval = 1
+    server = BrokerServer(cfg)
+    broker = server.broker
+    eng = broker.router.engine
+    t0 = time.perf_counter()
+    users = DictAuthenticator()
+    for i in range(ACCESS_USERS - 1):
+        users.add_user(f"u{i}", f"p{i}")
+    users.add_user("root", "rootpw", is_superuser=True)
+    broker.access.authenticators.append(users)
+    broker.access.authz_sources.append(AclProvider(
+        AclRule(*r) for r in W.access_acl(SUB_FILTERS)))
+    broker.rewrite.add_rule(RewriteRule(*W.ACCESS_REWRITE))
+    broker.topic_metrics.register("load/#")
+    t_users = time.perf_counter() - t0
+    eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    await server.start()
+    clients = []
+    try:
+        C = None
+        bad = Client(server.port, "bad", username="u1", password=b"nope")
+        await bad.connect(rc=4)  # 3.1.1: bad user name or password
+        await bad.close()
+        subs = []
+        for j, flt in enumerate(ACCESS_SUBS):
+            cl = Client(server.port, f"as{j}", username=f"u{j}",
+                        password=b"p%d" % j)
+            await cl.connect()
+            await cl.subscribe(flt, 1)
+            subs.append(cl)
+        C = subs[0].C
+        probe = Client(server.port, "aprobe", version=5, username="u99",
+                       password=b"p99")
+        await probe.connect()
+        probe.send(C.Subscribe(packet_id=1, subscriptions=[
+            C.Subscription(topic_filter=f, qos=0)
+            for f in ("#", "$SYS/#", "load/#")]))
+        ack = await probe.expect(C.SUBACK)
+        if ack.reason_codes != [0x87, 0x87, 0]:
+            fail(f"access broker: SUBACK {ack.reason_codes} for #, $SYS/#, "
+                 f"load/#")
+        await probe.close()
+        root = Client(server.port, "aroot", username="root",
+                      password=b"rootpw")
+        await root.connect()
+        await root.subscribe("$SYS/#", 0)
+        eng.rebuild()
+        print(f"access broker: {ACCESS_USERS} users ({t_users:.1f} s), "
+              f"{len(filters)} background filters + {len(subs)} subscriber "
+              f"filters on the card ({eng._aut.n_nodes} nodes) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        pubs = []
+        for p in range(N_PUB):
+            cl = Client(server.port, f"ap{p}", version=5,
+                        username=f"u{100 + p}", password=b"p%d" % (100 + p))
+            await cl.connect()
+            pubs.append(cl)
+        accepted = N_PUB * (N_MSG - N_MSG // 8)
+        expected = accepted + ACCESS_DELAYED
+        seen = [set() for _ in subs]
+        lat = []
+        heartbeats = [0]
+
+        async def consume(j, cl):
+            while len(seen[j]) < expected:
+                try:
+                    pkt = await asyncio.wait_for(cl.inbox.get(), 60)
+                except asyncio.TimeoutError:
+                    fail(f"as{j} stalled at {len(seen[j])} of {expected}; "
+                         f"metrics {broker.metrics.all()}")
+                if pkt is None:
+                    fail(f"as{j} disconnected")
+                if pkt.type != C.PUBLISH:
+                    continue
+                cl.send(C.Puback(packet_id=pkt.packet_id))
+                p, k, ts = pkt.payload.split(b":")
+                key = (int(p), int(k))
+                if key in seen[j]:
+                    fail(f"as{j} got message {key} twice")
+                if key[1] < N_MSG and key[1] % 8 == 7:
+                    fail(f"as{j} got the refused message {key}")
+                seen[j].add(key)
+                if key[1] < N_MSG:
+                    lat.append(time.perf_counter() - float(ts))
+
+        async def watch():
+            while True:
+                pkt = await root.inbox.get()
+                if pkt is None:
+                    fail("the $SYS watcher disconnected")
+                if pkt.type == C.PUBLISH and pkt.topic.endswith("/uptime"):
+                    heartbeats[0] += 1
+
+        watcher = asyncio.get_running_loop().create_task(watch())
+        decides = eng.counters["decide_windows"]
+        mk.reset_launches()  # counts of the access path start here
+        t0 = time.perf_counter()
+        # the delayed ones first: the housekeeping releases them while
+        # the load runs
+        for k in range(ACCESS_DELAYED):
+            pubs[0].send(C.Publish(
+                topic=f"$delayed/1/raw/ap0/d{k}", qos=1,
+                packet_id=60000 + k,
+                payload=f"0:{N_MSG + k}:{time.perf_counter()!r}".encode()))
+        for k in range(ACCESS_DELAYED):
+            ack = await pubs[0].expect(C.PUBACK)
+            if ack.reason_code != 0x10:  # swallowed: no subscriber yet
+                fail(f"access broker: $delayed PUBACK {ack.reason_code:#x}")
+        refused = await asyncio.wait_for(asyncio.gather(
+            *(consume(j, cl) for j, cl in enumerate(subs)),
+            *(access_publish(cl, p, N_MSG) for p, cl in enumerate(pubs)),
+        ), 600)
+        wall = time.perf_counter() - t0
+        launches = mk.launches()
+        decides = eng.counters["decide_windows"] - decides
+        n_refused = sum(r for r in refused if r is not None)
+        if n_refused != N_PUB * (N_MSG // 8):
+            fail(f"access broker: {n_refused} publishes refused")
+        for k in ("match_batch_compact", "decide_packed"):
+            if launches[k] < 1:
+                fail(f"access broker: {k} never launched: {launches}")
+        if launches["decide_packed"] != decides:
+            fail(f"access broker: {launches['decide_packed']} K3 launches "
+                 f"for {decides} decide windows")
+        delayed = [sum(1 for _p, k in s if k >= N_MSG) for s in seen]
+        if delayed != [ACCESS_DELAYED] * len(subs) or len(broker.delayed):
+            fail(f"access broker: delayed deliveries {delayed}, "
+                 f"{len(broker.delayed)} still held")
+        tm = broker.topic_metrics.info()[0]
+        if (tm["messages.in"] != expected
+                or tm["messages.out"] != expected * len(subs)):
+            fail(f"access broker: topic metrics {tm} for {expected} "
+                 f"publishes and {expected * len(subs)} deliveries")
+        m = broker.metrics
+        if m["delivery.dropped"]:
+            fail(f"access broker dropped {m['delivery.dropped']} deliveries")
+        if not heartbeats[0]:
+            fail("access broker: no $SYS heartbeat reached the watcher")
+        lat.sort()
+        p50, p99 = (lat[int(len(lat) * q)] * 1e3 for q in (0.5, 0.99))
+        n_del = expected * len(subs)
+        base = results["native"]["broker"]["native"][0]["msgs_per_s"]
+        print(f"access broker: {N_PUB * N_MSG} QoS 1 publishes ({n_refused} "
+              f"refused with PUBACK 0x87, never matched) and "
+              f"{ACCESS_DELAYED} delayed in {wall:.3f} s: "
+              f"{N_PUB * N_MSG / wall:.1f} publishes/s, "
+              f"{accepted / wall:.1f} msgs/s in (the broker phase: "
+              f"{base:.1f} msgs/s in, ratio {accepted / wall / base:.3f}), "
+              f"{n_del / wall:.1f} deliveries/s; every accepted and every "
+              f"delayed message delivered exactly once to {len(subs)} "
+              f"subscribers; delivery latency p50 {p50:.3f} ms p99 "
+              f"{p99:.3f} ms; TopicMetrics load/# in {tm['messages.in']} "
+              f"out {tm['messages.out']}; $SYS heartbeats received "
+              f"{heartbeats[0]}; {decides} decide windows; launches "
+              f"{launches} [{results['card']}]", flush=True)
+        print(f"access broker: authorization allow "
+              f"{m['authorization.allow']} deny {m['authorization.deny']}, "
+              f"messages.delayed {m['messages.delayed']}, connects refused "
+              f"{m['client.connect'] - m['client.connected']}", flush=True)
+        stages = stage_medians("access broker", broker.profiler)
+        watcher.cancel()
+        for cl in subs + pubs + [root]:
+            await cl.close()
+        # authenticated CONNECTs, timed CONNECT -> CONNACK
+        conn_ms = []
+        t0 = time.perf_counter()
+        for w in range(0, ACCESS_CONNECTS, ACCESS_WAVE):
+            wave = [Client(server.port, f"ac{i}", username=f"u{1000 + i}",
+                           password=b"p%d" % (1000 + i))
+                    for i in range(w, w + ACCESS_WAVE)]
+
+            async def timed(cl):
+                t = time.perf_counter()
+                await cl.connect()
+                conn_ms.append((time.perf_counter() - t) * 1e3)
+
+            await asyncio.gather(*(timed(cl) for cl in wave))
+            for cl in wave:
+                await cl.close()
+        conn_wall = time.perf_counter() - t0
+        conn_ms.sort()
+        c50, c99 = (conn_ms[int(len(conn_ms) * q)] for q in (0.5, 0.99))
+        print(f"access broker: {ACCESS_CONNECTS} authenticated CONNECTs "
+              f"(salted SHA-256 over {ACCESS_USERS} users) in waves of "
+              f"{ACCESS_WAVE}: CONNECT->CONNACK p50 {c50:.3f} ms p99 "
+              f"{c99:.3f} ms, {ACCESS_CONNECTS / conn_wall:.1f} connects/s "
+              f"(closes included) [{results['card']}]", flush=True)
+    finally:
+        await server.stop()
+    for name, k in (("match_batch_compact", "match_batch_compact"),
+                    ("decide_batch", "decide_packed")):
+        results["kernels"][name]["access"] = {"launches": launches[k]}
+    return {"publishes_per_s": N_PUB * N_MSG / wall,
+            "msgs_per_s": accepted / wall, "deliveries_per_s": n_del / wall,
+            "broker_msgs_per_s": base, "p50_ms": p50, "p99_ms": p99,
+            "connect_p50_ms": c50, "connect_p99_ms": c99,
+            "connects_per_s": ACCESS_CONNECTS / conn_wall,
+            "heartbeats": heartbeats[0], "topic_metrics": tm,
+            "stages": stages}
+
+
+def access_parity(results) -> None:
+    """The same seeded access world (`workload.access_script`) through
+    ``Broker(device="cuda")`` and ``Broker(device="cpu")``: equal wire
+    bytes to every client and equal topic metrics."""
+    import numpy as np
+
+    from emqx_tpu_torch import workload as W
+
+    subs, msgs = W.access_script(np.random.default_rng(13), 96, 1536)
+    t0 = time.perf_counter()
+    card, tm_card, _ = W.access_world("cuda", subs, msgs)
+    cpu, tm_cpu, _ = W.access_world("cpu", subs, msgs)
+    bad = [cid for cid in card if card[cid] != cpu[cid]]
+    if bad or tm_card != tm_cpu:
+        fail(f"access parity: the card's bytes differ from the CPU's for "
+             f"{len(bad)} clients, e.g. {bad[:3]}; topic metrics "
+             f"{tm_card} vs {tm_cpu}")
+    print(f"access parity: {len(subs)} authenticated clients, {len(msgs)} "
+          f"publishes through their channels (ACL, rewrite, delayed, topic "
+          f"metrics {tm_card}): the card's broker writes the CPU broker's "
+          f"{sum(map(len, card.values()))} bytes "
+          f"({time.perf_counter() - t0:.1f} s) [{results['card']}]",
+          flush=True)
+
+
+def phase_access_broker(results, filters) -> None:
+    phase("access broker")
+    results["access"] = asyncio.run(access_load(results, filters))
+    access_parity(results)
 
 
 # ------------------------------------------------------ native host path
@@ -3308,6 +3637,7 @@ def main() -> None:
     phase_main_shapes(results)
     phase_shared_broker(results, filters)
     phase_retained(results, filters)
+    phase_access_broker(results, filters)
 
     phase("kernels")
     rows = []
@@ -3321,13 +3651,14 @@ def main() -> None:
             "wrapper_ms": k["wrapper_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
-            **{x: k[x] for x in ("main_path", "churn", "shared", "stress",
-                                 "empty_launch_ms") if x in k},
+            **{x: k[x] for x in ("main_path", "churn", "shared", "access",
+                                 "stress", "empty_launch_ms") if x in k},
         })
     print(f"native summary: {json.dumps(results['native'])}", flush=True)
     print(f"churn summary: {json.dumps(results['churn'])}", flush=True)
     print(f"shared summary: {json.dumps(results['shared'])}", flush=True)
     print(f"retained summary: {json.dumps(results['retained'])}", flush=True)
+    print(f"access summary: {json.dumps(results['access'])}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,4 +14,10 @@ Layout:
   engine      — MatchEngine: exact index + wildcard automaton + residual
   router      — subscription registry + CSR fan-out columns
   broker      — sessions, channels, connections, listener, dispatch
+  hooks, metrics, access, auth_providers, ops_guard, limiter,
+  modules, sys_topics, retainer
+              — the broker's control surface: hook chains, counters,
+                authentication and ACL, bans, flapping, alarms, slow
+                subs, rate limits, delayed publish, topic rewrite and
+                metrics, $SYS heartbeats, retained messages
 """

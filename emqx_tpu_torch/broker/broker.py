@@ -2,8 +2,14 @@
 
 ``publish_many`` routes a window of messages through these stages:
 
-  0. prepare — ingress accounting, and the retained store
-     (`Retainer.store`) of every retained publish, before the match;
+  0. prepare — the ``message.publish`` hook fold of each message, on
+     its own (`DelayedPublish` swallows ``$delayed/`` publishes,
+     `TopicRewrite` rewrites topics, `TopicMetrics` counts; a message
+     the fold swallows counts as dropped, one whose fold raises as a
+     publish error), then ingress accounting and the retained store
+     (`Retainer.store`) of every surviving retained publish: the
+     fold's result, not the original, goes on to the retainer and the
+     match;
   1. match — `MatchEngine.match_batch_submit/finish`: one compact match
      kernel launch for the window's distinct topics, codes expanded to
      filters on the host, the host tiers overlaid;
@@ -20,7 +26,10 @@
      such run's wire (`ops.dispatchasm.assemble_window`); runs the
      native path does not take (subscription identifiers, no inflight
      room, ``native=False``) go through `Session.deliver_decided`.
-     Each connection gets one corked write;
+     Each connection gets one corked write.  A connected run's
+     ``(msg, opts)`` list is built only when a ``message.delivered``
+     hook is registered (`_materialize_run`), and its publishes older
+     than the slow-subscriber threshold go to `SlowSubs`;
   4. rules — the window's rule hits (rule fids the match returned
      beside the subscriptions) run through `RuleEngine.apply_batch`:
      one rules x window WHERE matrix kernel launch, then the actions.
@@ -37,6 +46,14 @@ accumulation), ``prepare``, ``match_submit``, ``match_wait``,
 native ``assemble`` share), ``flush`` and ``rules``, plus the engine's
 ``tokenize`` and its rebuild and upload events;
 ``Broker.profiler.summary()`` reads them.
+
+The broker's control surface sits beside the path: the hook registry
+(``hooks``), ``metrics`` and ``stats``, ``access`` (authentication and
+authorization, run by the channel), ``banned``, ``flapping``,
+``alarms``, ``slow_subs``, the zone rate limiter, and the modules.
+``tick(now)`` is the 1 Hz housekeeping: delayed wills, delayed
+publishes, topic-metric rates, alarm expiry, slow-subscriber expiry and
+session expiry.
 """
 
 from __future__ import annotations
@@ -49,16 +66,21 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from ..access import AccessControl
 from ..codec import mqtt as C
 from ..config import BrokerConfig
 from ..engine import MatchEngine
+from ..hooks import HookRegistry
+from ..limiter import ConnectionLimiter
 from ..message import Message
-from ..modules import ExclusiveSub
+from ..metrics import Metrics, Stats
+from ..modules import DelayedPublish, ExclusiveSub, TopicMetrics, TopicRewrite
 from ..observability import Profiler
 from ..ops import dispatchasm
 from ..ops.match_kernel import (
     DEC_DROP_BIT, DEC_QMAX_SHIFT, DEC_RETAIN_BIT, DEC_SUBID_BIT,
 )
+from ..ops_guard import AlarmRegistry, BannedList, FlappingDetector, SlowSubs
 from ..retainer import Retainer
 from ..router import Router
 from ..rules.engine import RuleEngine
@@ -67,14 +89,6 @@ from .session import Session, SubOpts
 from .shared import SharedSubManager
 
 log = logging.getLogger("emqx_tpu_torch.broker")
-
-
-class Metrics(Counter):
-    """Named counters."""
-
-    def inc(self, name: str, n: int = 1) -> None:
-        self[name] += n
-
 
 class Broker:
     """``native`` (the default) runs the C++ host path — the engine's
@@ -88,7 +102,9 @@ class Broker:
         native: bool = True, shared_strategy: str = "random",
     ) -> None:
         self.config = config or BrokerConfig()
+        self.hooks = HookRegistry()
         self.metrics = Metrics()
+        self.stats = Stats()
         eng = self.config.engine
         self.native = native
         self.router = Router(MatchEngine(
@@ -115,21 +131,60 @@ class Broker:
             msg_expiry_interval=ret.msg_expiry_interval,
             enable=ret.enable,
         )
-        self.exclusive = ExclusiveSub()
+        auth = self.config.auth
+        self.access = AccessControl(
+            hooks=self.hooks,
+            allow_anonymous=auth.allow_anonymous,
+            authz_default=auth.authz_default,
+            deny_action=auth.deny_action,
+        )
         self.cm = ConnectionManager(self._make_session)
         self.cm.on_discarded = self._session_discarded
+        self.cm.on_takenover = (
+            lambda s: self.metrics.inc("session.takenover"))
         self.rules = RuleEngine(broker=self)
+        # message.publish fold order: delayed (100), rewrite (90),
+        # topic metrics (5)
+        self.delayed = DelayedPublish(self)
+        self.rewrite = TopicRewrite(self)
+        self.exclusive = ExclusiveSub()
+        self.topic_metrics = TopicMetrics(self)
+        self.alarms = AlarmRegistry(self)
+        self.banned = BannedList()
+        fl = self.config.flapping
+        self.flapping = FlappingDetector(
+            self.banned, max_count=fl.max_count, window=fl.window,
+            ban_time=fl.ban_time, enable=fl.enable,
+        )
+        ss = self.config.slow_subs
+        self.slow_subs = SlowSubs(
+            top_k=ss.top_k,
+            # disabled = a threshold no delivery reaches: the dispatch
+            # path's one compare a window then never scans a run
+            threshold_ms=ss.threshold_ms if ss.enable else float("inf"),
+            expire_interval=ss.expire_interval,
+        )
+        # node/zone-aggregate ingress limiter (top of the hierarchy)
+        self.zone_limiter: Optional[ConnectionLimiter] = None
+        mq = self.config.mqtt
+        if mq.zone_messages_rate > 0 or mq.zone_bytes_rate > 0:
+            self.zone_limiter = ConnectionLimiter(
+                messages_rate=mq.zone_messages_rate,
+                bytes_rate=mq.zone_bytes_rate, shared=True,
+            )
         # live micro-batcher, installed by the server (needs a loop);
         # without one, channels publish synchronously
         self.batcher: Optional[PublishBatcher] = None
-        # clientid -> timer handle of a delayed will (MQTT 5)
-        self._pending_wills: Dict[str, asyncio.TimerHandle] = {}
+        # clientid -> (fire at, will message): MQTT 5 delayed wills,
+        # fired by `tick`
+        self._pending_wills: Dict[str, Tuple[float, Message]] = {}
 
     # -------------------------------------------------- session setup
 
     def _make_session(self, clientid: str, clean_start: bool, **kw) -> Session:
         mqtt = self.config.mqtt
         self.metrics.inc("session.created")
+        self.hooks.run("session.created", clientid)
         session = Session(
             clientid=clientid,
             clean_start=clean_start,
@@ -151,6 +206,7 @@ class Broker:
         def on_dropped(msg: Message, reason: str) -> None:
             self.metrics.inc("delivery.dropped")
             self.metrics.inc(f"delivery.dropped.{reason}")
+            self.hooks.run("delivery.dropped", clientid, msg, reason)
 
         session.on_dropped = on_dropped
         return session
@@ -159,6 +215,7 @@ class Broker:
         self.metrics.inc("session.discarded")
         self.router.cleanup_client(session.clientid)
         self.exclusive.release_all(session.clientid)
+        self.hooks.run("session.discarded", session.clientid)
 
     def session_terminated(self, clientid: str, session: Session) -> None:
         """A session ending with expiry <= 0: drop its router state and
@@ -174,6 +231,9 @@ class Broker:
         """Register the subscription; returns the retained messages to
         replay per retain_handling ([MQTT-3.3.1-9..11])."""
         self.router.subscribe(clientid, flt, opts)
+        self.hooks.run("session.subscribed", clientid, flt, opts)
+        self.stats.set("subscriptions.count",
+                       self.router.subscription_count())
         if opts.share_group is not None:
             return []  # retained never replay to shared subs [MQTT-4.8.2-27]
         rh = opts.retain_handling
@@ -182,24 +242,41 @@ class Broker:
         return self.retainer.match(flt)
 
     def unsubscribe(self, clientid: str, flt: str) -> bool:
-        return self.router.unsubscribe(clientid, flt)
+        ok = self.router.unsubscribe(clientid, flt)
+        if ok:
+            self.hooks.run("session.unsubscribed", clientid, flt)
+            self.stats.set("subscriptions.count",
+                           self.router.subscription_count())
+        return ok
 
     # ------------------------------------------------------- wills
 
     def schedule_will(self, clientid: str, will: Message,
                       delay: float) -> None:
-        self.cancel_will(clientid)
-        self._pending_wills[clientid] = asyncio.get_running_loop(
-        ).call_later(delay, self._fire_will, clientid, will)
-
-    def _fire_will(self, clientid: str, will: Message) -> None:
-        self._pending_wills.pop(clientid, None)
-        self.publish(will)
+        """Hold a will for will_delay_interval seconds
+        ([MQTT-3.1.3.2.2]); `tick` fires it, a reconnect cancels it."""
+        self._pending_wills[clientid] = (time.time() + delay, will)
 
     def cancel_will(self, clientid: str) -> None:
-        handle = self._pending_wills.pop(clientid, None)
-        if handle is not None:
-            handle.cancel()
+        self._pending_wills.pop(clientid, None)
+
+    # ------------------------------------------------- housekeeping
+
+    def tick(self, now: Optional[float] = None) -> None:
+        """The 1 Hz housekeeping (the server's timer, or a test's
+        injected clock): due wills, due delayed publishes, topic-metric
+        rates, alarm expiry, slow-subscriber expiry, session expiry."""
+        now = now if now is not None else time.time()
+        due = [cid for cid, (at, _) in self._pending_wills.items()
+               if now >= at]
+        for cid in due:
+            _, will = self._pending_wills.pop(cid)
+            self.publish(will)
+        self.delayed.tick(now)
+        self.topic_metrics.tick(now)
+        self.alarms.tick(now)
+        self.slow_subs.tick(now)
+        self.cm.expire_sessions(now)
 
     # ------------------------------------------------------ publish
 
@@ -210,21 +287,52 @@ class Broker:
     def publish_many(self, msgs: Sequence[Message]) -> List[int]:
         """Route a window: all topics matched in one kernel launch."""
         rec = self.profiler.begin(len(msgs))
-        self.publish_prepare(msgs)
+        live, results = self.publish_prepare(msgs)
         if rec is not None:
             rec.lap("prepare")
-        return self.publish_dispatch(msgs, self.publish_match_finish(
-            self.publish_match_submit(msgs, rec)), rec)
+        return merge_counts(results, self.publish_dispatch(
+            live, self.publish_match_finish(
+                self.publish_match_submit(live, rec)), rec))
 
-    def publish_prepare(self, msgs: Sequence[Message]) -> None:
-        """Stage 0 (loop thread): the window's ingress accounting, and
-        the retained store of its retained publishes (an empty payload
-        deletes)."""
-        self.metrics.inc("messages.publish", len(msgs))
+    def publish_prepare(
+        self, msgs: Sequence[Message]
+    ) -> Tuple[List[Message], List[Optional[int]]]:
+        """Stage 0 (loop thread): each message's ``message.publish``
+        fold on its own (one failing hook does not fail the window).  A
+        swallowed message is dropped (``message.dropped`` by_hook); the
+        fold's result is stored when retained (an empty payload deletes)
+        and goes on to the match.  Returns the messages that go on, and
+        a count per input message: 0 where the fold swallowed it or
+        failed, None where dispatch fills it in."""
+        live: List[Message] = []
+        results: List[Optional[int]] = []
         for msg in msgs:
-            if msg.retain and not msg.sys:
-                if self.retainer.store(msg) and msg.payload:
-                    self.metrics.inc("messages.retained")
+            try:
+                out = self.hooks.run_fold("message.publish", (), msg)
+            except Exception:
+                log.exception("publish prepare failed for %s", msg.topic)
+                self.metrics.inc("messages.publish.error")
+                results.append(0)
+                continue
+            if out is None:
+                self.metrics.inc("messages.dropped")
+                self.hooks.run("message.dropped", msg, "by_hook")
+                results.append(0)
+                continue
+            msg = out  # type: ignore[assignment]
+            try:
+                self.metrics.inc("messages.publish")
+                if msg.retain and not msg.sys:
+                    if self.retainer.store(msg) and msg.payload:
+                        self.metrics.inc("messages.retained")
+            except Exception:
+                log.exception("publish prepare failed for %s", msg.topic)
+                self.metrics.inc("messages.publish.error")
+                results.append(0)
+                continue
+            live.append(msg)
+            results.append(None)
+        return live, results
 
     def publish_match_submit(self, msgs: Sequence[Message], rec=None):
         """Stage 1a (any thread): launch the window's match.  ``rec``,
@@ -325,6 +433,16 @@ class Broker:
         corked: List = []
         n_clients = 0
         assemble_s = 0.0
+        # one registry probe a window: without a message.delivered hook
+        # no run builds its (msg, opts) list
+        deliver_hook = self.hooks.has("message.delivered")
+        # one clock read a window; runs are scanned for slow deliveries
+        # only when the window's oldest publish is past the threshold
+        now_w = time.time()
+        floor = now_w - self.slow_subs.threshold_ms / 1000.0
+        ts_min = min((m.timestamp for m in msgs if m.timestamp),
+                     default=0.0)
+        slow_floor = floor if ts_min and ts_min < floor else None
         try:
             if len(rows):
                 order = np.lexsort((msg_idx, rows))
@@ -353,7 +471,7 @@ class Broker:
                     try:
                         kept = self._deliver_run(
                             clientid, msgs, k, e, dec, enc, mloc, corked,
-                            plan,
+                            plan, deliver_hook, now_w, slow_floor,
                         )
                     except Exception:
                         log.exception("dispatch to %s failed", clientid)
@@ -392,11 +510,17 @@ class Broker:
                 rec.e2e_ms.extend(
                     (now - m.timestamp) * 1e3
                     for m, c in zip(msgs, counts) if c and m.timestamp)
-        n_none = n - len(np.unique(msg_idx))
-        if n_none:
-            mloc["messages.dropped"] += n_none
-            mloc["messages.dropped.no_subscribers"] += n_none
-        self.metrics.update(mloc)
+        touched = np.zeros(n, bool)
+        touched[msg_idx] = True
+        none = np.flatnonzero(~touched).tolist()
+        if none:
+            mloc["messages.dropped"] += len(none)
+            mloc["messages.dropped.no_subscribers"] += len(none)
+            if self.hooks.has("message.dropped"):
+                for i in none:
+                    self.hooks.run("message.dropped", msgs[i],
+                                   "no_subscribers")
+        self.metrics.inc_bulk(mloc)
         return counts
 
     def _shared_pick(
@@ -462,12 +586,15 @@ class Broker:
     def _deliver_run(
         self, clientid: str, msgs, k: int, e: int, dec: "_Decided",
         enc: "C.DispatchEncoder", mloc: Counter, corked: List,
-        plan: Optional[List],
+        plan: Optional[List], deliver_hook: bool, now: float,
+        slow_floor: Optional[float],
     ):
         """Deliver one client's slice ``[k, e)`` of the window from its
         decided columns.  Returns the 0/1 count per delivery (an array),
         1 when every delivery counts, or None when the run joined the
-        native splice ``plan`` (it counts once the splice succeeds)."""
+        native splice ``plan`` (it counts once the splice succeeds).  A
+        connected run then feeds the ``message.delivered`` hook (only
+        when ``deliver_hook``) and, past ``slow_floor``, `SlowSubs`."""
         nd = e - k
         session = self.cm.lookup(clientid)
         if session is None:
@@ -477,28 +604,54 @@ class Broker:
         channel = self.cm.channel(clientid)
         if channel is None:
             return self._queue_detached_run(
-                session, dec.decided(msgs, self.router, eff, k, e),
+                session, clientid, dec.decided(msgs, self.router, eff, k, e),
                 dec.drop[k:e], mloc)
         channel.cork()
         corked.append(channel)
+        kept = 1
+        run = None
         if plan is not None and not dec.subid[k:e].any():
             run = session.deliver_run_native(
                 msgs, dec.sm[k:e], eff[k:e], dec.retain[k:e],
                 dec.drop[k:e], enc, channel.version)
-            if run is not None:
-                body, pid, npub = run
-                if len(body) == 0:
-                    return 1  # every delivery dropped: no wire
+        if run is not None:
+            body, pid, npub = run
+            if len(body):  # else every delivery dropped: no wire
                 plan.append((body, pid, channel, npub, k, e))
-                return None
-        channel.send_packets(session.deliver_decided(
-            dec.decided(msgs, self.router, eff, k, e), encoder=enc,
-            version=channel.version,
-        ))
-        return 1
+                kept = None
+        else:
+            channel.send_packets(session.deliver_decided(
+                dec.decided(msgs, self.router, eff, k, e), encoder=enc,
+                version=channel.version,
+            ))
+        if deliver_hook:
+            self.hooks.run("message.delivered", clientid,
+                           self._materialize_run(msgs, dec, k, e))
+        if slow_floor is not None:
+            self._slow_scan_run(clientid, map(msgs.__getitem__,
+                                              dec.sm[k:e].tolist()),
+                                now, slow_floor)
+        return kept
+
+    def _materialize_run(self, msgs, dec: "_Decided", k: int, e: int):
+        """One connected run's ``[(msg, opts)]`` list, every delivery of
+        ``[k, e)`` (no-local drops included), for the
+        ``message.delivered`` hook: built only when one is registered."""
+        opts_at = self.router.opts_at
+        return [(msgs[i], opts_at(o)) for i, o in zip(
+            dec.sm[k:e].tolist(), dec.so[k:e].tolist())]
+
+    def _slow_scan_run(self, clientid: str, run_msgs, now: float,
+                       floor: float) -> None:
+        """Record the run's deliveries published before ``floor``."""
+        slow = self.slow_subs
+        for m in run_msgs:
+            if m.timestamp and m.timestamp < floor:
+                slow.record(clientid, m.topic, (now - m.timestamp) * 1e3)
 
     def _queue_detached_run(
-        self, session: Session, decided, drop: np.ndarray, mloc: Counter
+        self, session: Session, clientid: str, decided, drop: np.ndarray,
+        mloc: Counter,
     ) -> np.ndarray:
         """Queue a DETACHED persistent session's run: QoS>0 queued (the
         effective QoS and subscription options baked into the queued
@@ -512,13 +665,23 @@ class Broker:
             dropped = session.mqueue.insert(session._queued(m, opts, qos))
             if dropped is not None:
                 mloc["delivery.dropped.queue_full"] += 1
+                self.hooks.run("delivery.dropped", clientid, dropped,
+                               "queue_full")
             kept[t] = 1
         return kept
 
     def shutdown(self) -> None:
-        for handle in self._pending_wills.values():
-            handle.cancel()
         self._pending_wills.clear()
+
+
+def merge_counts(results: List[Optional[int]],
+                 counts: Sequence[int]) -> List[int]:
+    """A window's delivery count per input message: ``results`` from
+    `Broker.publish_prepare`, each None (a message that went on to the
+    match) filled with the next of ``counts``, dispatch's counts for
+    those messages in order."""
+    it = iter(counts)
+    return [next(it) if r is None else r for r in results]
 
 
 class _Decided:
@@ -657,14 +820,24 @@ class PublishBatcher:
                 if rec is not None:
                     rec.n_msgs = len(batch)
                     rec.lap("batch_wait")
-                self.broker.publish_prepare(msgs)
-                if rec is not None:
-                    rec.lap("prepare")
                 self._inflight += len(batch)
-                match_fut = loop.run_in_executor(
-                    None, self.broker.publish_match_submit, msgs, rec
-                )
-                await inflight.put((batch, msgs, match_fut, rec))
+                try:
+                    # the publish fold and the retained store mutate
+                    # broker state: loop thread, window order
+                    live, results = self.broker.publish_prepare(msgs)
+                    if rec is not None:
+                        rec.lap("prepare")
+                    match_fut = loop.run_in_executor(
+                        None, self.broker.publish_match_submit, live, rec
+                    )
+                except Exception as exc:
+                    self._inflight -= len(batch)
+                    log.exception("publish window of %d failed in prepare",
+                                  len(batch))
+                    self._fail(batch, exc)
+                    self._maybe_release()
+                    continue
+                await inflight.put((batch, live, results, match_fut, rec))
         finally:
             self._dispatch_task.cancel()
             try:
@@ -673,7 +846,7 @@ class PublishBatcher:
                 pass
             exc = ConnectionError("broker stopping")
             while not inflight.empty():
-                batch, _msgs, match_fut, _rec = inflight.get_nowait()
+                batch, _live, _res, match_fut, _rec = inflight.get_nowait()
                 match_fut.cancel()
                 self._fail(batch, exc)
             self._fail(list(self._queue), exc)
@@ -689,7 +862,7 @@ class PublishBatcher:
     async def _dispatch_loop(self, inflight: asyncio.Queue) -> None:
         loop = asyncio.get_running_loop()
         while True:
-            batch, msgs, match_fut, rec = await inflight.get()
+            batch, live, results, match_fut, rec = await inflight.get()
             try:
                 try:
                     handle = await match_fut
@@ -698,7 +871,8 @@ class PublishBatcher:
                     )
                 finally:
                     self._inflight -= len(batch)
-                counts = self.broker.publish_dispatch(msgs, matched, rec)
+                counts = merge_counts(results, self.broker.publish_dispatch(
+                    live, matched, rec))
             except asyncio.CancelledError:
                 raise
             except Exception as exc:

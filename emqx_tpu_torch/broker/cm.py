@@ -40,6 +40,8 @@ class ConnectionManager:
         self._session_factory = session_factory
         # wired by the broker: a discarded session's router state goes
         self.on_discarded: Optional[Callable[[Session], None]] = None
+        # wired by the broker: counts a session a new channel took over
+        self.on_takenover: Optional[Callable[[Session], None]] = None
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -78,6 +80,8 @@ class ConnectionManager:
         if existing is not None:
             if existing.channel is not None:
                 existing.channel.close("takenover")
+                if self.on_takenover:
+                    self.on_takenover(existing.session)
             if clean_start:
                 if self.on_discarded:
                     self.on_discarded(existing.session)

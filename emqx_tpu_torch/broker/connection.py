@@ -2,14 +2,18 @@
 
 Reads socket chunks into the incremental `StreamParser`, feeds packets
 to the channel state machine, serializes outgoing packets, and drives
-the keepalive / retry timers.
+the keepalive / retry timers.  With a ``limiter`` (the listener's
+`HierarchicalLimiter` or one `ConnectionLimiter`) each read's bytes and
+each PUBLISH draw from its buckets, and the read loop sleeps the
+deficit (in 1 s slices) before it goes on: the client is throttled
+through TCP backpressure, never disconnected.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
-from typing import List
+from typing import List, Optional
 
 from ..codec import mqtt as C
 from .broker import Broker
@@ -26,14 +30,18 @@ class Connection:
         broker: Broker,
         reader: asyncio.StreamReader,
         writer: asyncio.StreamWriter,
+        mountpoint: Optional[str] = None,
+        limiter=None,
     ) -> None:
         self.broker = broker
         self.reader = reader
         self.writer = writer
+        self.limiter = limiter
         peername = writer.get_extra_info("peername")
         peer = f"{peername[0]}:{peername[1]}" if peername else "?"
         self.channel = Channel(
-            broker, send=self._send_packets, close=self._close, peer=peer
+            broker, send=self._send_packets, close=self._close, peer=peer,
+            mountpoint=mountpoint,
         )
         self.parser = C.StreamParser(
             max_packet_size=broker.config.mqtt.max_packet_size
@@ -74,16 +82,32 @@ class Connection:
                 if not data:
                     break
                 self.broker.metrics.inc("bytes.received", len(data))
-                for pkt in self.parser.feed(data):
-                    self.channel.handle_in(pkt)
-                    if self._closed.is_set():
-                        break
+                if self.limiter is None:
+                    for pkt in self.parser.feed(data):
+                        self.channel.handle_in(pkt)
+                        if self._closed.is_set():
+                            break
+                else:
+                    # inside the packet loop: one read may carry a whole
+                    # flood, so pausing only the next read would let it
+                    # through
+                    await self._limit(len(data), 0)
+                    for pkt in self.parser.feed(data):
+                        if pkt.type == C.PUBLISH:
+                            await self._limit(0, 1)
+                        self.channel.handle_in(pkt)
+                        if self._closed.is_set():
+                            break
                 await self._drain()
                 batcher = self.broker.batcher
                 if batcher is not None and batcher.congested():
                     # stop reading until the publish queue drains: TCP
                     # backpressure reaches the client
                     await batcher.wait_uncongested()
+                if self.channel.defer_saturated:
+                    # the async-verdict chain sits before the batcher:
+                    # a flood must pause on it too
+                    await self.channel.wait_defer_drain()
         except C.MqttError as exc:
             log.debug("codec error from %s: %s", self.channel.peer, exc)
             reason = "frame_error"
@@ -100,6 +124,21 @@ class Connection:
                 await self.writer.wait_closed()
             except (ConnectionError, asyncio.CancelledError):
                 pass
+
+    async def _limit(self, n_bytes: int, n_messages: int) -> None:
+        """Draw from the limiter and sleep the whole deficit (shared
+        listener and zone buckets hand out long waits under contention:
+        cutting them short would let the aggregate rate grow with the
+        number of connections), in 1 s slices so a close stays
+        prompt."""
+        delay = self.limiter.consume(n_bytes, n_messages)
+        if delay <= 0:
+            return
+        self.broker.metrics.inc("connection.rate_limited")
+        while delay > 0 and not self._closed.is_set():
+            step = min(delay, 1.0)
+            await asyncio.sleep(step)
+            delay -= step
 
     async def _drain(self) -> None:
         try:

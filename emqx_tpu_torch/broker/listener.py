@@ -6,6 +6,12 @@
 without a card; ``--device cpu`` runs the plain PyTorch versions.
 ``--port 0`` binds a free port.  The server prints one line with the
 address it listens on once it accepts connections.
+
+The server gives each connection the listener's mountpoint and its
+limiter (`HierarchicalLimiter`: the connection's own buckets, the
+listener's shared ones, the broker's zone buckets), publishes the
+``$SYS`` heartbeats (`SysTopics`) and runs the 1 Hz housekeeping:
+``Broker.tick`` and ``SysTopics.tick``.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import sys
 from typing import List, Optional, Set
 
 from ..config import BrokerConfig
+from ..limiter import ConnectionLimiter, HierarchicalLimiter
+from ..sys_topics import SysTopics
 from .broker import Broker, PublishBatcher
 from .connection import Connection
 
@@ -24,11 +32,21 @@ log = logging.getLogger("emqx_tpu_torch.listener")
 
 
 class BrokerServer:
-    """A broker, its publish batcher and one TCP listener."""
+    """A broker, its publish batcher, its ``$SYS`` heartbeats and one
+    TCP listener."""
 
     def __init__(self, config: Optional[BrokerConfig] = None,
                  device="cuda", native: bool = True) -> None:
         self.broker = Broker(config=config, device=device, native=native)
+        self.sys = SysTopics(self.broker)
+        lc = self.broker.config.listener
+        # the listener-aggregate buckets all its connections share
+        self._shared_limiter: Optional[ConnectionLimiter] = None
+        if lc.max_messages_rate > 0 or lc.max_bytes_rate > 0:
+            self._shared_limiter = ConnectionLimiter(
+                messages_rate=lc.max_messages_rate,
+                bytes_rate=lc.max_bytes_rate, shared=True,
+            )
         self._server: Optional[asyncio.AbstractServer] = None
         self._conns: Set[asyncio.Task] = set()
         self._housekeeper: Optional[asyncio.Task] = None
@@ -52,11 +70,28 @@ class BrokerServer:
             self._housekeep()
         )
 
+    def _make_limiter(self):
+        """One connection's limiter: None when no level is set, one
+        `ConnectionLimiter` when only its own, else the hierarchy."""
+        lc = self.broker.config.listener
+        conn = None
+        if lc.messages_rate > 0 or lc.bytes_rate > 0:
+            conn = ConnectionLimiter(messages_rate=lc.messages_rate,
+                                     bytes_rate=lc.bytes_rate)
+        zone = self.broker.zone_limiter
+        if self._shared_limiter is None and zone is None:
+            return conn
+        return HierarchicalLimiter(conn, self._shared_limiter, zone)
+
     async def _housekeep(self) -> None:
-        """Drop detached persistent sessions past their expiry."""
+        """The broker's 1 Hz housekeeping and the $SYS heartbeat."""
         while True:
             await asyncio.sleep(1.0)
-            self.broker.cm.expire_sessions()
+            try:
+                self.broker.tick()
+                self.sys.tick()
+            except Exception:
+                log.exception("housekeeping tick failed")
 
     async def stop(self) -> None:
         if self._housekeeper is not None:
@@ -83,7 +118,11 @@ class BrokerServer:
         task = asyncio.current_task()
         self._conns.add(task)
         try:
-            await Connection(self.broker, reader, writer).run()
+            await Connection(
+                self.broker, reader, writer,
+                mountpoint=self.broker.config.listener.mountpoint,
+                limiter=self._make_limiter(),
+            ).run()
         finally:
             self._conns.discard(task)
 

@@ -12,6 +12,10 @@ class MqttConfig:
     max_packet_size: int = 1024 * 1024
     max_clientid_len: int = 65535
     max_topic_levels: int = 128
+    # NODE-aggregate ingress limits shared by every connection (the
+    # hierarchical limiter's zone level); 0 = off
+    zone_messages_rate: float = 0.0
+    zone_bytes_rate: float = 0.0
     max_qos_allowed: int = 2
     max_topic_alias: int = 65535
     retain_available: bool = True
@@ -31,6 +35,58 @@ class MqttConfig:
     server_keepalive: Optional[int] = None
     retry_interval: float = 30.0
     idle_timeout: float = 15.0
+
+
+@dataclass
+class ListenerConfig:
+    """The TCP listener's per-connection options (the server binds
+    ``BrokerConfig.bind``/``port``)."""
+
+    # prefix every topic of the listener's clients lives under (their
+    # publishes, subscriptions and wills); None = no mountpoint
+    mountpoint: Optional[str] = None
+    # per-connection rate limits (emqx_limiter); 0 = unlimited
+    messages_rate: float = 0.0  # PUBLISH packets per second
+    bytes_rate: float = 0.0  # inbound bytes per second
+    # listener-AGGREGATE limits shared by all its connections (the
+    # hierarchical limiter's listener level); 0 = unlimited
+    max_messages_rate: float = 0.0
+    max_bytes_rate: float = 0.0
+
+
+@dataclass
+class AuthConfig:
+    allow_anonymous: bool = True
+    authz_default: str = "allow"  # allow | deny
+    deny_action: str = "ignore"  # ignore | disconnect
+
+
+@dataclass
+class SysConfig:
+    enable: bool = True
+    interval: float = 60.0  # $SYS heartbeat publish interval
+
+
+@dataclass
+class FlappingConfig:
+    """Flapping-client detection (emqx_flapping defaults)."""
+
+    enable: bool = True
+    max_count: int = 15
+    window: float = 60.0
+    ban_time: float = 300.0
+
+
+@dataclass
+class SlowSubsConfig:
+    """Slow-subscriber top-K table (emqx_slow_subs): deliveries slower
+    than ``threshold_ms`` enter a top-K board; entries expire after
+    ``expire_interval`` seconds."""
+
+    enable: bool = True
+    threshold_ms: float = 500.0
+    top_k: int = 10
+    expire_interval: float = 300.0
 
 
 @dataclass
@@ -77,5 +133,11 @@ class BrokerConfig:
     engine: BrokerEngineConfig = field(default_factory=BrokerEngineConfig)
     profiler: ProfilerConfig = field(default_factory=ProfilerConfig)
     retainer: RetainerConfig = field(default_factory=RetainerConfig)
+    listener: ListenerConfig = field(default_factory=ListenerConfig)
+    auth: AuthConfig = field(default_factory=AuthConfig)
+    sys: SysConfig = field(default_factory=SysConfig)
+    flapping: FlappingConfig = field(default_factory=FlappingConfig)
+    slow_subs: SlowSubsConfig = field(default_factory=SlowSubsConfig)
     bind: str = "0.0.0.0"
     port: int = 1883
+    node_name: str = "emqx_tpu@127.0.0.1"

@@ -397,7 +397,7 @@ class RuleEngine:
         if hits:
             mloc["rules.matched"] += hits
         if self.broker is not None and mloc:
-            self.broker.metrics.update(mloc)
+            self.broker.metrics.inc_bulk(mloc)
         return hits
 
     def _run_actions(

@@ -16,7 +16,9 @@ frontier doubles every level, to fill and overflow the widest frontier.
 
 `shared_script` is a seeded world of ``$share`` groups beside direct
 subscribers, and `retained_topics` one last-known-state topic per
-device of a fleet.
+device of a fleet.  `access_script` is a seeded world of authenticated
+clients under EMQX's default ACL, and `access_world` runs it through a
+broker's channels in process.
 
 `make_rules` and `make_rule_payloads` add config 4's rule-engine half:
 SQL rules whose FROM filters cover the fleet topic families and whose
@@ -277,3 +279,114 @@ def retained_topics(pops) -> List[str]:
     return ([f"vehicles/v{i}/sensors/state" for i in range(n_vehicles)]
             + [f"dev/g{j}/x/d{j % 7}" for j in range(n_dev)]
             + [f"site/s{k % 7}/floor/f{k}/a" for k in range(n_alert)])
+
+
+# EMQX's default acl.conf, in AclRule form ((permission, who, action,
+# topics)): no one subscribes to $SYS/# or to the literal "#"; every
+# client publishes under its own subtree (and delays messages there);
+# `access_acl` adds the filters clients may subscribe to, and the
+# broker's authz_default (deny) refuses the rest.
+DEFAULT_ACL = (
+    ("deny", "all", "subscribe", ("$SYS/#", {"eq": "#"})),
+    ("allow", "all", "publish", ("raw/%c/#", "$delayed/+/raw/%c/#")),
+)
+
+
+def access_acl(sub_filters: Sequence[str]) -> List[tuple]:
+    """`DEFAULT_ACL` plus one rule that allows subscribing to exactly
+    ``sub_filters``."""
+    return [*DEFAULT_ACL,
+            ("allow", "all", "subscribe", tuple(sub_filters))]
+
+
+# the rewrite every load topic passes through: raw/<client>/<rest> is
+# published on load/<client>/<rest>
+ACCESS_REWRITE = ("publish", "raw/#", r"^raw/(\w+)/(.+)$", r"load/\1/\2")
+ACCESS_FILTERS = ("load/#", "load/+/+", "+/+/+", "+/#", "load/+/#")
+
+
+def access_script(rng: np.random.Generator, n_clients: int, n_msgs: int):
+    """A seeded world of authenticated clients under `access_acl`.
+
+    Returns ``(subs, msgs)``: ``subs`` as ``[(clientid, [(filter,
+    qos)])]`` over `ACCESS_FILTERS` (one in five also asks for the
+    literal ``#``, which the ACL refuses); ``msgs`` as ``[(clientid,
+    topic, qos)]``: ``raw/<clientid>/m<k % 16>`` (rewritten onto
+    ``load/``), every 8th under another client's subtree (refused),
+    one in 16 ``$delayed/1/raw/<clientid>/d<k>``.  Client ``c<i>``
+    authenticates as user ``u<i>`` with password ``p<i>``."""
+    subs = []
+    for i in range(n_clients):
+        flts = [(ACCESS_FILTERS[int(rng.integers(0, len(ACCESS_FILTERS)))],
+                 int(rng.integers(0, 3)))]
+        if rng.integers(0, 5) == 0:
+            flts.append(("#", 1))
+        subs.append((f"c{i}", flts))
+    msgs = []
+    for k in range(n_msgs):
+        cid = f"c{int(rng.integers(0, n_clients))}"
+        if k % 8 == 7:
+            topic = f"raw/x{cid}/m{k % 16}"
+        elif k % 16 == 5:
+            topic = f"$delayed/1/raw/{cid}/d{k}"
+        else:
+            topic = f"raw/{cid}/m{k % 16}"
+        msgs.append((cid, topic, int(rng.integers(0, 3))))
+    return subs, msgs
+
+
+def access_world(device: str, subs, msgs):
+    """Run `access_script`'s ``(subs, msgs)`` in process on a `Broker`
+    on ``device`` (MQTT 5): users ``u<i>``/``p<i>``, the ACL of
+    `access_acl` under authz_default deny, the `ACCESS_REWRITE` rule and
+    `TopicMetrics` on ``load/#``.  Each client connects with its
+    password and subscribes; every publish goes through its client's
+    channel (authorized one by one); then one ``tick`` releases the
+    delayed ones.  Returns every client's bytes, the topic metrics
+    (without their clock-dependent keys) and the broker's `Metrics`."""
+    import time
+
+    # the broker is imported here: it is not needed by the scripts above
+    from .access import AclProvider, AclRule, DictAuthenticator
+    from .broker.broker import Broker
+    from .broker.channel import Channel
+    from .codec import mqtt as C
+    from .config import BrokerConfig
+    from .modules import RewriteRule
+
+    cfg = BrokerConfig()
+    cfg.auth.allow_anonymous = False
+    cfg.auth.authz_default = "deny"
+    b = Broker(cfg, device=device)
+    users = DictAuthenticator()
+    for i in range(len(subs)):
+        users.add_user(f"u{i}", f"p{i}")
+    b.access.authenticators.append(users)
+    b.access.authz_sources.append(AclProvider(
+        AclRule(*r) for r in access_acl(ACCESS_FILTERS)))
+    b.rewrite.add_rule(RewriteRule(*ACCESS_REWRITE))
+    b.topic_metrics.register("load/#")
+
+    def feed(ch, pkt):
+        for q in C.StreamParser(version=C.MQTT_V5).feed(
+                C.serialize(pkt, C.MQTT_V5)):
+            ch.handle_in(q)
+
+    raw, chans = {}, {}
+    for i, (cid, flts) in enumerate(subs):
+        buf = raw[cid] = bytearray()
+        chans[cid] = Channel(b, send=lambda pkts, buf=buf: buf.extend(
+            b"".join(C.serialize(p, C.MQTT_V5) for p in pkts)),
+            close=lambda reason: None)
+        feed(chans[cid], C.Connect(client_id=cid, proto_ver=C.MQTT_V5,
+                                   username=f"u{i}", password=b"p%d" % i))
+        feed(chans[cid], C.Subscribe(packet_id=1, subscriptions=[
+            C.Subscription(topic_filter=f, qos=q) for f, q in flts]))
+    b.router.engine.rebuild()
+    for k, (cid, topic, qos) in enumerate(msgs):
+        feed(chans[cid], C.Publish(topic=topic, qos=qos, payload=b"%d" % k,
+                                   packet_id=k % 65535 + 1 if qos else None))
+    b.tick(time.time() + 2)
+    info = [{k: v for k, v in m.items() if k not in ("created_at", "rate.in")}
+            for m in b.topic_metrics.info()]
+    return {cid: bytes(v) for cid, v in raw.items()}, info, b.metrics

@@ -486,6 +486,28 @@ def test_shared_window_on_card_equals_cpu(cuda, strategy):
     assert launches["decide_packed"] == counters["decide_windows"] >= 1
 
 
+@pytest.mark.cuda
+def test_access_world_on_card_equals_cpu(cuda):
+    """chip_smoke's access parity at a small size: authenticated
+    clients under the default-ACL world, the load rewrite, delayed
+    publishes and topic metrics; the broker on the card (K1, K3) against
+    the broker on the CPU: the same bytes to every client and the same
+    topic metrics."""
+    from emqx_tpu_torch import workload as W
+
+    subs, msgs = W.access_script(np.random.default_rng(5), 24, 400)
+    mk.reset_launches()
+    got, tm, metrics = W.access_world("cuda", subs, msgs)
+    launches = mk.launches()
+    want, tm_cpu, _ = W.access_world("cpu", subs, msgs)
+    assert got == want and tm == tm_cpu
+    assert metrics["authorization.deny"] >= 400 // 8
+    assert metrics["messages.delayed"] >= 1
+    assert tm[0]["messages.in"] > 0 and tm[0]["messages.out"] > 0
+    assert launches["match_batch_compact"] >= 1
+    assert launches["decide_packed"] >= 1
+
+
 RULE_CORPUS = [
     "payload.a > 2", "payload.a >= payload.b", "payload.a = 3",
     "payload.s = 'x'", "payload.s != 'nowhere'", "payload.s IN ('x', 'q')",

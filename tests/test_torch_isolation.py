@@ -23,6 +23,16 @@ import emqx_tpu_torch.broker.channel
 import emqx_tpu_torch.broker.shared
 import emqx_tpu_torch.retainer
 import emqx_tpu_torch.modules
+import emqx_tpu_torch.hooks
+import emqx_tpu_torch.metrics
+import emqx_tpu_torch.config
+import emqx_tpu_torch.access
+import emqx_tpu_torch.auth_providers
+import emqx_tpu_torch.ops_guard
+import emqx_tpu_torch.limiter
+import emqx_tpu_torch.sys_topics
+import emqx_tpu_torch.broker.connection
+import emqx_tpu_torch.broker.cm
 import emqx_tpu_torch.broker.listener
 import emqx_tpu_torch.ops.match_kernel
 import emqx_tpu_torch.ops._kernels
