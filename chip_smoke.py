@@ -13,8 +13,10 @@ the same subscriptions split over 4 shards of one card, and the broker
 — over TCP, as a user would — with 1M background subscriptions: first
 the publish path, then the publish path with config 4's 100 rules,
 whose kernel launches it counts, then shared subscriptions, the
-retained store, and the publish path behind authentication, the ACL,
-a topic rewrite, delayed publish, topic metrics and $SYS.  Phases:
+retained store, the publish path behind authentication, the ACL,
+a topic rewrite, delayed publish, topic metrics and $SYS, and the
+server booted from a config file with tcp, ssl, ws and wss listeners.
+Phases:
 
   device          the card's name and power limit (nvidia-smi)
   build           nvcc of the kernel sources, with its seconds, and each
@@ -119,6 +121,23 @@ a topic rewrite, delayed publish, topic metrics and $SYS.  Phases:
                   in waves of 64, CONNECT->CONNACK p50/p99; then
                   `workload.access_script` in process on the card
                   against the CPU, byte for byte
+  listeners       a JSON config with a tcp, an ssl, a ws and a wss
+                  listener (the committed test certificate) and one
+                  EMQX_TPU_* override: --check-config on it (exit 0) and
+                  on a broken copy (exit 1); `python -m
+                  emqx_tpu_torch.broker --config` on the card, a QoS 1
+                  round trip on each transport; then an in-process
+                  BrokerServer from the file with the 1M filters: the
+                  broker phase's load split over the transports (each
+                  message exactly once to 8 subscribers, delivery p50/p99
+                  by transport, K1 and K3 once a decide window); a flood
+                  of 20,000 QoS 0 messages beside a light client's 50
+                  QoS 1 messages (its PUBACK p50/p99, windows of at most
+                  512, publish_queue_congested raised and cleared); a v5
+                  subscriber that stops reading under 2,000 QoS 1
+                  messages of 16 KiB (its transport buffer's peak under
+                  the watermark plus one window, conn_congestion raised
+                  and cleared, every message once and in order)
   kernels         one JSON line per kernel (launches from the runs of
                   each kernel's path)
 
@@ -139,6 +158,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+TLS_CERT = os.path.join(HERE, "tests", "torch_tls", "cert.pem")  # test-only
+TLS_KEY = os.path.join(HERE, "tests", "torch_tls", "key.pem")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor rate, proxy for int32 ALU
 FP64_OPS_PER_S = 34e12  # H100 SXM non-tensor float64 (data sheet)
@@ -236,84 +257,15 @@ def exact_equal(name: str, got, want) -> float:
 # ---------------------------------------------------------- mqtt client
 
 
-class Client:
-    """Minimal asyncio MQTT client over the port's codec (3.1.1, or 5.0
-    with ``version=5``)."""
+def Client(port: int, client_id: str, version: int = 4, username=None,
+           password=None, kind: str = "tcp"):
+    """A `workload.TransportClient` (MQTT 3.1.1, or 5.0 with
+    ``version=5``; tcp unless ``kind`` says otherwise, TLS trusting the
+    test certificate)."""
+    from emqx_tpu_torch.workload import TransportClient
 
-    def __init__(self, port: int, client_id: str, version: int = 4,
-                 username=None, password=None) -> None:
-        from emqx_tpu_torch.codec import mqtt as C
-
-        self.C = C
-        self.port = port
-        self.client_id = client_id
-        self.version = version
-        self.username = username
-        self.password = password
-        self.parser = C.StreamParser(version=version)
-        self.inbox: asyncio.Queue = asyncio.Queue()
-        self.raw = bytearray()  # every byte the broker sent
-        self.reader = self.writer = None
-        self._pump = None
-
-    async def connect(self, rc: int = 0) -> None:
-        """CONNECT (with the client's credentials, if any) and fail
-        unless the CONNACK carries reason code ``rc``."""
-        C = self.C
-        self.reader, self.writer = await asyncio.open_connection(
-            "127.0.0.1", self.port
-        )
-        self._pump = asyncio.get_running_loop().create_task(self._read())
-        self.send(C.Connect(client_id=self.client_id, proto_ver=self.version,
-                            username=self.username, password=self.password))
-        ack = await self.expect(C.CONNACK)
-        if ack.reason_code != rc:
-            fail(f"CONNACK {ack.reason_code} for {self.client_id}, "
-                 f"expected {rc}")
-
-    async def _read(self) -> None:
-        while True:
-            data = await self.reader.read(65536)
-            if not data:
-                await self.inbox.put(None)
-                return
-            self.raw += data
-            for pkt in self.parser.feed(data):
-                await self.inbox.put(pkt)
-
-    def send(self, pkt) -> None:
-        self.writer.write(self.C.serialize(pkt, self.version))
-
-    async def expect(self, ptype: int, timeout: float = 30.0):
-        pkt = await asyncio.wait_for(self.inbox.get(), timeout)
-        if pkt is None or pkt.type != ptype:
-            fail(f"{self.client_id}: expected packet type {ptype}, "
-                 f"got {pkt!r}")
-        return pkt
-
-    async def subscribe(self, flt: str, qos: int, rh: int = 0) -> None:
-        C = self.C
-        self.send(C.Subscribe(packet_id=1, subscriptions=[
-            C.Subscription(topic_filter=flt, qos=qos, retain_handling=rh)]))
-        ack = await self.expect(C.SUBACK)
-        if ack.reason_codes != [qos]:
-            fail(f"SUBACK {ack.reason_codes} for {flt}")
-
-    async def quiet(self) -> None:
-        """PINGREQ, and PINGRESP as the next packet: nothing the broker
-        wrote before it (a replay, a queued delivery) is still unread."""
-        self.send(self.C.Pingreq())
-        await self.expect(self.C.PINGRESP)
-
-    async def close(self) -> None:
-        if self._pump is not None:
-            self._pump.cancel()
-        if self.writer is not None:
-            self.writer.close()
-            try:
-                await self.writer.wait_closed()
-            except ConnectionError:
-                pass
+    return TransportClient(port, client_id, kind, version, cafile=TLS_CERT,
+                           username=username, password=password)
 
 
 # --------------------------------------------------------------- phases
@@ -2068,11 +2020,11 @@ async def broker_load(results, filters, native: bool = True,
     Python host path; only a ``main_path`` run records the launches.
     Returns msgs/s in and the per-stage medians."""
     from emqx_tpu_torch.broker.listener import BrokerServer
-    from emqx_tpu_torch.config import BrokerConfig
+    from emqx_tpu_torch.config import BrokerConfig, ListenerConfig
     from emqx_tpu_torch.ops import match_kernel as mk
 
     label = "broker" if native else "broker (native=False)"
-    cfg = BrokerConfig(bind="127.0.0.1", port=0)
+    cfg = BrokerConfig(listeners=[ListenerConfig(bind="127.0.0.1", port=0)])
     # subscribers can fall behind the publishers' acked stream; a queue
     # that holds the whole run keeps every delivery (none may drop)
     cfg.mqtt.max_mqueue_len = 4 * N_PUB * N_MSG
@@ -2237,10 +2189,10 @@ async def rules_load(results, filters) -> None:
     from emqx_tpu_torch import workload as W
     from emqx_tpu_torch.broker.broker import Broker
     from emqx_tpu_torch.broker.listener import BrokerServer
-    from emqx_tpu_torch.config import BrokerConfig
+    from emqx_tpu_torch.config import BrokerConfig, ListenerConfig
     from emqx_tpu_torch.ops import match_kernel as mk
 
-    cfg = BrokerConfig(bind="127.0.0.1", port=0)
+    cfg = BrokerConfig(listeners=[ListenerConfig(bind="127.0.0.1", port=0)])
     server = BrokerServer(cfg)
     broker = server.broker
     eng = broker.router.engine
@@ -2484,10 +2436,10 @@ async def shared_load(results, filters, device: str = "cuda") -> dict:
     clean session and 256 more messages reach the other three once."""
     from emqx_tpu_torch import topic as T
     from emqx_tpu_torch.broker.listener import BrokerServer
-    from emqx_tpu_torch.config import BrokerConfig
+    from emqx_tpu_torch.config import BrokerConfig, ListenerConfig
     from emqx_tpu_torch.ops import match_kernel as mk
 
-    cfg = BrokerConfig(bind="127.0.0.1", port=0)
+    cfg = BrokerConfig(listeners=[ListenerConfig(bind="127.0.0.1", port=0)])
     cfg.mqtt.max_mqueue_len = 4 * N_PUB * N_MSG
     server = BrokerServer(cfg, device=device)
     broker = server.broker
@@ -2781,14 +2733,14 @@ async def retained_load(results, filters, device: str = "cuda") -> dict:
 
     from emqx_tpu_torch import workload as W
     from emqx_tpu_torch.broker.listener import BrokerServer
-    from emqx_tpu_torch.config import BrokerConfig
+    from emqx_tpu_torch.config import BrokerConfig, ListenerConfig
     from emqx_tpu_torch.message import Message
     from emqx_tpu_torch.ops import match_kernel as mk
 
     card = results["card"]
     pops = W.populations(len(filters), 8)
     topics = W.retained_topics(pops)
-    cfg = BrokerConfig(bind="127.0.0.1", port=0)
+    cfg = BrokerConfig(listeners=[ListenerConfig(bind="127.0.0.1", port=0)])
     # the 62,500-message QoS 0 and 12,500-message QoS 1 replays queue
     # past the inflight window: a queue that holds them drops none
     cfg.mqtt.max_mqueue_len = len(topics)
@@ -2973,11 +2925,11 @@ async def access_load(results, filters) -> dict:
     from emqx_tpu_torch import workload as W
     from emqx_tpu_torch.access import AclProvider, AclRule, DictAuthenticator
     from emqx_tpu_torch.broker.listener import BrokerServer
-    from emqx_tpu_torch.config import BrokerConfig
+    from emqx_tpu_torch.config import BrokerConfig, ListenerConfig
     from emqx_tpu_torch.modules import RewriteRule
     from emqx_tpu_torch.ops import match_kernel as mk
 
-    cfg = BrokerConfig(bind="127.0.0.1", port=0)
+    cfg = BrokerConfig(listeners=[ListenerConfig(bind="127.0.0.1", port=0)])
     cfg.mqtt.max_mqueue_len = 4 * N_PUB * N_MSG
     cfg.auth.allow_anonymous = False
     cfg.auth.authz_default = "deny"
@@ -3211,6 +3163,486 @@ def phase_access_broker(results, filters) -> None:
     phase("access broker")
     results["access"] = asyncio.run(access_load(results, filters))
     access_parity(results)
+
+
+# ------------------------------------------------------------ listeners
+
+LISTENER_KINDS = ("tcp", "ssl", "ws", "wss")
+LISTENER_ENV = {"EMQX_TPU_MQTT__MAX_MQUEUE_LEN": str(4 * N_PUB * N_MSG)}
+FAIR_FLOOD, FAIR_LIGHT, FAIR_GAP_S = 20_000, 50, 0.02
+# light's PUBACK p50 bound: a few windows' time.  Behind one FIFO each
+# light message would wait for the flood's backlog (20,000 messages at
+# ~10,000 msgs/s on the H100: ~2 s)
+FAIR_LIGHT_P50_MS = 250.0
+STALL_MSGS, STALL_PAYLOAD = 2_000, 16 * 1024
+
+
+def listeners_config(tmp: str) -> tuple:
+    """A JSON config with a tcp, an ssl, a ws and a wss listener on
+    127.0.0.1 port 0 (the TLS ones on the committed test certificate),
+    and a copy broken by an ssl listener without its certificate."""
+    conf = {"listeners": [
+        {"name": f"{k}_smoke", "type": k, "bind": "127.0.0.1", "port": 0,
+         **({"certfile": TLS_CERT, "keyfile": TLS_KEY}
+            if k in ("ssl", "wss") else {})} for k in LISTENER_KINDS]}
+    good = os.path.join(tmp, "broker.json")
+    bad = os.path.join(tmp, "broken.json")
+    with open(good, "w") as f:
+        json.dump(conf, f)
+    del conf["listeners"][1]["certfile"]
+    with open(bad, "w") as f:
+        json.dump(conf, f)
+    return good, bad
+
+
+async def listeners_cli(results, good: str, bad: str) -> None:
+    """``--check-config`` on the config (exit 0) and on its broken copy
+    (exit 1), then ``python -m emqx_tpu_torch.broker --config`` on the
+    card: its four listening lines, one QoS 1 round trip on each
+    transport, terminated."""
+    from emqx_tpu_torch.codec import mqtt as C
+
+    env = dict(os.environ, PYTHONPATH=HERE, **LISTENER_ENV)
+
+    def start(*args):
+        return asyncio.create_subprocess_exec(
+            sys.executable, "-m", "emqx_tpu_torch.broker", "--config", *args,
+            cwd=HERE, env=env, stdout=asyncio.subprocess.PIPE,
+            stderr=asyncio.subprocess.PIPE)
+
+    t0 = time.perf_counter()
+    checks = [await start(good, "--check-config"),
+              await start(bad, "--check-config")]
+    proc = await start(good)
+    try:
+        for p, want, name in zip(checks, (0, 1), ("config", "broken copy")):
+            out, err = await asyncio.wait_for(p.communicate(), 120)
+            if p.returncode != want:
+                fail(f"--check-config on the {name} exited {p.returncode}, "
+                     f"expected {want}: {out.decode()} {err.decode()}")
+            print(f"listeners: --check-config on the {name}: exit "
+                  f"{p.returncode}, {(out or err).decode().strip()!r}",
+                  flush=True)
+        ports, lines = {}, []
+        for _ in LISTENER_KINDS:
+            line = (await asyncio.wait_for(proc.stdout.readline(), 300)
+                    ).decode()
+            lines.append(line.strip())
+            if "listening on 127.0.0.1:" not in line or \
+                    "(device cuda)" not in line:
+                err = (await proc.stderr.read()).decode()[-2000:]
+                fail(f"broker CLI did not start its listeners on the card: "
+                     f"{line!r} {err}")
+            kind = line.split("(")[1].split(")")[0]
+            ports[kind] = int(line.split("127.0.0.1:")[1].split()[0])
+        if sorted(ports) != sorted(LISTENER_KINDS):
+            fail(f"broker CLI listeners {lines}")
+        boot_s = time.perf_counter() - t0
+        for kind in LISTENER_KINDS:
+            sub = Client(ports[kind], f"cli-sub-{kind}", kind=kind)
+            pub = Client(ports[kind], f"cli-pub-{kind}", kind=kind)
+            await sub.connect()
+            await pub.connect()
+            await sub.subscribe(f"cli/{kind}/+", 1)
+            pub.send(C.Publish(topic=f"cli/{kind}/x", payload=b"hi", qos=1,
+                               packet_id=7))
+            await pub.expect(C.PUBACK)
+            got = await sub.expect(C.PUBLISH)
+            if (got.topic, got.payload, got.qos) != (f"cli/{kind}/x", b"hi",
+                                                     1):
+                fail(f"CLI round trip over {kind} delivered {got!r}")
+            sub.send(C.Puback(packet_id=got.packet_id))
+            await sub.close()
+            await pub.close()
+        print(f"listeners: python -m emqx_tpu_torch.broker --config on the "
+              f"card: {lines}; a QoS 1 round trip on each of "
+              f"{', '.join(LISTENER_KINDS)} ok ({boot_s:.1f} s to the "
+              f"listening lines) [{results['card']}]", flush=True)
+    finally:
+        for p in checks + [proc]:
+            if p.returncode is None:
+                p.terminate()
+                try:
+                    await asyncio.wait_for(p.wait(), 20)
+                except asyncio.TimeoutError:
+                    p.kill()
+                    await p.wait()
+
+
+async def listeners_transports(results, server, ports) -> dict:
+    """The broker phase's load split over the four transports: 8
+    subscribers (2 on each), 4 publishers (one on each) x 1,000 QoS 1
+    messages; exactly once to every subscriber; K1 and K3 counted."""
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    eng = server.broker.router.engine
+    subs, kinds = [], []
+    for j, flt in enumerate(SUB_FILTERS):
+        kind = LISTENER_KINDS[j % 4]
+        cl = Client(ports[kind], f"lsub{j}", kind=kind)
+        await cl.connect()
+        await cl.subscribe(flt, 1)
+        subs.append(cl)
+        kinds.append(kind)
+    eng.rebuild()  # the subscribers' filters onto the card as well
+    pubs = []
+    for p, kind in enumerate(LISTENER_KINDS):
+        cl = Client(ports[kind], f"lpub{p}", kind=kind)
+        await cl.connect()
+        pubs.append(cl)
+    C = subs[0].C
+    expected = N_PUB * N_MSG
+    lat = {k: [] for k in LISTENER_KINDS}
+    seen = [set() for _ in subs]
+
+    async def consume(j, cl):
+        while len(seen[j]) < expected:
+            try:
+                pkt = await asyncio.wait_for(cl.inbox.get(), 60)
+            except asyncio.TimeoutError:
+                fail(f"lsub{j} ({kinds[j]}) stalled at {len(seen[j])} of "
+                     f"{expected}; received {[len(x) for x in seen]}")
+            if pkt is None:
+                fail(f"lsub{j} ({kinds[j]}) disconnected")
+            if pkt.type != C.PUBLISH:
+                continue
+            cl.send(C.Puback(packet_id=pkt.packet_id))
+            p, k, ts = pkt.payload.split(b":")
+            key = (int(p), int(k))
+            if key in seen[j]:
+                fail(f"lsub{j} ({kinds[j]}) got message {key} twice")
+            seen[j].add(key)
+            lat[kinds[j]].append(time.perf_counter() - float(ts))
+
+    decides = eng.counters["decide_windows"]
+    mk.reset_launches()  # this run's counts start here
+    t0 = time.perf_counter()
+    await asyncio.wait_for(asyncio.gather(
+        *(consume(j, cl) for j, cl in enumerate(subs)),
+        *(publish_load(cl, p, N_MSG) for p, cl in enumerate(pubs)),
+    ), 600)
+    wall = time.perf_counter() - t0
+    launches = mk.launches()
+    decides = eng.counters["decide_windows"] - decides
+    for j in range(len(subs)):
+        if len(seen[j]) != expected:
+            fail(f"lsub{j} got {len(seen[j])} of {expected}")
+    if launches["match_batch_compact"] != decides or \
+            launches["decide_packed"] != decides:
+        fail(f"listeners: K1 {launches['match_batch_compact']} and K3 "
+             f"{launches['decide_packed']} launches for {decides} decide "
+             f"windows")
+    dropped = server.broker.metrics["delivery.dropped"]
+    if dropped:
+        fail(f"listeners: the broker dropped {dropped} deliveries")
+    per = {}
+    for kind, xs in lat.items():
+        xs.sort()
+        per[kind] = {"p50_ms": xs[len(xs) // 2] * 1e3,
+                     "p99_ms": xs[int(len(xs) * 0.99)] * 1e3}
+    print(f"listeners transports: {expected} QoS 1 messages from one "
+          f"publisher on each of {', '.join(LISTENER_KINDS)} each delivered "
+          f"exactly once to {len(subs)} subscribers (2 a transport) in "
+          f"{wall:.3f} s: {expected / wall:.1f} msgs/s in, "
+          f"{expected * len(subs) / wall:.1f} deliveries/s; delivery p50/p99 "
+          f"ms by the subscriber's transport: "
+          + ", ".join(f"{k} {v['p50_ms']:.3f}/{v['p99_ms']:.3f}"
+                      for k, v in per.items())
+          + f"; {decides} decide windows, launches K1 "
+          f"{launches['match_batch_compact']} K3 {launches['decide_packed']}"
+          f" [{results['card']}]", flush=True)
+    for name, k in (("match_batch_compact", "match_batch_compact"),
+                    ("decide_batch", "decide_packed")):
+        results["kernels"][name]["listeners"] = {"launches": launches[k]}
+    for cl in subs + pubs:
+        await cl.close()
+    return {"msgs_per_s": expected / wall,
+            "deliveries_per_s": expected * len(subs) / wall,
+            "latency": per, "decide_windows": decides}
+
+
+def alarm_log(broker) -> list:
+    """Every activate and deactivate of the broker's alarms, in order."""
+    log_, reg = [], broker.alarms
+    act, deact = reg.activate, reg.deactivate
+
+    def activate(name, *a, **kw):
+        log_.append(("raise", name))
+        return act(name, *a, **kw)
+
+    def deactivate(name, *a, **kw):
+        log_.append(("clear", name))
+        return deact(name, *a, **kw)
+
+    reg.activate, reg.deactivate = activate, deactivate
+    return log_
+
+
+async def listeners_fairness(results, server, ports, windows, alarms,
+                             gone) -> dict:
+    """F2 on the card's server: ``flood`` sends 20,000 QoS 0 messages
+    back to back while ``light`` sends 50 QoS 1 messages 20 ms apart,
+    timing each PUBACK; a subscriber on ``fair/#`` gets all of them."""
+    fsub = Client(ports["tcp"], "fair-sub")
+    flood = Client(ports["tcp"], "flood")
+    light = Client(ports["tcp"], "light")
+    for cl in (fsub, flood, light):
+        await cl.connect()
+    C = fsub.C
+    await fsub.subscribe("fair/#", 1)
+    del windows[:]
+    n_alarms = len(alarms)
+    got = {"f": 0, "l": 0}
+    t_flood_done, t_sent = [None], [None]
+
+    def why() -> str:
+        m = server.broker.metrics
+        return (f"received {got}, {len(windows)} windows, disconnects "
+                f"{gone}, metrics " + str({k: v for k, v in m.all().items()
+                                          if v and ("dropped" in k or
+                                                    "received" in k)}))
+
+    async def consume():
+        while got["f"] < FAIR_FLOOD or got["l"] < FAIR_LIGHT:
+            try:
+                pkt = await asyncio.wait_for(fsub.inbox.get(), 120)
+            except asyncio.TimeoutError:
+                fail(f"fair-sub stalled: {why()}")
+            if pkt is None:
+                fail(f"fair-sub disconnected: {why()}")
+            if pkt.type != C.PUBLISH:
+                continue
+            if pkt.qos:
+                fsub.send(C.Puback(packet_id=pkt.packet_id))
+            got[pkt.topic[-1]] += 1
+            if got["f"] == FAIR_FLOOD and t_flood_done[0] is None:
+                t_flood_done[0] = time.perf_counter()
+
+    async def blast():
+        # 256 publishes a write, as a client library flushes a burst.
+        # One publish a write crawls on the card's machine whether or
+        # not the broker pauses its reads: 20,000 took 165-178 s with
+        # ~1,630 segments resent, against 2 s at 256 a write
+        # (tools/torch_flood_probe.py)
+        for k in range(0, FAIR_FLOOD, 256):
+            flood.send(*(C.Publish(topic="fair/f", payload=b"%d" % i, qos=0)
+                         for i in range(k, min(k + 256, FAIR_FLOOD))))
+            await flood.writer.drain()
+        t_sent[0] = time.perf_counter()
+
+    async def trickle():
+        acks = []
+        for k in range(FAIR_LIGHT):
+            t = time.perf_counter()
+            light.send(C.Publish(topic="fair/l", payload=b"%d" % k, qos=1,
+                                 packet_id=k + 1))
+            await light.expect(C.PUBACK, 60)
+            acks.append((time.perf_counter() - t) * 1e3)
+            await asyncio.sleep(max(0.0, FAIR_GAP_S - (time.perf_counter()
+                                                       - t)))
+        return acks
+
+    t0 = time.perf_counter()
+    _, _, acks = await asyncio.wait_for(asyncio.gather(
+        consume(), blast(), trickle()), 300)
+    flood_s = t_flood_done[0] - t0
+    acks.sort()
+    seen = alarms[n_alarms:]
+    flaps = seen.count(("raise", "publish_queue_congested"))
+    raised = flaps > 0
+    cleared = raised and "publish_queue_congested" not in [
+        a.name for a in server.broker.alarms.active()]
+    largest = max(windows)
+    if largest > 512:
+        fail(f"fairness: a window of {largest} messages (the limit is 512)")
+    if not (raised and cleared):
+        fail(f"fairness: publish_queue_congested raised {raised}, cleared "
+             f"{cleared} (both expected)")
+    if acks[len(acks) // 2] > FAIR_LIGHT_P50_MS:
+        fail(f"fairness: light's PUBACK p50 {acks[len(acks) // 2]:.3f} ms "
+             f"(over {FAIR_LIGHT_P50_MS} ms: light waits behind the flood)")
+    out = {"light_puback_p50_ms": acks[len(acks) // 2],
+           "light_puback_p99_ms": acks[int(len(acks) * 0.99)],
+           "largest_window": largest, "windows": len(windows),
+           "congested_raised": raised, "congested_cleared": cleared,
+           "congested_raises": flaps,
+           "flood_msgs_per_s": FAIR_FLOOD / flood_s,
+           "flood_sent_s": t_sent[0] - t0,
+           "stages": stage_medians("listeners fairness",
+                                   server.broker.profiler)}
+    print(f"listeners fairness: flood {FAIR_FLOOD} QoS 0 back to back at "
+          f"{out['flood_msgs_per_s']:.1f} msgs/s (to the subscriber's last "
+          f"flood message; its socket took the last one after "
+          f"{out['flood_sent_s']:.3f} s), light {FAIR_LIGHT} QoS 1 every "
+          f"{FAIR_GAP_S * 1e3:.0f} ms: PUBACK p50 "
+          f"{out['light_puback_p50_ms']:.3f} ms p99 "
+          f"{out['light_puback_p99_ms']:.3f} ms; {len(windows)} windows, the "
+          f"largest {largest} messages; publish_queue_congested raised "
+          f"{raised} ({flaps} times), cleared {cleared} "
+          f"[{results['card']}]", flush=True)
+    for cl in (fsub, flood, light):
+        await cl.close()
+    return out
+
+
+async def listeners_stall(results, server, ports, alarms) -> dict:
+    """F1 on the card's server: a v5 QoS 1 subscriber on ``w/#`` (an
+    inflight window and an mqueue that hold the whole run) stops reading
+    while 2,000 QoS 1 messages of 16 KiB go to ``w/x``, then reads
+    again.  Its transport buffer's peak while stalled stays under the
+    watermark plus one window's bytes, ``conn_congestion/stall`` is
+    raised and then cleared (at the next write, its PINGRESP), and every
+    message arrives exactly once, in order."""
+    from emqx_tpu_torch.config import ConfigHandler
+
+    broker = server.broker
+    # the inflight window must not be what holds the stalled deliveries
+    ConfigHandler(broker.config).update("mqtt.max_inflight", 4096)
+    stall = Client(ports["tcp"], "stall", version=5)
+    await stall.connect(receive_maximum=4096)
+    await stall.subscribe("w/#", 1)
+    C = stall.C
+    ch = broker.cm.channel("stall")
+    session = broker.cm.lookup("stall")
+    peak = {"stall": 0, "drain": 0}
+    phase_ = ["stall"]
+    send = ch._send
+
+    def spy(pkts):
+        send(pkts)
+        peak[phase_[0]] = max(peak[phase_[0]], ch.out_buffered())
+
+    ch._send = spy
+    n_alarms = len(alarms)
+    dropped0 = broker.metrics["delivery.dropped"]
+    stall.pause()
+    pub = Client(ports["tcp"], "stall-pub")
+    await pub.connect()
+    pad = b"x" * STALL_PAYLOAD
+    window = asyncio.Semaphore(32)
+    t0 = time.perf_counter()
+
+    async def acks():
+        for _ in range(STALL_MSGS):
+            await pub.expect(C.PUBACK, 60)
+            window.release()
+
+    task = asyncio.get_running_loop().create_task(acks())
+    for k in range(STALL_MSGS):
+        await window.acquire()
+        pub.send(C.Publish(topic="w/x", payload=b"%06d:" % k + pad, qos=1,
+                           packet_id=k % 65535 + 1))
+        if k % 32 == 0:
+            await pub.writer.drain()
+    await asyncio.wait_for(task, 300)
+    pub_s = time.perf_counter() - t0
+    parked = len(session.mqueue)
+    was_parked = session.out_parked
+    congested = ("raise", "conn_congestion/stall") in alarms[n_alarms:]
+    phase_[0] = "drain"
+    stall.resume()
+    order = []
+    while len(order) < STALL_MSGS:
+        pkt = await asyncio.wait_for(stall.inbox.get(), 120)
+        if pkt is None:
+            fail("stall: the subscriber was disconnected")
+        if pkt.type != C.PUBLISH:
+            continue
+        stall.send(C.Puback(packet_id=pkt.packet_id))
+        order.append(int(pkt.payload[:6]))
+    stall.send(C.Pingreq())
+    while True:
+        pkt = await asyncio.wait_for(stall.inbox.get(), 30)
+        if pkt is None:
+            fail("stall: the subscriber was disconnected")
+        if pkt.type == C.PINGRESP:
+            break
+    drain_s = time.perf_counter() - t0 - pub_s
+    cleared = "conn_congestion/stall" not in [
+        a.name for a in broker.alarms.active()]
+    wm = broker.config.mqtt.outbound_high_watermark
+    one = len(C.serialize(C.Publish(topic="w/x", payload=b"%06d:" % 0 + pad,
+                                    qos=1, packet_id=1), C.MQTT_V5))
+    bound = wm + 512 * one
+    if order != list(range(STALL_MSGS)):
+        fail(f"stall: {len(order)} messages, {len(set(order))} distinct, "
+             f"not in order: first break at "
+             f"{next(i for i, k in enumerate(order) if k != i)}")
+    if broker.metrics["delivery.dropped"] != dropped0:
+        fail("stall: QoS 1 deliveries were dropped")
+    if not (congested and cleared):
+        fail(f"stall: conn_congestion/stall raised {congested}, cleared "
+             f"{cleared}: {alarms[n_alarms:]}")
+    if not (was_parked and parked) or peak["stall"] >= bound:
+        fail(f"stall: {parked} parked (out_parked {was_parked}), transport "
+             f"buffer peak {peak['stall']} B against {bound} B")
+    out = {"peak_stall_bytes": peak["stall"], "bound_bytes": bound,
+           "watermark_bytes": wm, "peak_drain_bytes": peak["drain"],
+           "parked": parked, "publish_s": pub_s, "drain_s": drain_s,
+           "out_buffer_drops": broker.metrics["delivery.dropped.out_buffer"],
+           "congested": congested, "cleared": cleared}
+    print(f"listeners stall: {STALL_MSGS} QoS 1 messages of {one} B to a "
+          f"stalled v5 subscriber in {pub_s:.3f} s: transport buffer peak "
+          f"{peak['stall']} B while stalled (watermark {wm} B + one window "
+          f"{512 * one} B = {bound} B), {parked} parked on its mqueue; "
+          f"conn_congestion/stall raised, then cleared at its PINGRESP; "
+          f"after it read again every message arrived once, in order, in "
+          f"{drain_s:.3f} s (the drain's peak {peak['drain']} B) "
+          f"[{results['card']}]", flush=True)
+    await stall.close()
+    await pub.close()
+    return out
+
+
+async def listeners_load(results, filters, good: str) -> dict:
+    """An in-process `BrokerServer` from the config file (with one
+    environment override) on the card, the 1M filters in its engine:
+    the transports, fairness and stall parts in turn."""
+    from emqx_tpu_torch.broker.listener import BrokerServer
+    from emqx_tpu_torch.config import ConfigHandler, apply_env_overrides
+
+    cfg = ConfigHandler.load(good).root
+    applied = apply_env_overrides(cfg, environ=dict(LISTENER_ENV))
+    server = BrokerServer(cfg)
+    eng = server.broker.router.engine
+    t0 = time.perf_counter()
+    eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    windows = []
+    prepare = server.broker.publish_prepare
+    server.broker.publish_prepare = lambda msgs: windows.append(
+        len(msgs)) or prepare(msgs)
+    alarms = alarm_log(server.broker)
+    gone = []  # (client id, reason) of every connection that ended
+    server.broker.hooks.add("client.disconnected", lambda client, reason:
+                            gone.append((client.clientid, reason)))
+    await server.start()
+    try:
+        ports = {lst.cfg.type: lst.port for lst in server.listeners}
+        print(f"listeners: BrokerServer from {os.path.basename(good)} with "
+              f"env overrides {applied}: {len(filters)} filters, listeners "
+              f"{ports} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        out = {"transports": await listeners_transports(results, server,
+                                                        ports)}
+        out["transports"]["largest_window"] = max(windows)
+        out["fairness"] = await listeners_fairness(results, server, ports,
+                                                   windows, alarms, gone)
+        out["stall"] = await listeners_stall(results, server, ports, alarms)
+    finally:
+        await server.stop()
+    return out
+
+
+def phase_listeners(results, filters) -> None:
+    import tempfile
+
+    phase("listeners")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        good, bad = listeners_config(tmp)
+        asyncio.run(listeners_cli(results, good, bad))
+        results["listeners"] = asyncio.run(listeners_load(results, filters,
+                                                          good))
+    results["listeners"]["phase_s"] = time.perf_counter() - t0
 
 
 # ------------------------------------------------------ native host path
@@ -3638,6 +4070,7 @@ def main() -> None:
     phase_shared_broker(results, filters)
     phase_retained(results, filters)
     phase_access_broker(results, filters)
+    phase_listeners(results, filters)
 
     phase("kernels")
     rows = []
@@ -3652,13 +4085,16 @@ def main() -> None:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
             **{x: k[x] for x in ("main_path", "churn", "shared", "access",
-                                 "stress", "empty_launch_ms") if x in k},
+                                 "listeners", "stress", "empty_launch_ms")
+               if x in k},
         })
     print(f"native summary: {json.dumps(results['native'])}", flush=True)
     print(f"churn summary: {json.dumps(results['churn'])}", flush=True)
     print(f"shared summary: {json.dumps(results['shared'])}", flush=True)
     print(f"retained summary: {json.dumps(results['retained'])}", flush=True)
     print(f"access summary: {json.dumps(results['access'])}", flush=True)
+    print(f"listeners summary: {json.dumps(results['listeners'])}",
+          flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -606,6 +606,13 @@ class Broker:
             return self._queue_detached_run(
                 session, clientid, dec.decided(msgs, self.router, eff, k, e),
                 dec.drop[k:e], mloc)
+        if self._stalled(session, channel):
+            # past the outbound watermark: the queue path keeps the
+            # subscriber's wire buffer bounded, and the run never joins
+            # the splice plan
+            return self._queue_stalled_run(
+                session, clientid, dec.decided(msgs, self.router, eff, k, e),
+                dec.drop[k:e], mloc)
         channel.cork()
         corked.append(channel)
         kept = 1
@@ -649,18 +656,44 @@ class Broker:
             if m.timestamp and m.timestamp < floor:
                 slow.record(clientid, m.topic, (now - m.timestamp) * 1e3)
 
-    def _queue_detached_run(
+    def _stalled(self, session: Session, channel) -> bool:
+        """Is this connected channel past its outbound watermark, or
+        still draining a backlog the watermark parked?"""
+        out_wm = self.config.mqtt.outbound_high_watermark
+        if not out_wm:
+            return False
+        ob = getattr(channel, "out_buffered", None)
+        return ob is not None and (session.out_parked or ob() >= out_wm)
+
+    def _queue_stalled_run(
         self, session: Session, clientid: str, decided, drop: np.ndarray,
         mloc: Counter,
     ) -> np.ndarray:
+        """A stalled subscriber's run: QoS 0 dropped (counted
+        ``delivery.dropped.out_buffer``), QoS>0 parked on the mqueue
+        with ``out_parked`` set, so later deliveries queue behind it
+        until `Channel.retry_deliveries` drains it."""
+        kept = self._queue_detached_run(session, clientid, decided, drop,
+                                        mloc, q0_reason="out_buffer")
+        if kept.any():
+            session.out_parked = True
+        return kept
+
+    def _queue_detached_run(
+        self, session: Session, clientid: str, decided, drop: np.ndarray,
+        mloc: Counter, q0_reason: Optional[str] = None,
+    ) -> np.ndarray:
         """Queue a DETACHED persistent session's run: QoS>0 queued (the
         effective QoS and subscription options baked into the queued
-        copy), QoS0 dropped."""
+        copy), QoS0 dropped (also counted under
+        ``delivery.dropped.<q0_reason>`` when given)."""
         kept = np.zeros(len(drop), np.int64)
         slots = np.flatnonzero(~drop).tolist()
         for t, (m, opts, qos, _retain) in zip(slots, decided):
             if qos == 0:
                 mloc["delivery.dropped"] += 1
+                if q0_reason is not None:
+                    mloc["delivery.dropped." + q0_reason] += 1
                 continue
             dropped = session.mqueue.insert(session._queued(m, opts, qos))
             if dropped is not None:
@@ -717,11 +750,17 @@ class _Decided:
 class PublishBatcher:
     """Micro-batching front of `Broker.publish_many`: producers enqueue,
     a collector closes a window every ``window`` seconds or
-    ``batch_max`` messages (at once when the broker is idle) and
+    `_window_limit` messages (at once when the broker is idle) and
     launches its match in an executor thread, keeping up to
     ``pipeline_windows`` windows in flight; the dispatch loop delivers
     them strictly in window order on the event loop and resolves the
-    publishers' futures (their PUBACK/PUBREC)."""
+    publishers' futures (their PUBACK/PUBREC).
+
+    Queueing is per source (each channel passes ``source=self``; wills
+    and housekeeping releases share the ``None`` lane), and the
+    collector takes the lanes round-robin: a flooding connection fills
+    its own lane and is read-paused at its own watermark, while a light
+    client's publish rides the next window."""
 
     def __init__(
         self,
@@ -734,33 +773,88 @@ class PublishBatcher:
         self.window = window
         self.batch_max = batch_max
         self.pipeline_windows = max(pipeline_windows, 1)
-        self._queue: deque = deque()
+        # per-source lanes and their round-robin order
+        self._queues: Dict[object, deque] = {}
+        self._rr: deque = deque()
+        self._total = 0
         self._arrival = asyncio.Event()
-        self._inflight = 0
         self._task: Optional[asyncio.Task] = None
         self._dispatch_task: Optional[asyncio.Task] = None
-        # read-pause bounds: a connection stops reading while the queue
-        # is above high, and resumes below low (TCP backpressure)
-        self.high_watermark = batch_max * 2
-        self.low_watermark = batch_max // 2
+        # messages popped from the lanes but not yet dispatched (the
+        # collector's batch and the pipelined windows), bounded: four
+        # windows of `_window_limit` keep the pipeline deep enough to
+        # hide the device round trip, and more is queueing delay
+        self._inflight_count = 0
+        self.inflight_max = max(batch_max // 2, 512)
+        self._inflight_drain = asyncio.Event()
+        # a source's reads pause above ITS lane's high watermark, or,
+        # once the total crosses the global bound, above its fair share
+        # of it; they resume below the matching low marks
+        self.high_watermark = batch_max
+        self.low_watermark = batch_max // 4
+        self.global_high = batch_max * 2
         self._uncongested = asyncio.Event()
         self._uncongested.set()
+        self._source_waits: Dict[object, asyncio.Event] = {}
 
     def depth(self) -> int:
-        return len(self._queue) + self._inflight
+        return self._total + self._inflight_count
 
-    def congested(self) -> bool:
-        if self.depth() >= self.high_watermark:
+    def _lane_depth(self, source: object = None) -> int:
+        q = self._queues.get(source)
+        return len(q) if q is not None else 0
+
+    def _fair_share(self) -> int:
+        return max(32, self.global_high // max(len(self._queues), 1))
+
+    def congested(self, source: object = None) -> bool:
+        lane = self._lane_depth(source)
+        if lane >= self.high_watermark or (
+            self._total >= self.global_high
+            and lane >= self._fair_share()
+        ):
+            # a no-op while active; an operator-cleared alarm comes back
+            # while the congestion lasts
+            self.broker.alarms.activate(
+                "publish_queue_congested",
+                details={"depth": self.depth()},
+                message="publish micro-batch queue above high watermark",
+            )
+            ev = self._source_waits.get(source)
+            if ev is None:
+                ev = self._source_waits[source] = asyncio.Event()
+            ev.clear()
             self._uncongested.clear()
             return True
         return False
 
-    async def wait_uncongested(self) -> None:
-        await self._uncongested.wait()
+    async def wait_uncongested(self, source: object = None) -> None:
+        ev = self._source_waits.get(source)
+        if ev is not None:
+            await ev.wait()
+        else:
+            await self._uncongested.wait()
 
     def _maybe_release(self) -> None:
-        if self.depth() <= self.low_watermark:
+        """Wake paused sources whose lanes drained to half their fair
+        share (or whose pressure cleared); clear the alarm once the
+        total is down to the low watermark."""
+        if self._source_waits:
+            share = self._fair_share()
+            for source, ev in list(self._source_waits.items()):
+                lane = self._lane_depth(source)
+                if not ev.is_set() and lane < self.high_watermark and (
+                    self._total < self.global_high // 2
+                    or lane <= share // 2
+                ):
+                    ev.set()
+                if lane == 0:
+                    del self._source_waits[source]
+        if not self._uncongested.is_set() and (
+            self._total <= self.low_watermark
+        ):
             self._uncongested.set()
+            self.broker.alarms.deactivate("publish_queue_congested")
 
     async def start(self) -> None:
         if self._task is None:
@@ -775,16 +869,41 @@ class PublishBatcher:
                 pass
             self._task = None
 
-    def publish(self, msg: Message) -> "asyncio.Future[int]":
-        fut: asyncio.Future = asyncio.get_running_loop().create_future()
-        self._queue.append((msg, fut))
+    def _enqueue(self, source: object, entry: tuple) -> None:
+        q = self._queues.get(source)
+        if q is None:
+            q = self._queues[source] = deque()
+            self._rr.append(source)
+        q.append(entry)
+        self._total += 1
         self._arrival.set()
+
+    def _rr_pop(self) -> tuple:
+        src = self._rr[0]
+        q = self._queues[src]
+        entry = q.popleft()
+        self._total -= 1
+        if q:
+            self._rr.rotate(-1)  # the next source's turn
+        else:
+            self._rr.popleft()
+            del self._queues[src]
+        return entry
+
+    def _window_limit(self) -> int:
+        """The most messages one window collects: the pipeline-depth
+        bound (512 at the default ``batch_max`` of 4,096)."""
+        return min(self.batch_max, max(self.inflight_max // 4, 256))
+
+    def publish(self, msg: Message,
+                source: object = None) -> "asyncio.Future[int]":
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._enqueue(source, (msg, fut, source))
         return fut
 
-    def publish_nowait(self, msg: Message) -> None:
+    def publish_nowait(self, msg: Message, source: object = None) -> None:
         """Fire-and-forget enqueue (QoS 0)."""
-        self._queue.append((msg, None))
-        self._arrival.set()
+        self._enqueue(source, (msg, None, source))
 
     async def _run(self) -> None:
         loop = asyncio.get_running_loop()
@@ -792,19 +911,23 @@ class PublishBatcher:
         self._dispatch_task = loop.create_task(self._dispatch_loop(inflight))
         try:
             while True:
-                while not self._queue:
+                while self._total == 0:
                     self._arrival.clear()
                     await self._arrival.wait()
+                while self._inflight_count >= self.inflight_max:
+                    self._inflight_drain.clear()
+                    await self._inflight_drain.wait()
+                limit = self._window_limit()
                 # the window's profiler record opens at collection
                 # start, so the accumulation shows up as its own stage
                 rec = self.broker.profiler.begin(0, source="batcher")
-                batch = [self._queue.popleft()]
-                if self._queue or self._inflight:
+                batch = [self._rr_pop()]
+                if self._total or self._inflight_count:
                     # busy: accumulate up to the window deadline
                     deadline = loop.time() + self.window
-                    while len(batch) < self.batch_max:
-                        if self._queue:
-                            batch.append(self._queue.popleft())
+                    while len(batch) < limit:
+                        if self._total:
+                            batch.append(self._rr_pop())
                             continue
                         timeout = deadline - loop.time()
                         if timeout <= 0:
@@ -816,11 +939,11 @@ class PublishBatcher:
                             )
                         except asyncio.TimeoutError:
                             break
-                msgs = [m for m, _ in batch]
+                msgs = [m for m, _f, _s in batch]
                 if rec is not None:
                     rec.n_msgs = len(batch)
                     rec.lap("batch_wait")
-                self._inflight += len(batch)
+                self._inflight_count += len(batch)
                 try:
                     # the publish fold and the retained store mutate
                     # broker state: loop thread, window order
@@ -831,10 +954,12 @@ class PublishBatcher:
                         None, self.broker.publish_match_submit, live, rec
                     )
                 except Exception as exc:
-                    self._inflight -= len(batch)
+                    self._inflight_count -= len(batch)
+                    self._inflight_drain.set()
                     log.exception("publish window of %d failed in prepare",
                                   len(batch))
                     self._fail(batch, exc)
+                    # a failed last window must still wake paused reads
                     self._maybe_release()
                     continue
                 await inflight.put((batch, live, results, match_fut, rec))
@@ -849,13 +974,17 @@ class PublishBatcher:
                 batch, _live, _res, match_fut, _rec = inflight.get_nowait()
                 match_fut.cancel()
                 self._fail(batch, exc)
-            self._fail(list(self._queue), exc)
-            self._queue.clear()
-            self._inflight = 0
+            # entries still in the lanes were never collected
+            for q in self._queues.values():
+                self._fail(q, exc)
+            self._queues.clear()
+            self._rr.clear()
+            self._total = 0
+            self._inflight_count = 0
 
     @staticmethod
     def _fail(batch, exc: BaseException) -> None:
-        for _m, fut in batch:
+        for _m, fut, _s in batch:
             if fut is not None and not fut.done():
                 fut.set_exception(exc)
 
@@ -870,7 +999,10 @@ class PublishBatcher:
                         None, self.broker.publish_match_finish, handle
                     )
                 finally:
-                    self._inflight -= len(batch)
+                    # leave the ledger on every path, or the depth never
+                    # drains
+                    self._inflight_count -= len(batch)
+                    self._inflight_drain.set()
                 counts = merge_counts(results, self.broker.publish_dispatch(
                     live, matched, rec))
             except asyncio.CancelledError:
@@ -880,8 +1012,35 @@ class PublishBatcher:
                 self._fail(batch, exc)
                 self._maybe_release()
                 continue
-            for (_m, fut), n in zip(batch, counts):
-                if fut is not None and not fut.done():
-                    fut.set_result(n)
-            self._maybe_release()
+            try:
+                # cork each publisher's channel before resolving its
+                # futures: the acks' callbacks run first (call_soon is
+                # FIFO), then one write a connection flushes them
+                corked: List = []
+                seen: Set[int] = set()
+                for _m, fut, src in batch:
+                    if fut is None or src is None or id(src) in seen:
+                        continue
+                    seen.add(id(src))
+                    src.cork()
+                    corked.append(src)
+                try:
+                    for (_m, fut, _s), n in zip(batch, counts):
+                        if fut is not None and not fut.done():
+                            fut.set_result(n)
+                finally:
+                    if corked:
+                        loop.call_soon(self._uncork_all, corked)
+                self._maybe_release()
+            except Exception:
+                # the dispatcher must outlive a failing tail: a dead one
+                # wedges every publish
+                log.exception("publish window post-dispatch failed")
 
+    @staticmethod
+    def _uncork_all(channels: List) -> None:
+        for ch in channels:
+            try:
+                ch.uncork()
+            except Exception:
+                log.exception("ack uncork failed")

@@ -11,7 +11,8 @@ async); PUBLISH and SUBSCRIBE are authorized on the mounted topic
 (0x87), through an ordered chain of async continuations when a
 ``client.authorize`` hook is async; SUBSCRIBE and UNSUBSCRIBE filters
 pass the topic rewrite first.  A lost connection feeds the flapping
-detector.  Pure state machine: the owning `Connection` feeds parsed
+detector; the configured ``auto_subscribe`` filters are subscribed at
+every connect.  Pure state machine: the owning `Connection` feeds parsed
 packets in and gets packets out through ``send``.
 """
 
@@ -109,6 +110,22 @@ class Channel:
         # packets buffer and flush as ONE write on uncork
         self._cork_depth = 0
         self._cork_buf: List[C.Packet] = []
+        # wired by the owning Connection: () -> bytes buffered in the
+        # transport toward this client, the outbound watermark's input
+        # (None: the transport cannot report, the watermark is off)
+        self.transport_buffered = None
+
+    def out_buffered(self) -> int:
+        """Bytes buffered toward this client in the transport (cork
+        buffers flush within their window; the transport buffer is what
+        a stalled subscriber grows)."""
+        fn = self.transport_buffered
+        if fn is None:
+            return 0
+        try:
+            return fn()
+        except Exception:
+            return 0
 
     @property
     def clientid(self) -> Optional[str]:
@@ -481,6 +498,7 @@ class Channel:
             [C.Connack(session_present=present, reason_code=0,
                        properties=props)]
         )
+        self._auto_subscribe(client, session)
         if present:
             self.send_packets(session.resume())
         # the packets the client pipelined while CONNECT resolved
@@ -489,6 +507,27 @@ class Channel:
             if self.state != CONNECTED:
                 break
             self.handle_in(pending)
+
+    def _auto_subscribe(self, client: ClientInfo, session: Session) -> None:
+        """The configured server-side subscriptions, made at every
+        connect through the checks a client SUBSCRIBE passes (filter
+        validity, the mountpoint, authorization); subscribing again is
+        a no-op.  Retained messages are not replayed to them."""
+        clientid = client.clientid
+        for entry in self.broker.config.auto_subscribe:
+            flt = (entry["topic"].replace("%c", clientid)
+                   .replace("%u", client.username or ""))
+            try:
+                T.validate_filter(flt)
+            except ValueError:
+                log.warning("invalid auto_subscribe filter %r", flt)
+                continue
+            full = self._mount(flt)
+            if not self.broker.access.authorize(client, SUBSCRIBE, full):
+                continue
+            opts = SubOpts(qos=int(entry.get("qos", 0)))
+            is_new = session.subscribe(full, opts)
+            self.broker.subscribe(clientid, full, opts, is_new_sub=is_new)
 
     def _connack_error(self, rc: int) -> None:
         code = rc if self.version == C.MQTT_V5 else _V3_CONNACK.get(rc, 3)
@@ -592,7 +631,7 @@ class Channel:
         batcher = self.broker.batcher
         if pkt.qos == 0:
             if batcher is not None:
-                batcher.publish_nowait(msg)
+                batcher.publish_nowait(msg, source=self)
             else:
                 self.broker.publish(msg)
             return
@@ -612,7 +651,7 @@ class Channel:
                 return
         if batcher is not None:
             # the ack resolves from the window's future
-            batcher.publish(msg).add_done_callback(
+            batcher.publish(msg, source=self).add_done_callback(
                 lambda f, pid=pkt.packet_id, q=pkt.qos:
                     self._publish_acked(pid, q, f)
             )
@@ -841,6 +880,12 @@ class Channel:
         if self.session is not None and self.state == CONNECTED:
             self.send_packets(self.session.retry())
             self.session.expire_awaiting_rel()
+            wm = self.broker.config.mqtt.outbound_high_watermark
+            if self.session.out_parked and (
+                    not wm or self.out_buffered() < wm):
+                # the buffer recovered, but the client may owe no ack
+                # that would dequeue: flush the parked queue in order
+                self.send_packets(self.session._dequeue())
 
     # ----------------------------------------------------- teardown
 

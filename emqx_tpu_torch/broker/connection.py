@@ -2,7 +2,11 @@
 
 Reads socket chunks into the incremental `StreamParser`, feeds packets
 to the channel state machine, serializes outgoing packets, and drives
-the keepalive / retry timers.  With a ``limiter`` (the listener's
+the keepalive / retry timers.  The transport's write buffer feeds the
+outbound watermark (`Channel.out_buffered`) and the
+``conn_congestion/<clientid>`` alarm: raised at `CONGESTION_BYTES`
+buffered (counting ``connection.congested``), cleared below a quarter
+of that and on close.  With a ``limiter`` (the listener's
 `HierarchicalLimiter` or one `ConnectionLimiter`) each read's bytes and
 each PUBLISH draw from its buckets, and the read loop sleeps the
 deficit (in 1 s slices) before it goes on: the client is throttled
@@ -43,10 +47,22 @@ class Connection:
             broker, send=self._send_packets, close=self._close, peer=peer,
             mountpoint=mountpoint,
         )
+        # the watermark's input: the transport's write buffer, where a
+        # stalled subscriber's bytes pile up (a WebSocket stream has no
+        # transport of its own: its watermark stays off)
+        transport = getattr(writer, "transport", None)
+        if transport is not None and hasattr(transport,
+                                             "get_write_buffer_size"):
+            self.channel.transport_buffered = transport.get_write_buffer_size
         self.parser = C.StreamParser(
             max_packet_size=broker.config.mqtt.max_packet_size
         )
         self._closed = asyncio.Event()
+        self._congested = False
+
+    # a connection whose transport holds more than this is a congested
+    # subscriber: alarm per client id, cleared once the buffer drains
+    CONGESTION_BYTES = 1 << 20
 
     def _send_packets(self, packets: List[C.Packet]) -> None:
         if self.writer.is_closing():
@@ -58,8 +74,35 @@ class Connection:
             "packets.sent", sum(getattr(p, "n_packets", 1) for p in packets))
         self.broker.metrics.inc("bytes.sent", len(data))
         self.writer.write(data)
+        buffered = self.channel.out_buffered()
+        if buffered == 0 and not self._congested:
+            return
+        name = f"conn_congestion/{self._alarm_id()}"
+        if buffered >= self.CONGESTION_BYTES:
+            if not self._congested:
+                self._congested = True
+                self.broker.metrics.inc("connection.congested")
+                self.broker.alarms.activate(
+                    name,
+                    details={"clientid": self._alarm_id(),
+                             "buffered": buffered},
+                    message="connection send buffer congested "
+                    "(slow consumer)",
+                )
+        elif self._congested and buffered < self.CONGESTION_BYTES // 4:
+            self._congested = False
+            self.broker.alarms.deactivate(name)
+
+    def _alarm_id(self) -> str:
+        client = self.channel.client
+        return client.clientid if client is not None else self.channel.peer
 
     def _close(self, reason: str) -> None:
+        if self._congested:
+            # the alarm must not outlive its connection
+            self._congested = False
+            self.broker.alarms.deactivate(
+                f"conn_congestion/{self._alarm_id()}")
         if not self.writer.is_closing():
             self.writer.close()
         self._closed.set()
@@ -100,10 +143,10 @@ class Connection:
                             break
                 await self._drain()
                 batcher = self.broker.batcher
-                if batcher is not None and batcher.congested():
-                    # stop reading until the publish queue drains: TCP
-                    # backpressure reaches the client
-                    await batcher.wait_uncongested()
+                if batcher is not None and batcher.congested(self.channel):
+                    # stop reading until this client's lane drains: TCP
+                    # backpressure reaches the client, and only it
+                    await batcher.wait_uncongested(self.channel)
                 if self.channel.defer_saturated:
                     # the async-verdict chain sits before the batcher:
                     # a flood must pause on it too

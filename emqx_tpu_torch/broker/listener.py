@@ -1,17 +1,29 @@
-"""TCP listener and the broker server CLI.
+"""Listeners and the broker server CLI.
 
-    python -m emqx_tpu_torch.broker --port P [--bind ADDR] [--device cuda|cpu]
+    python -m emqx_tpu_torch.broker [--config FILE] [--check-config]
+        [--port P] [--bind ADDR] [--device cuda|cpu]
 
-``--device`` defaults to ``cuda`` (the hand-written kernels) and fails
-without a card; ``--device cpu`` runs the plain PyTorch versions.
-``--port 0`` binds a free port.  The server prints one line with the
-address it listens on once it accepts connections.
+``--config`` loads a JSON file (`ConfigHandler.load`); the
+``EMQX_TPU_<PATH>`` environment variables apply on top of it
+(`apply_env_overrides`), then `check_config` runs: ``--check-config``
+prints ``config ok`` and exits 0, or prints ``config error:`` lines and
+exits 1; a bad configuration at boot exits 2.  ``--port`` and
+``--bind``, when given, override the first listener's.  ``--device``
+defaults to ``cuda`` (the hand-written kernels) and fails without a
+card; ``--device cpu`` runs the plain PyTorch versions.  Once every
+listener accepts connections the server prints one line a listener
+with its name, type, address and the device.
 
-The server gives each connection the listener's mountpoint and its
-limiter (`HierarchicalLimiter`: the connection's own buckets, the
-listener's shared ones, the broker's zone buckets), publishes the
-``$SYS`` heartbeats (`SysTopics`) and runs the 1 Hz housekeeping:
-``Broker.tick`` and ``SysTopics.tick``.
+A `Listener` is one bound socket over tcp, ssl (TLS, optionally with
+client certificates and a CRL the housekeeping reloads), ws or wss
+(MQTT over WebSocket, `ws.py`).  It caps its connections at
+``max_connections`` (counted from accept, so a slow WebSocket handshake
+is no free pass; the handshake has 10 s) and gives each connection the
+listener's mountpoint and its limiter (`HierarchicalLimiter`: the
+connection's own buckets, the listener's shared ones, the broker's zone
+buckets).  The server publishes the ``$SYS`` heartbeats (`SysTopics`)
+and runs the 1 Hz housekeeping: ``Broker.tick``, ``SysTopics.tick`` and
+each listener's CRL reload.
 """
 
 from __future__ import annotations
@@ -19,86 +31,154 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
 import sys
 from typing import List, Optional, Set
 
-from ..config import BrokerConfig
+from ..config import (
+    BrokerConfig, ConfigHandler, ListenerConfig, apply_env_overrides,
+    check_config,
+)
 from ..limiter import ConnectionLimiter, HierarchicalLimiter
 from ..sys_topics import SysTopics
 from .broker import Broker, PublishBatcher
 from .connection import Connection
+from .ws import WsError, WsServerStream, server_handshake
 
 log = logging.getLogger("emqx_tpu_torch.listener")
 
+TRANSPORTS = ("tcp", "ssl", "ws", "wss")
+WS_HANDSHAKE_TIMEOUT = 10.0
 
-class BrokerServer:
-    """A broker, its publish batcher, its ``$SYS`` heartbeats and one
-    TCP listener."""
 
-    def __init__(self, config: Optional[BrokerConfig] = None,
-                 device="cuda", native: bool = True) -> None:
-        self.broker = Broker(config=config, device=device, native=native)
-        self.sys = SysTopics(self.broker)
-        lc = self.broker.config.listener
-        # the listener-aggregate buckets all its connections share
-        self._shared_limiter: Optional[ConnectionLimiter] = None
-        if lc.max_messages_rate > 0 or lc.max_bytes_rate > 0:
-            self._shared_limiter = ConnectionLimiter(
-                messages_rate=lc.max_messages_rate,
-                bytes_rate=lc.max_bytes_rate, shared=True,
-            )
+class Listener:
+    """One bound socket accepting MQTT clients over tcp, ssl, ws or
+    wss."""
+
+    def __init__(self, broker: Broker, cfg: ListenerConfig) -> None:
+        self.broker = broker
+        self.cfg = cfg
         self._server: Optional[asyncio.AbstractServer] = None
         self._conns: Set[asyncio.Task] = set()
-        self._housekeeper: Optional[asyncio.Task] = None
-        self.port: Optional[int] = None
+        self._ssl_ctx = None
+        self._crl_mtime = 0.0
+        self._crl_next_update = None
+        # the listener-aggregate buckets all its connections share
+        self._shared_limiter: Optional[ConnectionLimiter] = None
+        if cfg.max_messages_rate > 0 or cfg.max_bytes_rate > 0:
+            self._shared_limiter = ConnectionLimiter(
+                messages_rate=cfg.max_messages_rate,
+                bytes_rate=cfg.max_bytes_rate, shared=True,
+            )
 
-    async def start(self) -> None:
-        cfg = self.broker.config
-        eng = cfg.engine
-        self.broker.batcher = PublishBatcher(
-            self.broker,
-            window=eng.batch_window_ms / 1000.0,
-            batch_max=eng.batch_max,
-            pipeline_windows=eng.pipeline_windows,
-        )
-        await self.broker.batcher.start()
-        self._server = await asyncio.start_server(
-            self._on_client, cfg.bind, cfg.port
-        )
-        self.port = self._server.sockets[0].getsockname()[1]
-        self._housekeeper = asyncio.get_running_loop().create_task(
-            self._housekeep()
-        )
+    @property
+    def port(self) -> int:
+        """The bound port (the configured one before `start`)."""
+        if self._server is None or not self._server.sockets:
+            return self.cfg.port
+        return self._server.sockets[0].getsockname()[1]
 
     def _make_limiter(self):
         """One connection's limiter: None when no level is set, one
         `ConnectionLimiter` when only its own, else the hierarchy."""
-        lc = self.broker.config.listener
+        cfg = self.cfg
         conn = None
-        if lc.messages_rate > 0 or lc.bytes_rate > 0:
-            conn = ConnectionLimiter(messages_rate=lc.messages_rate,
-                                     bytes_rate=lc.bytes_rate)
+        if cfg.messages_rate > 0 or cfg.bytes_rate > 0:
+            conn = ConnectionLimiter(messages_rate=cfg.messages_rate,
+                                     bytes_rate=cfg.bytes_rate)
         zone = self.broker.zone_limiter
         if self._shared_limiter is None and zone is None:
             return conn
         return HierarchicalLimiter(conn, self._shared_limiter, zone)
 
-    async def _housekeep(self) -> None:
-        """The broker's 1 Hz housekeeping and the $SYS heartbeat."""
-        while True:
-            await asyncio.sleep(1.0)
-            try:
-                self.broker.tick()
-                self.sys.tick()
-            except Exception:
-                log.exception("housekeeping tick failed")
+    def _ssl_context(self):
+        import ssl
+
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(self.cfg.certfile, self.cfg.keyfile)
+        if self.cfg.cacertfile:
+            ctx.load_verify_locations(self.cfg.cacertfile)
+        if self.cfg.verify:
+            ctx.verify_mode = ssl.CERT_REQUIRED
+        if self.cfg.crlfile:
+            # revocation: leaf certificates are checked against the
+            # CRL, which the housekeeping reloads when the file changes
+            if not self.cfg.verify:
+                raise ValueError(
+                    f"listener {self.cfg.name}: crlfile requires "
+                    "verify=true (without a requested client cert "
+                    "there is nothing to check revocation against)"
+                )
+            ctx.verify_flags |= ssl.VERIFY_CRL_CHECK_LEAF
+            ctx.load_verify_locations(self.cfg.crlfile)
+            self._crl_mtime = os.stat(self.cfg.crlfile).st_mtime
+            self._note_crl_expiry()
+        self._ssl_ctx = ctx
+        return ctx
+
+    def _note_crl_expiry(self) -> None:
+        """Keep the CRL's nextUpdate: once it passes, OpenSSL fails
+        every handshake, and an untouched file never triggers a
+        reload, so the operator is warned."""
+        self._crl_next_update = None
+        try:
+            from cryptography import x509
+
+            with open(self.cfg.crlfile, "rb") as f:
+                crl = x509.load_pem_x509_crl(f.read())
+            self._crl_next_update = crl.next_update_utc
+        except Exception:
+            log.debug("CRL nextUpdate unreadable", exc_info=True)
+
+    def maybe_reload_crl(self) -> bool:
+        """Load the CRL file into the live context when its mtime
+        changed (OpenSSL takes the freshest CRL per issuer).  True when
+        it reloaded."""
+        if self._ssl_ctx is None or not self.cfg.crlfile:
+            return False
+        if self._crl_next_update is not None:
+            import datetime
+
+            now = datetime.datetime.now(datetime.timezone.utc)
+            if now > self._crl_next_update:
+                log.warning(
+                    "listener %s: CRL is past nextUpdate (%s): OpenSSL "
+                    "now rejects ALL client certs on this listener until "
+                    "a fresh CRL is written",
+                    self.cfg.name, self._crl_next_update,
+                )
+                self._crl_next_update = None  # warn once an expiry
+        try:
+            mtime = os.stat(self.cfg.crlfile).st_mtime
+        except OSError:
+            return False
+        if mtime == self._crl_mtime:
+            return False
+        try:
+            self._ssl_ctx.load_verify_locations(self.cfg.crlfile)
+        except Exception:
+            # the mtime stays: the load is tried again every tick
+            log.warning("listener %s: CRL reload failed", self.cfg.name,
+                        exc_info=True)
+            return False
+        self._crl_mtime = mtime
+        self._note_crl_expiry()
+        log.info("listener %s: CRL reloaded", self.cfg.name)
+        return True
+
+    async def start(self) -> None:
+        ssl_ctx = (self._ssl_context() if self.cfg.type in ("ssl", "wss")
+                   else None)
+        self._server = await asyncio.start_server(
+            self._on_client, self.cfg.bind, self.cfg.port, ssl=ssl_ctx,
+            reuse_port=self.cfg.reuse_port or None,
+        )
+        log.info("listener %s (%s) started on %s:%d", self.cfg.name,
+                 self.cfg.type, self.cfg.bind, self.port)
 
     async def stop(self) -> None:
-        if self._housekeeper is not None:
-            self._housekeeper.cancel()
-            self._housekeeper = None
-        # cancel connection handlers BEFORE wait_closed: Server.wait_closed
-        # also waits for live handlers
+        # cancel the connection handlers BEFORE wait_closed, which also
+        # waits for live handlers
         if self._server is not None:
             self._server.close()
         for task in list(self._conns):
@@ -108,30 +188,115 @@ class BrokerServer:
         if self._server is not None:
             await self._server.wait_closed()
             self._server = None
-        if self.broker.batcher is not None:
-            await self.broker.batcher.stop()
-            self.broker.batcher = None
-        self.broker.shutdown()
 
     async def _on_client(self, reader: asyncio.StreamReader,
                          writer: asyncio.StreamWriter) -> None:
+        if len(self._conns) >= self.cfg.max_connections:
+            writer.close()
+            return
         task = asyncio.current_task()
         self._conns.add(task)
         try:
+            if self.cfg.type in ("ws", "wss"):
+                try:
+                    await asyncio.wait_for(server_handshake(reader, writer),
+                                           WS_HANDSHAKE_TIMEOUT)
+                except (WsError, asyncio.TimeoutError,
+                        asyncio.IncompleteReadError,
+                        asyncio.LimitOverrunError, ConnectionError,
+                        ValueError):
+                    writer.close()
+                    return
+                reader = writer = WsServerStream(
+                    reader, writer,
+                    max_size=self.broker.config.mqtt.max_packet_size * 2,
+                )
             await Connection(
-                self.broker, reader, writer,
-                mountpoint=self.broker.config.listener.mountpoint,
+                self.broker, reader, writer, mountpoint=self.cfg.mountpoint,
                 limiter=self._make_limiter(),
             ).run()
         finally:
             self._conns.discard(task)
 
+
+class BrokerServer:
+    """A broker, its publish batcher (unless ``engine.batch_publish`` is
+    off), its ``$SYS`` heartbeats and its listeners.  A listener of a
+    type this package does not serve raises here; one that fails to
+    bind or to load its certificates raises out of `start`."""
+
+    def __init__(self, config: Optional[BrokerConfig] = None,
+                 device="cuda", native: bool = True) -> None:
+        self.broker = Broker(config=config, device=device, native=native)
+        self.sys = SysTopics(self.broker)
+        self.listeners: List[Listener] = []
+        for lc in self.broker.config.listeners:
+            if not lc.enable:
+                continue
+            if lc.type == "quic":
+                raise ValueError(
+                    f"listener {lc.name}: quic is not ported to "
+                    "emqx_tpu_torch (ROADMAP.md section 1, item 10)")
+            if lc.type not in TRANSPORTS:
+                raise ValueError(
+                    f"listener {lc.name}: unknown type {lc.type!r}")
+            self.listeners.append(Listener(self.broker, lc))
+        self._housekeeper: Optional[asyncio.Task] = None
+
+    @property
+    def port(self) -> Optional[int]:
+        """The first listener's bound port."""
+        return self.listeners[0].port if self.listeners else None
+
+    async def start(self) -> None:
+        eng = self.broker.config.engine
+        if eng.batch_publish:
+            self.broker.batcher = PublishBatcher(
+                self.broker,
+                window=eng.batch_window_ms / 1000.0,
+                batch_max=eng.batch_max,
+                pipeline_windows=eng.pipeline_windows,
+            )
+            await self.broker.batcher.start()
+        for lst in self.listeners:
+            await lst.start()
+        self._housekeeper = asyncio.get_running_loop().create_task(
+            self._housekeep()
+        )
+
+    async def _housekeep(self) -> None:
+        """The broker's 1 Hz housekeeping, the $SYS heartbeat and the
+        listeners' CRL reloads."""
+        while True:
+            await asyncio.sleep(1.0)
+            try:
+                self.broker.tick()
+                self.sys.tick()
+                for lst in self.listeners:
+                    lst.maybe_reload_crl()
+            except Exception:
+                log.exception("housekeeping tick failed")
+
+    async def stop(self) -> None:
+        if self._housekeeper is not None:
+            self._housekeeper.cancel()
+            self._housekeeper = None
+        for lst in self.listeners:
+            await lst.stop()
+        if self.broker.batcher is not None:
+            await self.broker.batcher.stop()
+            self.broker.batcher = None
+        self.broker.shutdown()
+
     async def run_forever(self) -> None:
-        await self.start()
-        print(f"emqx_tpu_torch broker listening on "
-              f"{self.broker.config.bind}:{self.port} "
-              f"(device {self.broker.router.engine.device})", flush=True)
         try:
+            await self.start()
+            device = self.broker.router.engine.device
+            for lst in self.listeners:
+                print(f"emqx_tpu_torch broker listener {lst.cfg.name} "
+                      f"({lst.cfg.type}) listening on "
+                      f"{lst.cfg.bind}:{lst.port} (device {device})",
+                      flush=True)
             await asyncio.Event().wait()
         finally:
             await self.stop()
@@ -139,8 +304,14 @@ class BrokerServer:
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description="emqx_tpu_torch MQTT broker")
-    ap.add_argument("--port", type=int, default=1883)
-    ap.add_argument("--bind", default="0.0.0.0")
+    ap.add_argument("--config", default=None, help="JSON config file")
+    ap.add_argument(
+        "--check-config", action="store_true",
+        help="validate the config (file and EMQX_TPU_* overrides) and "
+        "exit: 0 when it boots cleanly",
+    )
+    ap.add_argument("--port", type=int, default=None)
+    ap.add_argument("--bind", default=None)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
@@ -148,10 +319,34 @@ def main(argv: Optional[List[str]] = None) -> None:
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s %(message)s",
     )
-    cfg = BrokerConfig(bind=args.bind, port=args.port)
+    failed = 1 if args.check_config else 2
+    try:
+        cfg = (ConfigHandler.load(args.config).root if args.config
+               else BrokerConfig())
+        # EMQX_TPU_A__B=value lands between the file and the flags
+        applied = apply_env_overrides(cfg)
+    except (OSError, ValueError, TypeError) as exc:
+        print(f"config error: {exc}", file=sys.stderr)
+        raise SystemExit(failed)
+    for path, value in applied:
+        log.info("env override: %s = %r", path, value)
+    problems = check_config(cfg)
+    for p in problems:
+        print(f"config error: {p}", file=sys.stderr)
+    if args.check_config:
+        print("config ok" if not problems else f"{len(problems)} problem(s)",
+              file=sys.stderr if problems else sys.stdout)
+        raise SystemExit(1 if problems else 0)
+    if problems:
+        raise SystemExit(2)
+    # the flags override the first listener only when given
+    if args.port is not None:
+        cfg.listeners[0].port = args.port
+    if args.bind is not None:
+        cfg.listeners[0].bind = args.bind
     try:
         server = BrokerServer(cfg, device=args.device)
-    except RuntimeError as exc:
+    except (RuntimeError, ValueError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         raise SystemExit(2)
     try:

@@ -119,6 +119,12 @@ class Session:
         self.expiry_interval = expiry_interval
         self.upgrade_qos = upgrade_qos
         self._next_pid = 0
+        # True while this CONNECTED session holds mqueue entries parked
+        # by the outbound watermark: dispatch keeps queueing its QoS>0
+        # deliveries behind them (same-topic order must not invert), and
+        # the channel's retry timer drains the queue once the buffer
+        # recovers.  `_dequeue` clears it when the queue empties.
+        self.out_parked = False
         # wired by the broker: called with (dropped_msg, reason) when a
         # delivery is lost to queue overflow or expiry
         self.on_dropped: Optional[Callable[[Message, str], None]] = None
@@ -344,6 +350,10 @@ class Session:
                 pid, _InflightEntry(_PUBLISHING, msg, msg.qos, time.time())
             )
             out.append(self._publish_packet(msg, None, msg.qos, pid))
+        if not len(self.mqueue):
+            # the parked backlog (if any) drained: deliveries may take
+            # the wire path again
+            self.out_parked = False
         return out
 
     # ------------------------------------------- client acks (out path)

@@ -1,10 +1,23 @@
 """Typed broker configuration: the knobs the port's broker reads,
-with the JAX package's defaults."""
+with the JAX package's defaults, and the ways a deployment sets them.
+
+`ConfigHandler` loads a JSON file (``from_dict``/``load``; an unknown
+key is an error) and gives dotted-path ``get``/``update`` with
+validating handlers; `apply_env_overrides` applies the
+``EMQX_TPU_<PATH>`` environment variables; `check_config` lists the
+problems a typo would cause at boot.  A key of a section this package
+has not ported yet (overload protection, the management API, durable
+storage, clustering, ...) and ``engine.use_device`` (``--device``
+chooses the device here) raise ValueError naming the key: such a
+setting is never dropped silently.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
 @dataclass
@@ -35,16 +48,35 @@ class MqttConfig:
     server_keepalive: Optional[int] = None
     retry_interval: float = 30.0
     idle_timeout: float = 15.0
+    # per-connection OUTBOUND high watermark (bytes buffered in the
+    # transport toward one subscriber): past it, QoS 0 deliveries to
+    # that connection drop (``delivery.dropped.out_buffer``) and QoS>0
+    # ones park on the mqueue, so a stalled subscriber's wire buffer
+    # stays bounded.  0 = off.
+    outbound_high_watermark: int = 4 * 1024 * 1024
 
 
 @dataclass
 class ListenerConfig:
-    """The TCP listener's per-connection options (the server binds
-    ``BrokerConfig.bind``/``port``)."""
-
+    name: str = "tcp_default"
+    type: str = "tcp"  # tcp | ssl | ws | wss
+    bind: str = "0.0.0.0"
+    port: int = 1883
+    max_connections: int = 1024000
     # prefix every topic of the listener's clients lives under (their
     # publishes, subscriptions and wills); None = no mountpoint
     mountpoint: Optional[str] = None
+    enable: bool = True
+    # SO_REUSEPORT: several processes may bind the same port
+    reuse_port: bool = False
+    # TLS (ssl and wss listeners)
+    certfile: Optional[str] = None
+    keyfile: Optional[str] = None
+    cacertfile: Optional[str] = None
+    verify: bool = False  # require and verify client certificates
+    # PEM CRL checked against client leaf certificates (needs verify);
+    # reloaded into the live context when the file changes
+    crlfile: Optional[str] = None
     # per-connection rate limits (emqx_limiter); 0 = unlimited
     messages_rate: float = 0.0  # PUBLISH packets per second
     bytes_rate: float = 0.0  # inbound bytes per second
@@ -100,11 +132,17 @@ class BrokerEngineConfig:
     # rebuild the base automaton in a builder thread, off the insert
     # path (the delta tiers keep results exact meanwhile)
     background_rebuild: bool = True
+    # route live publishes through the `PublishBatcher` (False: each
+    # publish is matched on its own, synchronously)
+    batch_publish: bool = True
     batch_window_ms: float = 1.0  # micro-batch accumulation window
     batch_max: int = 4096
     # windows matched concurrently: the collector fills window N+1..N+k
     # while window N's kernel runs; dispatch stays in window order
     pipeline_windows: int = 4
+    # rule WHERE predicates run as one rules x window matrix (K4);
+    # False pins the per-rule interpreter
+    rules_matrix: bool = True
 
 
 @dataclass
@@ -130,14 +168,227 @@ class RetainerConfig:
 @dataclass
 class BrokerConfig:
     mqtt: MqttConfig = field(default_factory=MqttConfig)
-    engine: BrokerEngineConfig = field(default_factory=BrokerEngineConfig)
-    profiler: ProfilerConfig = field(default_factory=ProfilerConfig)
-    retainer: RetainerConfig = field(default_factory=RetainerConfig)
-    listener: ListenerConfig = field(default_factory=ListenerConfig)
+    listeners: List[ListenerConfig] = field(
+        default_factory=lambda: [ListenerConfig()]
+    )
     auth: AuthConfig = field(default_factory=AuthConfig)
+    retainer: RetainerConfig = field(default_factory=RetainerConfig)
+    engine: BrokerEngineConfig = field(default_factory=BrokerEngineConfig)
     sys: SysConfig = field(default_factory=SysConfig)
     flapping: FlappingConfig = field(default_factory=FlappingConfig)
     slow_subs: SlowSubsConfig = field(default_factory=SlowSubsConfig)
-    bind: str = "0.0.0.0"
-    port: int = 1883
+    profiler: ProfilerConfig = field(default_factory=ProfilerConfig)
+    # server-side subscriptions made at every connect: entries
+    # {"topic": ..., "qos": 0}; %c (client id) and %u (username)
+    auto_subscribe: List[Dict[str, Any]] = field(default_factory=list)
     node_name: str = "emqx_tpu@127.0.0.1"
+
+
+# keys of the JAX package's configuration whose modules this package
+# has not ported: loading one raises, naming the key and its module
+NOT_PORTED = {
+    "api": "the management API",
+    "olp": "overload protection",
+    "flight": "the flight recorder",
+    "tracing": "message tracing",
+    "otel": "OpenTelemetry export",
+    "log": "structured logging",
+    "telemetry_enable": "telemetry",
+    "telemetry_url": "telemetry",
+    "telemetry_interval": "telemetry",
+    "durable": "durable sessions",
+    "multicore": "the match service and multicore",
+    "cluster": "clustering",
+    "cluster_name": "cluster linking",
+    "cluster_links": "cluster linking",
+    "exhooks": "exhook",
+    "sinks": "the rule sinks",
+    "gateways": "the gateways",
+    "plugins": "plugins",
+    "plugin_dir": "plugins",
+    "ft": "file transfer",
+    "gcp_device_enable": "the GCP device registry",
+    "gcp_device_file": "the GCP device registry",
+    "engine.use_device": "no device switch: --device chooses the device",
+    "retainer.deliver_rate": "a retained-delivery rate nothing reads",
+}
+
+
+def _not_ported(path: str) -> ValueError:
+    return ValueError(
+        f"config key {path}: not ported to emqx_tpu_torch "
+        f"({NOT_PORTED[path]})")
+
+
+class ConfigHandler:
+    """Dotted-path get/update with validating listeners."""
+
+    def __init__(self, cfg: Optional[BrokerConfig] = None) -> None:
+        self.root = cfg or BrokerConfig()
+        self._handlers: Dict[str, List[Callable[[Any, Any], None]]] = {}
+
+    def get(self, path: str) -> Any:
+        obj: Any = self.root
+        for part in path.split("."):
+            obj = obj[part] if isinstance(obj, dict) else getattr(obj, part)
+        return obj
+
+    def update(self, path: str, value: Any) -> Any:
+        """Set ``path`` to ``value``, running the handlers registered on
+        it or on a prefix first; a handler that raises aborts the
+        update."""
+        old = self.get(path)
+        for prefix, fns in self._handlers.items():
+            if path == prefix or path.startswith(prefix + "."):
+                for fn in fns:
+                    fn(old, value)
+        parts = path.split(".")
+        obj: Any = self.root
+        for part in parts[:-1]:
+            obj = obj[part] if isinstance(obj, dict) else getattr(obj, part)
+        if isinstance(obj, dict):
+            obj[parts[-1]] = value
+        else:
+            setattr(obj, parts[-1], value)
+        return value
+
+    def add_handler(self, path: str,
+                    fn: Callable[[Any, Any], None]) -> None:
+        self._handlers.setdefault(path, []).append(fn)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self.root)
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]) -> "ConfigHandler":
+        root = BrokerConfig()
+        _merge_dataclass(root, data)
+        return cls(root)
+
+    @classmethod
+    def load(cls, path: str) -> "ConfigHandler":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+
+def _merge_dataclass(obj: Any, data: Dict[str, Any],
+                     prefix: str = "") -> None:
+    for key, val in data.items():
+        if prefix + key in NOT_PORTED:
+            raise _not_ported(prefix + key)
+        if not hasattr(obj, key):
+            raise ValueError(f"unknown config key: {key}")
+        cur = getattr(obj, key)
+        if dataclasses.is_dataclass(cur) and isinstance(val, dict):
+            _merge_dataclass(cur, val, prefix + key + ".")
+        elif key == "listeners" and isinstance(val, list):
+            setattr(obj, key, [ListenerConfig(**item) for item in val])
+        else:
+            setattr(obj, key, val)
+
+
+# ------------------------------------------------- environment overrides
+
+ENV_PREFIX = "EMQX_TPU_"
+
+# switches that share the prefix but are not config paths: the JAX
+# package's switches that take a native helper or the decide kernel off.
+# This package has no such switch, so setting one raises, naming it
+ENV_RESERVED = {
+    "EMQX_TPU_NO_NATIVE_SORT": "the native sort helpers",
+    "EMQX_TPU_NO_NATIVE_TOKDICT": "the native token dictionary",
+    "EMQX_TPU_NO_NATIVE_TRIE": "the native host trie",
+    "EMQX_TPU_NO_NATIVE_DISPATCH": "the native window wire assembly",
+    "EMQX_TPU_NO_DECIDE": "the decide kernel",
+}
+
+
+def apply_env_overrides(
+    cfg: BrokerConfig, environ: Optional[Dict[str, str]] = None
+) -> List[Tuple[str, Any]]:
+    """Every variable ``EMQX_TPU_A__B__C=value`` sets config path
+    ``a.b.c``.  Values parse as JSON when they can (numbers, booleans,
+    lists, objects) and are plain strings otherwise, coerced to the
+    type of a scalar leaf; an unknown path is an error, as an unknown
+    key in a config file is, and so is one of the JAX package's switches
+    in ``ENV_RESERVED``.  Returns the applied (path, value) list."""
+    import os
+
+    environ = dict(os.environ) if environ is None else environ
+    applied: List[Tuple[str, Any]] = []
+    for name in sorted(environ):
+        if not name.startswith(ENV_PREFIX):
+            continue
+        if name in ENV_RESERVED:
+            raise ValueError(
+                f"{name}: not ported to emqx_tpu_torch (no switch takes "
+                f"{ENV_RESERVED[name]} off)")
+        path = name[len(ENV_PREFIX):].lower().replace("__", ".")
+        raw = environ[name]
+        try:
+            value: Any = json.loads(raw)
+        except (json.JSONDecodeError, ValueError):
+            value = raw
+        parts = path.split(".")
+        for k in range(1, len(parts) + 1):
+            if ".".join(parts[:k]) in NOT_PORTED:
+                raise _not_ported(".".join(parts[:k]))
+        obj: Any = cfg
+        for part in parts[:-1]:
+            if isinstance(obj, dict):
+                if part not in obj:
+                    raise ValueError(f"unknown config path in {name}")
+                obj = obj[part]
+            else:
+                if not hasattr(obj, part):
+                    raise ValueError(f"unknown config path in {name}")
+                obj = getattr(obj, part)
+        leaf = parts[-1]
+        if isinstance(obj, dict):
+            obj[leaf] = value
+        else:
+            if not hasattr(obj, leaf):
+                raise ValueError(f"unknown config path in {name}")
+            old = getattr(obj, leaf)
+            if old is not None and value is not None \
+                    and not isinstance(value, type(old)) \
+                    and not isinstance(old, (dict, list)):
+                try:
+                    value = type(old)(value)
+                except (TypeError, ValueError) as exc:
+                    raise ValueError(
+                        f"{name}: cannot coerce {raw!r} to "
+                        f"{type(old).__name__}"
+                    ) from exc
+            setattr(obj, leaf, value)
+        applied.append((path, value))
+    return applied
+
+
+# -------------------------------------------------------- boot-time check
+
+def check_config(cfg: BrokerConfig) -> List[str]:
+    """The problems that would make a boot go wrong, as messages; empty
+    when the configuration boots cleanly.  Checks the enum-valued and
+    cross-field settings of the ported sections."""
+    problems: List[str] = []
+    bad = problems.append
+    for i, lst in enumerate(cfg.listeners):
+        if lst.type == "quic":
+            bad(f"listeners[{i}].type: quic is not ported to "
+                "emqx_tpu_torch")
+        elif lst.type not in ("tcp", "ssl", "ws", "wss"):
+            bad(f"listeners[{i}].type: unknown type {lst.type!r}")
+        if lst.type in ("ssl", "wss", "quic") and not (
+            lst.certfile and lst.keyfile
+        ):
+            bad(f"listeners[{i}]: {lst.type} requires certfile+keyfile")
+        if not (0 <= int(lst.port) <= 65535):
+            bad(f"listeners[{i}].port: {lst.port} out of range")
+    if cfg.mqtt.max_qos_allowed not in (0, 1, 2):
+        bad(f"mqtt.max_qos_allowed: {cfg.mqtt.max_qos_allowed}")
+    if cfg.mqtt.mqueue_default_priority not in ("lowest", "highest"):
+        bad("mqtt.mqueue_default_priority must be lowest|highest")
+    if int(cfg.mqtt.outbound_high_watermark) < 0:
+        bad("mqtt.outbound_high_watermark must be >= 0")
+    return problems

@@ -21,8 +21,9 @@ WHERE as one rules x window boolean matrix
 (`ops.match_kernel.rules_eval_batch`: the CUDA kernel on the card, its
 plain PyTorch version on the CPU).  Non-lowerable predicates degrade per
 RULE to the interpreter over the same lazily materialized envs, never
-pushing the window off the matrix path.  ``eval_force = "scalar"`` pins
-the per-rule interpreter walk, the referee the matrix path must equal.
+pushing the window off the matrix path.  ``eval_force = "scalar"`` (or
+the broker's ``engine.rules_matrix = False``) pins the per-rule
+interpreter walk, the referee the matrix path must equal.
 """
 
 from __future__ import annotations
@@ -122,6 +123,9 @@ class RuleEngine:
         # "scalar" pins the per-rule interpreter referee; None takes
         # the matrix path
         self.eval_force: Optional[str] = None
+        # the broker's ``engine.rules_matrix = False`` pins it as well
+        self._matrix_enabled = (broker is None
+                                or broker.config.engine.rules_matrix)
         self._stats = {
             "matrix_windows": 0, "scalar_windows": 0,
             "fallback_rule_evals": 0,
@@ -276,7 +280,7 @@ class RuleEngine:
 
         # flatten the sink to (rule-position, msg) pair columns over
         # the rev-stable position space (see __init__)
-        use_matrix = self.eval_force != "scalar"
+        use_matrix = self._matrix_enabled and self.eval_force != "scalar"
         stack: Optional[StackedRules] = None
         if use_matrix:
             stack = self._stacked()

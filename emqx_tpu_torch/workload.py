@@ -18,7 +18,9 @@ frontier doubles every level, to fill and overflow the widest frontier.
 subscribers, and `retained_topics` one last-known-state topic per
 device of a fleet.  `access_script` is a seeded world of authenticated
 clients under EMQX's default ACL, and `access_world` runs it through a
-broker's channels in process.
+broker's channels in process.  `fairness_world` is one flooding and one
+light client through a broker's channels and its publish batcher, and
+`TransportClient` a minimal MQTT client over tcp, ssl, ws or wss.
 
 `make_rules` and `make_rule_payloads` add config 4's rule-engine half:
 SQL rules whose FROM filters cover the fleet topic families and whose
@@ -29,8 +31,10 @@ carry float32-lossy values (millisecond timestamps, 2**24 + 1).
 
 from __future__ import annotations
 
+import asyncio
 import json
-from typing import List, Sequence, Tuple
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -390,3 +394,201 @@ def access_world(device: str, subs, msgs):
     info = [{k: v for k, v in m.items() if k not in ("created_at", "rate.in")}
             for m in b.topic_metrics.info()]
     return {cid: bytes(v) for cid, v in raw.items()}, info, b.metrics
+
+
+def fairness_world(device: str, n_flood: int = 600):
+    """A QoS 0 subscriber on ``t/#``; client ``flood`` publishes
+    ``n_flood`` QoS 0 messages on ``t/f``, then client ``light`` one on
+    ``t/l``, all through their channels into a `PublishBatcher` that
+    starts only then.  Returns the subscriber's bytes and the size of
+    every window (the batcher's lanes put ``light`` in the first)."""
+    from .broker.broker import Broker, PublishBatcher
+    from .broker.channel import Channel
+    from .codec import mqtt as C
+
+    async def run():
+        b = Broker(device=device)
+        b.batcher = PublishBatcher(b)
+        sizes: List[int] = []
+        prepare = b.publish_prepare
+        b.publish_prepare = lambda msgs: sizes.append(len(msgs)) or \
+            prepare(msgs)
+        raw, chans = bytearray(), {}
+        for cid in ("sub", "flood", "light"):
+            out = raw if cid == "sub" else bytearray()
+            chans[cid] = Channel(b, send=lambda pkts, out=out: out.extend(
+                b"".join(C.serialize(p, C.MQTT_V5) for p in pkts)),
+                close=lambda reason: None)
+
+        def feed(cid, pkt):
+            for q in C.StreamParser().feed(C.serialize(pkt, C.MQTT_V5)):
+                chans[cid].handle_in(q)
+
+        for cid in chans:
+            feed(cid, C.Connect(client_id=cid, proto_ver=C.MQTT_V5))
+        feed("sub", C.Subscribe(packet_id=1, subscriptions=[
+            C.Subscription(topic_filter="t/#", qos=0)]))
+        b.router.engine.rebuild()
+        for k in range(n_flood):
+            feed("flood", C.Publish(topic="t/f", payload=b"%d" % k))
+        feed("light", C.Publish(topic="t/l", payload=b"light"))
+        await b.batcher.start()
+        try:
+            while sum(sizes) < n_flood + 1 or b.batcher.depth():
+                await asyncio.sleep(0.01)
+        finally:
+            await b.batcher.stop()
+        return bytes(raw), sizes
+
+    return asyncio.run(asyncio.wait_for(run(), 120))
+
+
+WS_KEY = "dGhlIHNhbXBsZSBub25jZQ=="  # RFC 6455's sample nonce
+
+
+class TransportClient:
+    """A minimal asyncio MQTT client over tcp, ssl, ws or wss (``kind``)
+    on the port's codec, for tests and `chip_smoke.py`.  Every byte the
+    server sends is kept in ``raw`` (on WebSocket the socket's bytes:
+    the handshake response and the frames); parsed packets go to
+    ``inbox`` (None at the end of the stream).  ``pause``/``resume``
+    stop and restart reading the socket, as a stalled subscriber
+    does.  TLS trusts ``cafile`` and checks the name ``localhost``.  It
+    sends no PINGREQ of its own, so it connects with keepalive 0."""
+
+    def __init__(self, port: int, client_id: str, kind: str = "tcp",
+                 version: int = 5, cafile: Optional[str] = None,
+                 username: Optional[str] = None,
+                 password: Optional[bytes] = None) -> None:
+        from .codec import mqtt as C
+
+        self.C = C
+        self.port, self.kind = port, kind
+        self.client_id, self.version = client_id, version
+        self.cafile = cafile
+        self.username, self.password = username, password
+        self.raw = bytearray()
+        self.parser = C.StreamParser(version=version)
+        self.inbox: asyncio.Queue = asyncio.Queue()
+        self.reader = self.writer = None
+        self._reading = asyncio.Event()
+        self._reading.set()
+        self._tasks: List[asyncio.Task] = []
+
+    async def open(self, path: str = "/mqtt") -> None:
+        ctx = None
+        if self.kind in ("ssl", "wss"):
+            import ssl
+
+            ctx = ssl.create_default_context(cafile=self.cafile)
+        self.reader, self.writer = await asyncio.open_connection(
+            "127.0.0.1", self.port, ssl=ctx,
+            server_hostname="localhost" if ctx else None)
+        frames = None
+        if self.kind in ("ws", "wss"):
+            self.writer.write((
+                f"GET {path} HTTP/1.1\r\nHost: localhost\r\n"
+                "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                f"Sec-WebSocket-Key: {WS_KEY}\r\n"
+                "Sec-WebSocket-Version: 13\r\n"
+                "Sec-WebSocket-Protocol: mqtt\r\n\r\n").encode())
+            self.raw += await self.reader.readuntil(b"\r\n\r\n")
+            frames = asyncio.StreamReader()
+            self._tasks.append(asyncio.ensure_future(self._unframe(frames)))
+        self._tasks.append(asyncio.ensure_future(self._pump(frames)))
+
+    async def _pump(self, frames) -> None:
+        while True:
+            await self._reading.wait()
+            data = await self.reader.read(65536)
+            self.raw += data
+            if frames is not None:
+                if data:
+                    frames.feed_data(data)
+                else:
+                    frames.feed_eof()
+                    return
+            elif data:
+                for p in self.parser.feed(data):
+                    self.inbox.put_nowait(p)
+            if not data:
+                self.inbox.put_nowait(None)
+                return
+
+    async def _unframe(self, frames) -> None:
+        from .broker import ws as W
+
+        while True:
+            try:
+                op, _fin, payload = await W.read_frame(frames)
+            except asyncio.IncompleteReadError:
+                self.inbox.put_nowait(None)
+                return
+            if op == W.OP_BINARY:
+                for p in self.parser.feed(payload):
+                    self.inbox.put_nowait(p)
+
+    def send(self, *pkts) -> None:
+        """One write (one WebSocket frame) carrying ``pkts``."""
+        data = b"".join(self.C.serialize(p, self.version) for p in pkts)
+        if self.kind in ("ws", "wss"):
+            from .broker import ws as W
+
+            data = W.frame(W.OP_BINARY, data, mask=os.urandom(4))
+        self.writer.write(data)
+
+    async def expect(self, ptype: int, timeout: float = 30.0):
+        pkt = await asyncio.wait_for(self.inbox.get(), timeout)
+        if pkt is None or pkt.type != ptype:
+            raise AssertionError(
+                f"{self.client_id}: expected packet type {ptype}, got {pkt!r}")
+        return pkt
+
+    async def connect(self, rc: int = 0, **props):
+        """Open, CONNECT (the client's credentials, MQTT 5 ``props``),
+        and return the CONNACK, which must carry reason code ``rc``."""
+        await self.open()
+        self.send(self.C.Connect(client_id=self.client_id,
+                                 proto_ver=self.version, keepalive=0,
+                                 username=self.username,
+                                 password=self.password, properties=props))
+        ack = await self.expect(self.C.CONNACK)
+        if ack.reason_code != rc:
+            raise AssertionError(f"CONNACK {ack.reason_code} for "
+                                 f"{self.client_id}, expected {rc}")
+        return ack
+
+    async def subscribe(self, flt: str, qos: int, rh: int = 0) -> None:
+        self.send(self.C.Subscribe(packet_id=1, subscriptions=[
+            self.C.Subscription(topic_filter=flt, qos=qos,
+                                retain_handling=rh)]))
+        ack = await self.expect(self.C.SUBACK)
+        if ack.reason_codes != [qos]:
+            raise AssertionError(f"SUBACK {ack.reason_codes} for {flt}")
+
+    async def quiet(self) -> None:
+        """PINGREQ, and PINGRESP as the next packet: nothing the broker
+        wrote before it is still unread."""
+        self.send(self.C.Pingreq())
+        await self.expect(self.C.PINGRESP)
+
+    def pause(self) -> None:
+        self._reading.clear()
+
+    def resume(self) -> None:
+        self._reading.set()
+
+    async def eof(self, timeout: float = 30.0) -> None:
+        """Wait for the server to close the stream, then close."""
+        await asyncio.wait_for(asyncio.gather(*self._tasks), timeout)
+        await self.close()
+
+    async def close(self) -> None:
+        for t in self._tasks:
+            t.cancel()
+        if self.writer is not None:
+            self.writer.close()
+            try:
+                await self.writer.wait_closed()
+            except (ConnectionError, OSError):
+                pass

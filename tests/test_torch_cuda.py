@@ -1119,3 +1119,72 @@ def test_rules_kernel_planes_past_int32_and_65535_slices(cuda):
                                    for t in (num, sid, err, prs)))
         assert torch.equal(got[:, cols], want), start
     assert torch.equal(got[:, :4096], got[:, 4096:8192])
+
+
+@pytest.mark.cuda
+def test_listeners_fairness_window_split_on_card(cuda):
+    """The per-source lanes on the card: ``light``'s one message rides
+    the first window of ``flood``'s 600 (windows of 512 and 89), and the
+    subscriber's bytes equal the CPU broker's."""
+    from emqx_tpu_torch import workload as W
+
+    got = W.fairness_world("cuda")
+    assert got == W.fairness_world("cpu")
+    assert got[1] == [512, 89]
+
+
+async def _round_trip(port, kind, tag):
+    """One QoS 1 round trip on one transport; each client's bytes."""
+    from emqx_tpu_torch.codec import mqtt as C
+    from emqx_tpu_torch.workload import TransportClient
+
+    sub = TransportClient(port, f"sub-{tag}", kind)
+    pub = TransportClient(port, f"pub-{tag}", kind)
+    await sub.connect()
+    await pub.connect()
+    await sub.subscribe(f"rt/{tag}/#", 1)
+    pub.send(C.Publish(topic=f"rt/{tag}/x", payload=b"hi", qos=1,
+                       packet_id=7))
+    await pub.expect(C.PUBACK)
+    got = await sub.expect(C.PUBLISH)
+    sub.send(C.Puback(packet_id=got.packet_id))
+    for c in (sub, pub):
+        c.send(C.Disconnect())
+        await c.eof()
+    return bytes(sub.raw), bytes(pub.raw)
+
+
+@pytest.mark.cuda
+def test_listeners_tcp_and_ws_on_card_equal_cpu(cuda):
+    """A `BrokerServer` booted from a config with a tcp and a ws
+    listener on the card: a round trip on each writes the CPU server's
+    bytes, and the card's broker launched K1 and K3."""
+    import asyncio
+
+    from emqx_tpu_torch.broker.listener import BrokerServer
+    from emqx_tpu_torch.config import ConfigHandler
+
+    conf = {"listeners": [
+        {"name": "t", "type": "tcp", "bind": "127.0.0.1", "port": 0},
+        {"name": "w", "type": "ws", "bind": "127.0.0.1", "port": 0}]}
+
+    async def run(device):
+        srv = BrokerServer(ConfigHandler.from_dict(conf).root, device=device)
+        try:
+            await srv.start()
+            eng = srv.broker.router.engine
+            eng.insert_many([(f"bg/{i}/+", 10_000 + i) for i in range(1000)])
+            eng.rebuild()
+            out = []
+            for lst in srv.listeners:
+                out.append(await _round_trip(lst.port, lst.cfg.type,
+                                             lst.cfg.type))
+            return out
+        finally:
+            await srv.stop()
+
+    mk.reset_launches()
+    got = asyncio.run(asyncio.wait_for(run("cuda"), 120))
+    n = mk.launches()
+    assert got == asyncio.run(asyncio.wait_for(run("cpu"), 120))
+    assert n["match_batch_compact"] >= 2 and n["decide_packed"] >= 2, n

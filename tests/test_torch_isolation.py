@@ -34,6 +34,7 @@ import emqx_tpu_torch.sys_topics
 import emqx_tpu_torch.broker.connection
 import emqx_tpu_torch.broker.cm
 import emqx_tpu_torch.broker.listener
+import emqx_tpu_torch.broker.ws
 import emqx_tpu_torch.ops.match_kernel
 import emqx_tpu_torch.ops._kernels
 import emqx_tpu_torch.ops._native

@@ -448,27 +448,30 @@ def test_slice_wire_equal_reference(native, monkeypatch):
 
 
 def test_server_limiter_levels_and_connection_pause(monkeypatch):
-    """`BrokerServer` gives each connection its own buckets, the
-    listener's shared ones and the broker's zone buckets; a connection
-    sleeps a limiter's whole deficit in 1 s slices (asyncio.sleep is
-    recorded, not waited)."""
+    """Each `BrokerServer` listener gives each connection its own
+    buckets, the listener's shared ones and the broker's zone buckets; a
+    connection sleeps a limiter's whole deficit in 1 s slices
+    (asyncio.sleep is recorded, not waited)."""
     import asyncio
 
     from emqx_tpu_torch.broker import connection as conn_mod
     from emqx_tpu_torch.broker.listener import BrokerServer
 
     cfg = BrokerConfig()
-    assert BrokerServer(cfg, device="cpu")._make_limiter() is None
-    cfg.listener.messages_rate = 10
-    only = BrokerServer(cfg, device="cpu")._make_limiter()
+    lc = cfg.listeners[0]
+    assert BrokerServer(cfg, device="cpu").listeners[0]._make_limiter() \
+        is None
+    lc.messages_rate = 10
+    only = BrokerServer(cfg, device="cpu").listeners[0]._make_limiter()
     assert isinstance(only, PL.ConnectionLimiter)
-    cfg.listener.max_bytes_rate = 1000
+    lc.max_bytes_rate = 1000
     cfg.mqtt.zone_messages_rate = 50
     srv = BrokerServer(cfg, device="cpu")
-    tree = srv._make_limiter()
+    lst = srv.listeners[0]
+    tree = lst._make_limiter()
     assert isinstance(tree, PL.HierarchicalLimiter)
-    assert tree.levels[1:] == [srv._shared_limiter, srv.broker.zone_limiter]
-    assert srv._make_limiter().levels[1] is tree.levels[1]
+    assert tree.levels[1:] == [lst._shared_limiter, srv.broker.zone_limiter]
+    assert lst._make_limiter().levels[1] is tree.levels[1]
     slept = []
 
     async def fake_sleep(s):
