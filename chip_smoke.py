@@ -12,7 +12,8 @@ the match engine with 1M subscriptions, the sharded match engine with
 the same subscriptions split over 4 shards of one card, and the broker
 — over TCP, as a user would — with 1M background subscriptions: first
 the publish path, then the publish path with config 4's 100 rules,
-whose kernel launches it counts, then shared subscriptions, the
+whose kernel launches it counts, then the same rules with sink and
+aggregate actions and a schema-decoding rule, then shared subscriptions, the
 retained store, the publish path behind authentication, the ACL,
 a topic rewrite, delayed publish, topic metrics and $SYS, and the
 server booted from a config file with tcp, ssl, ws and wss listeners.
@@ -81,6 +82,19 @@ Phases:
   rules broker    the broker with 100 rules under load, against a second
                   broker pinned to the scalar interpreter referee; its
                   per-stage medians
+  sinks broker    the rules broker's world with the rule egress over TCP:
+                  80 rules sink JSON rows and 13 a template into one
+                  recording resource (batches of 512, 50 ms linger), 6
+                  push into a JSONL aggregator, an Avro rule decodes a
+                  fifth publisher's 256 records (scalar SELECT lane), a
+                  # subscriber; msgs/s in, sink queries/s, the batches
+                  and their sizes, the rules lap with its rules_extract
+                  and rules_eval split, the EWMA gate; K1, K3 and K4
+                  launched (K4 once a rules window), nothing dropped,
+                  the breaker closed; then the same windows in process
+                  on the scalar and the batched lane in turns, each
+                  equal to the TCP run (queries, records, metrics,
+                  counters), with their rules laps
   main-path shapes  the N of every K3 launch of the broker run and the
                   (R, W) of every K4 launch of the rules broker run,
                   with K3 and K4 timed on their median launch's window
@@ -835,7 +849,9 @@ def rules_work(stack, cols):
     from emqx_tpu_torch.rules import predicate as P
 
     r, s = stack.code.shape
-    p, w = cols.num.shape
+    # the WHERE planes only: the rule engine's SELECT lane appends the
+    # planes only a SELECT reads, which K4 never gets
+    p, w = len(stack.paths), cols.n
     n_bytes = (r * s * (4 * 5 + 8) + r * 4 + p * w * (8 + 4 + 1 + 1)
                + cols.lit_ranks.size * 4 + r * w)
     # opcode -> (float64 ops, int32 ops) per message
@@ -880,9 +896,9 @@ def rules_times(card, stack, cols, low, wrapper, label):
         columns_from_reference, rules_program_from_reference,
     )
 
-    r, w = stack.n_rules, cols.n
-    pl = columns_from_reference(cols.num, cols.sid, cols.err, cols.prs,
-                                cols.lit_ranks, "cuda")
+    r, w, k = stack.n_rules, cols.n, len(stack.paths)
+    pl = columns_from_reference(cols.num[:k], cols.sid[:k], cols.err[:k],
+                                cols.prs[:k], cols.lit_ranks, "cuda")
     planes = (pl.lit_ranks, pl.num, pl.sid, pl.err, pl.prs)
     out = torch.empty((r, w), dtype=torch.bool, device="cuda")
 
@@ -2130,6 +2146,32 @@ async def broker_load(results, filters, native: bool = True,
 
 
 RULES_PUB, RULES_MSG = 4, 1000
+
+
+async def publish_items(cl, items) -> None:
+    """Publish ``items`` (topic, payload) at QoS 1, at most 32
+    unacknowledged, and return when every PUBACK is in."""
+    C = cl.C
+    window = asyncio.Semaphore(32)
+    n_acked = 0
+
+    async def acks():
+        nonlocal n_acked
+        while n_acked < len(items):
+            pkt = await asyncio.wait_for(cl.inbox.get(), 60)
+            if pkt is None or pkt.type != C.PUBACK:
+                fail(f"{cl.client_id}: expected PUBACK, got {pkt!r}")
+            n_acked += 1
+            window.release()
+
+    task = asyncio.get_running_loop().create_task(acks())
+    for k, (topic, payload) in enumerate(items):
+        await window.acquire()
+        cl.send(C.Publish(topic=topic, payload=payload, qos=1,
+                          packet_id=k % 65535 + 1))
+        if k % 32 == 0:
+            await cl.writer.drain()
+    await task
 REPUBLISH_SQL = ('SELECT payload.v AS v, topic, clientid FROM '
                  '"vehicles/+/sensors/#" WHERE payload.v >= 55')
 
@@ -2221,10 +2263,10 @@ async def rules_load(results, filters) -> None:
         finally:
             depth[0] -= 1
 
-    def timed_apply_batch(items):
+    def timed_apply_batch(items, rec=None):
         t = time.perf_counter()
         try:
-            return apply_batch(items)
+            return apply_batch(items, rec=rec)
         finally:
             lap[0] += time.perf_counter() - t
             lap[1] += 1
@@ -2245,42 +2287,19 @@ async def rules_load(results, filters) -> None:
             cl = Client(server.port, f"rpub{p}")
             await cl.connect()
             pubs.append(cl)
-        C = watcher.C
         rng = np.random.default_rng(3)
         pops = W.populations(len(filters), 8)
         work = [list(zip(W.make_topics(rng, RULES_MSG, pops),
                          W.make_rule_payloads(rng, RULES_MSG)))
                 for _ in pubs]
-
-        async def produce(cl, items):
-            window = asyncio.Semaphore(32)
-            n_acked = 0
-
-            async def acks():
-                nonlocal n_acked
-                while n_acked < len(items):
-                    pkt = await asyncio.wait_for(cl.inbox.get(), 60)
-                    if pkt is None or pkt.type != C.PUBACK:
-                        fail(f"{cl.client_id}: expected PUBACK, got {pkt!r}")
-                    n_acked += 1
-                    window.release()
-
-            task = asyncio.get_running_loop().create_task(acks())
-            for k, (topic, payload) in enumerate(items):
-                await window.acquire()
-                cl.send(C.Publish(topic=topic, payload=payload, qos=1,
-                                  packet_id=k % 65535 + 1))
-                if k % 32 == 0:
-                    await cl.writer.drain()
-            await task
-
         log = MainPathLog(eng, ("rules_eval",))
         dev_windows = broker.rules.stats().get("dev_windows", 0)
         mk.reset_launches()  # counts of the rules path start here
         t0 = time.perf_counter()
         try:
             await asyncio.wait_for(asyncio.gather(
-                *(produce(cl, items) for cl, items in zip(pubs, work))), 600)
+                *(publish_items(cl, items) for cl, items in zip(pubs, work))),
+                600)
             wall = time.perf_counter() - t0
             launches = mk.launches()
             await asyncio.sleep(0.5)  # the watcher's last republishes
@@ -2353,6 +2372,272 @@ async def rules_load(results, filters) -> None:
           f"{len(fired)} action calls in the same order, the same per-rule "
           f"counters and the same {len(tcp_bytes)} bytes to the republish "
           f"subscriber", flush=True)
+
+
+SINKS_AVRO = 256  # the fifth publisher's Avro records
+
+
+async def sinks_load(results, filters) -> dict:
+    """The rule egress: the rules broker's world (1M background filters,
+    config 4's 99 fleet rules, every one ``SELECT *``) with sink and
+    aggregate actions (`workload.add_sink_rules`: 80 rules sink JSON
+    rows and 13 a template into the recording resource ``fleet``, 6
+    push into a JSONL aggregator of 512 records) and the Avro rule; a
+    subscriber on ``#``; 4 publishers send 1,000 QoS 1 JSON telemetry
+    messages each and a fifth 256 Avro state records over TCP.  Then
+    the same windows run through a second broker pinned to the scalar
+    SELECT lane and the batched lane in process, in turns: their sink
+    queries, aggregator records, action metrics and per-rule counters
+    must equal the TCP run's."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+
+    from emqx_tpu_torch import workload as W
+    from emqx_tpu_torch.broker.broker import Broker
+    from emqx_tpu_torch.broker.listener import BrokerServer
+    from emqx_tpu_torch.config import BrokerConfig, ListenerConfig
+    from emqx_tpu_torch.ops import match_kernel as mk
+    from emqx_tpu_torch.schema_registry import AvroSchema, global_registry
+
+    global_registry().add(W.FLEET_AVRO_NAME, "avro", W.FLEET_AVRO)
+    n_in = RULES_PUB * RULES_MSG + SINKS_AVRO
+    cfg = BrokerConfig(listeners=[ListenerConfig(bind="127.0.0.1", port=0)])
+    cfg.mqtt.max_mqueue_len = 2 * n_in
+    server = BrokerServer(cfg)
+    broker = server.broker
+    eng = broker.router.engine
+    t0 = time.perf_counter()
+    bodies = []
+    agg = W.sink_aggregator(bodies)
+    broker.aggregators.append(agg)
+    W.add_sink_rules(broker, agg)
+    eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    if eng._delta:
+        eng.rebuild()
+    windows = []
+    depth = [0]
+    dispatch = broker.publish_dispatch
+
+    def recording_dispatch(msgs, matched, rec=None):
+        if depth[0] == 0 and not all(m.sys for m in msgs):
+            windows.append([dataclasses.replace(m) for m in msgs])
+        depth[0] += 1
+        try:
+            return dispatch(msgs, matched, rec)
+        finally:
+            depth[0] -= 1
+
+    broker.publish_dispatch = recording_dispatch
+    sink = W.RecordingSink()
+    await server.start()
+    try:
+        worker = await broker.resources.create(
+            W.SINK_ID, sink, batch_records=512, batch_age=0.05,
+            max_buffer=1 << 20)
+        print(f"sinks broker: {len(filters)} background filters + 100 "
+              f"rules ({broker.rules.stats()['select_lowered']} with a "
+              f"lowered SELECT) on the card ({eng._aut.n_nodes} nodes) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        watcher = Client(server.port, "sink-watch")
+        await watcher.connect()
+        await watcher.subscribe("#", 0)
+        pubs = []
+        for p in range(RULES_PUB + 1):
+            cl = Client(server.port, f"spub{p}")
+            await cl.connect()
+            pubs.append(cl)
+        rng = np.random.default_rng(12)
+        pops = W.populations(len(filters), 8)
+        work = [list(zip(W.make_topics(rng, RULES_MSG, pops),
+                         W.make_rule_payloads(rng, RULES_MSG)))
+                for _ in range(RULES_PUB)]
+        avro = AvroSchema(W.FLEET_AVRO)
+        work.append([(f"avro/{r['vin']}/state", avro.encode(r))
+                     for r in W.make_avro_records(rng, SINKS_AVRO)])
+        seen = [0]
+
+        async def watch():
+            while seen[0] < n_in:
+                pkt = await asyncio.wait_for(watcher.inbox.get(), 60)
+                if pkt is None:
+                    fail("sinks broker: the watcher was disconnected")
+                if pkt.type == watcher.C.PUBLISH:
+                    seen[0] += 1
+
+        st0 = broker.rules.stats()
+        mk.reset_launches()  # counts of the sinks path start here
+        t0 = time.perf_counter()
+        await asyncio.wait_for(asyncio.gather(watch(), *(
+            publish_items(cl, items) for cl, items in zip(pubs, work))), 600)
+        wall = time.perf_counter() - t0
+        launches = mk.launches()
+        t_deadline = time.perf_counter() + 60
+        while len(worker) or len(sink.queries) < worker.stats["matched"]:
+            if time.perf_counter() > t_deadline:
+                fail(f"sinks broker: the sink did not drain: {worker.stats}")
+            await asyncio.sleep(0.005)
+        wall_sink = time.perf_counter() - t0
+        st = broker.rules.stats()
+        wstats = dict(worker.stats)
+        breaker = worker.breaker_open
+        counters = {rid: (r.matched, r.passed, r.failed, r.actions_success,
+                          r.actions_failed)
+                    for rid, r in broker.rules.rules.items()}
+        metrics = {k: broker.metrics[k] for k in (
+            "actions.success", "actions.failed", "actions.batched")}
+        stages = stage_medians("sinks broker", broker.profiler)
+        for cl in pubs + [watcher]:
+            await cl.close()
+    finally:
+        await server.stop()
+    agg.flush()
+    queries = list(sink.queries)
+    n_msgs = sum(len(w) for w in windows)
+    if n_msgs != n_in:
+        fail(f"sinks broker: dispatched {n_msgs} of {n_in} messages")
+    dev_windows = st["dev_windows"] - st0["dev_windows"]
+    k4 = launches["rules_eval_lowered"]
+    for k in ("match_batch_compact", "decide_packed", "rules_eval_lowered"):
+        if launches[k] < 1:
+            fail(f"sinks broker: {k} never launched: {launches}")
+    if k4 != dev_windows:
+        fail(f"sinks broker: {k4} K4 launches for {dev_windows} rules "
+             f"windows")
+    avro_hits = counters["avro"][1]
+    if st["select_lowered"] != 99:
+        fail(f"sinks broker: select_lowered {st['select_lowered']}")
+    if not st["select_batched_rows"] > 0:
+        fail("sinks broker: no row took the batched SELECT lane")
+    scalar_rows = st["select_scalar_rows"] - st0["select_scalar_rows"]
+    if scalar_rows != avro_hits or avro_hits != SINKS_AVRO:
+        fail(f"sinks broker: {scalar_rows} scalar rows, {avro_hits} Avro "
+             f"rule hits of {SINKS_AVRO}")
+    if wstats["dropped"] or wstats["failed"] or breaker \
+            or metrics["actions.failed"]:
+        fail(f"sinks broker: the sink dropped or failed: {wstats}, "
+             f"breaker {breaker}, {metrics}")
+    if seen[0] != n_in:
+        fail(f"sinks broker: the subscriber got {seen[0]} of {n_in}")
+    if not any(q.startswith('{"d": {"vin"') for q in queries):
+        fail("sinks broker: no Avro record decoded")
+    hist = {}
+    for b in sink.batches:
+        hist[b] = hist.get(b, 0) + 1
+    lap = stages.get("rules", {}).get("ring_median_ms")
+    sub = {k: stages.get(k, {}).get("ring_median_ms")
+           for k in ("rules_extract", "rules_eval")}
+    tripped = bool(st["select_ewma_off"] or st["select_batch_disabled"])
+    print(f"sinks broker: {n_in} QoS 1 messages ({SINKS_AVRO} Avro) in "
+          f"{len(windows)} windows in {wall:.3f} s: {n_in / wall:.1f} msgs/s "
+          f"in; {len(queries)} sink queries drained in {wall_sink:.3f} s: "
+          f"{len(queries) / wall_sink:.1f} queries/s; {wstats['batches']} "
+          f"batches flushed, sizes {dict(sorted(hist.items()))}; "
+          f"{len(bodies)} aggregator objects; rules lap median {lap} ms "
+          f"(rules_extract {sub['rules_extract']} ms, rules_eval "
+          f"{sub['rules_eval']} ms); batched rows "
+          f"{st['select_batched_rows']}, scalar rows {scalar_rows}; EWMA "
+          f"gate tripped: {tripped} (batched {st['select_batched_us_ewma']} "
+          f"us/row, scalar {st['select_scalar_us_ewma']} us/row); launches "
+          f"{launches} [{results['card']}]", flush=True)
+
+    # the same windows in process through fresh brokers on the card, in
+    # turns: the scalar SELECT lane (the referee) and the batched lane.
+    # Each must give the TCP run's output; their rules laps compare the
+    # lanes on one thread (the TCP run's lap shares the GIL with the
+    # next windows' match)
+    async def replay(force):
+        b = Broker()
+        b.rules.select_force = force
+        out_bodies = []
+        b_agg = W.sink_aggregator(out_bodies)
+        W.add_sink_rules(b, b_agg)
+        b.router.engine.rebuild()
+        b_sink = W.RecordingSink()
+        w = await b.resources.create(W.SINK_ID, b_sink, batch_records=512,
+                                     batch_age=0.05, max_buffer=1 << 20)
+        for win in windows:
+            b.publish_many([dataclasses.replace(m) for m in win])
+        while len(b_sink.queries) < w.stats["matched"]:
+            await asyncio.sleep(0.005)
+        await b.resources.stop_all()
+        b_agg.flush()
+        ring = b.profiler.windows(limit=10**6)
+        return {"queries": b_sink.queries, "records": b"".join(out_bodies),
+                "counters": {rid: (r.matched, r.passed, r.failed,
+                                   r.actions_success, r.actions_failed)
+                             for rid, r in b.rules.rules.items()},
+                "metrics": {k: b.metrics[k] for k in (
+                    "actions.success", "actions.failed")},
+                "stats": b.rules.stats(),
+                # exact medians over the replay's windows, ms
+                "lap": {k: statistics.median(
+                    r["stages_us"].get(k, 0.0) for r in ring) / 1e3
+                    for k in ("rules", "rules_extract", "rules_eval")}}
+
+    t0 = time.perf_counter()
+    laps = {"scalar": [], "batched": []}
+    records = b"".join(bodies)
+    for force in ("scalar", "batched", "batched", "scalar"):
+        r = await asyncio.wait_for(replay(force), 120)
+        what = f"the {force} lane in process"
+        batched_rows = r["stats"]["select_batched_rows"]
+        if (force == "scalar") != (batched_rows == 0):
+            fail(f"sinks broker: {what} had {batched_rows} batched rows")
+        if r["counters"] != counters:
+            bad = [k for k in counters
+                   if counters[k] != r["counters"].get(k)]
+            fail(f"sinks broker: per-rule counters of {what} differ for "
+                 f"{bad[:5]}")
+        if r["queries"] != queries:
+            k = next((i for i, (x, y) in enumerate(zip(queries,
+                                                       r["queries"]))
+                      if x != y), -1)
+            fail(f"sinks broker: sink queries of {what} differ "
+                 f"({len(queries)} vs {len(r['queries'])}, first at {k})")
+        if r["records"] != records:
+            fail(f"sinks broker: aggregator records of {what} differ")
+        if {k: metrics[k] for k in r["metrics"]} != r["metrics"]:
+            fail(f"sinks broker: action metrics {metrics} vs {what}'s "
+                 f"{r['metrics']}")
+        laps[force].append(r["lap"])
+    n_records = records.count(b"\n")
+
+    def lap_s(force, k):
+        return ", ".join(f"{x.get(k, 0.0):.3f}" for x in laps[force])
+
+    print(f"sinks broker: the same {len(windows)} windows in process on the "
+          f"card, in turns (scalar, batched, batched, scalar; "
+          f"{time.perf_counter() - t0:.1f} s), each give the same "
+          f"{len(queries)} sink queries in the same order, the same "
+          f"{n_records} aggregator records, the same action metrics and "
+          f"per-rule counters; rules lap median ms scalar "
+          f"{lap_s('scalar', 'rules')}"
+          f", batched {lap_s('batched', 'rules')} (rules_extract scalar "
+          f"{lap_s('scalar', 'rules_extract')}, batched "
+          f"{lap_s('batched', 'rules_extract')}); the TCP run's "
+          f"{stages.get('rules', {}).get('p50_ms')} ms [{results['card']}]",
+          flush=True)
+    for name, k in (("match_batch_compact", "match_batch_compact"),
+                    ("decide_batch", "decide_packed"),
+                    ("rules_eval_batch", "rules_eval_lowered")):
+        results["kernels"][name]["sinks"] = {"launches": launches[k]}
+    return {"msgs_per_s": n_in / wall, "queries_per_s":
+            len(queries) / wall_sink, "queries": len(queries),
+            "batches": wstats["batches"], "batch_sizes": hist,
+            "aggregator_objects": len(bodies), "rules_lap_ms": lap,
+            **{f"{k}_ms": v for k, v in sub.items()},
+            "rules_lap_p50_ms": stages.get("rules", {}).get("p50_ms"),
+            "in_process_laps": laps,
+            "select_batched_rows": st["select_batched_rows"],
+            "select_scalar_rows": scalar_rows, "ewma_tripped": tripped,
+            "k4_launches": k4, "windows": len(windows)}
+
+
+def phase_sinks_broker(results, filters) -> None:
+    phase("sinks broker")
+    results["sinks"] = asyncio.run(sinks_load(results, filters))
 
 
 def phase_main_shapes(results) -> None:
@@ -4066,6 +4351,7 @@ def main() -> None:
     phase_sharded_engine(results, filters)
     phase_churn(results, filters)
     phase_broker(results, filters)
+    phase_sinks_broker(results, filters)
     phase_main_shapes(results)
     phase_shared_broker(results, filters)
     phase_retained(results, filters)
@@ -4085,7 +4371,8 @@ def main() -> None:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
             **{x: k[x] for x in ("main_path", "churn", "shared", "access",
-                                 "listeners", "stress", "empty_launch_ms")
+                                 "listeners", "sinks", "stress",
+                                 "empty_launch_ms")
                if x in k},
         })
     print(f"native summary: {json.dumps(results['native'])}", flush=True)
@@ -4095,6 +4382,7 @@ def main() -> None:
     print(f"access summary: {json.dumps(results['access'])}", flush=True)
     print(f"listeners summary: {json.dumps(results['listeners'])}",
           flush=True)
+    print(f"sinks summary: {json.dumps(results['sinks'])}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

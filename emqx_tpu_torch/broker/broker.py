@@ -51,6 +51,8 @@ The broker's control surface sits beside the path: the hook registry
 (``hooks``), ``metrics`` and ``stats``, ``access`` (authentication and
 authorization, run by the channel), ``banned``, ``flapping``,
 ``alarms``, ``slow_subs``, the zone rate limiter, and the modules.
+The rules' egress hangs off it: ``resources`` (the sinks' buffer
+workers, by resource id) and ``aggregators`` (ticked by the server).
 ``tick(now)`` is the 1 Hz housekeeping: delayed wills, delayed
 publishes, topic-metric rates, alarm expiry, slow-subscriber expiry and
 session expiry.
@@ -81,6 +83,7 @@ from ..ops.match_kernel import (
     DEC_DROP_BIT, DEC_QMAX_SHIFT, DEC_RETAIN_BIT, DEC_SUBID_BIT,
 )
 from ..ops_guard import AlarmRegistry, BannedList, FlappingDetector, SlowSubs
+from ..resources import ResourceManager
 from ..retainer import Retainer
 from ..router import Router
 from ..rules.engine import RuleEngine
@@ -150,6 +153,12 @@ class Broker:
         self.exclusive = ExclusiveSub()
         self.topic_metrics = TopicMetrics(self)
         self.alarms = AlarmRegistry(self)
+        # rule sinks: named buffer workers whose health flips and
+        # breaker edges raise alarms here
+        self.resources = ResourceManager(alarms=self.alarms)
+        # aggregators attached by rules (emqx_connector_aggregator
+        # buffers): ticked by the server's 1 Hz housekeeping
+        self.aggregators: List = []
         self.banned = BannedList()
         fl = self.config.flapping
         self.flapping = FlappingDetector(
@@ -374,8 +383,9 @@ class Broker:
             rule_sink: List[Tuple[Message, List[str]]] = []
             counts = self._dispatch_window(msgs, matched, rule_sink, rec)
             if rule_sink:
+                # rec takes the rules_extract/rules_eval sub-stages
                 try:
-                    self.rules.apply_batch(rule_sink)
+                    self.rules.apply_batch(rule_sink, rec=rec)
                 except Exception:
                     log.exception("rule batch failed for window")
                 if rec is not None:

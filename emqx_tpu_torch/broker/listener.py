@@ -22,8 +22,11 @@ is no free pass; the handshake has 10 s) and gives each connection the
 listener's mountpoint and its limiter (`HierarchicalLimiter`: the
 connection's own buckets, the listener's shared ones, the broker's zone
 buckets).  The server publishes the ``$SYS`` heartbeats (`SysTopics`)
-and runs the 1 Hz housekeeping: ``Broker.tick``, ``SysTopics.tick`` and
-each listener's CRL reload.
+and runs the 1 Hz housekeeping: ``Broker.tick``, ``SysTopics.tick``,
+each aggregator's ``tick`` and each listener's CRL reload.  It starts
+the configuration's ``sinks`` (``http``, `resources.HttpSink`) in the
+broker's resource manager before anything else, and a sink that fails
+to start fails `BrokerServer.start`.
 """
 
 from __future__ import annotations
@@ -35,11 +38,13 @@ import os
 import sys
 from typing import List, Optional, Set
 
+from ..aio import cancel_and_wait
 from ..config import (
     BrokerConfig, ConfigHandler, ListenerConfig, apply_env_overrides,
     check_config,
 )
 from ..limiter import ConnectionLimiter, HierarchicalLimiter
+from ..resources import HttpSink
 from ..sys_topics import SysTopics
 from .broker import Broker, PublishBatcher
 from .connection import Connection
@@ -221,9 +226,10 @@ class Listener:
 
 class BrokerServer:
     """A broker, its publish batcher (unless ``engine.batch_publish`` is
-    off), its ``$SYS`` heartbeats and its listeners.  A listener of a
-    type this package does not serve raises here; one that fails to
-    bind or to load its certificates raises out of `start`."""
+    off), its ``$SYS`` heartbeats, its sinks and its listeners.  A
+    listener of a type this package does not serve raises here; one
+    that fails to bind or to load its certificates, and a sink that
+    fails to start, raise out of `start`."""
 
     def __init__(self, config: Optional[BrokerConfig] = None,
                  device="cuda", native: bool = True) -> None:
@@ -249,6 +255,14 @@ class BrokerServer:
         return self.listeners[0].port if self.listeners else None
 
     async def start(self) -> None:
+        # the config's sinks first: a rule's SinkAction finds its worker
+        # from the first window on, and one that fails to start raises
+        try:
+            for sink_cfg in self.broker.config.sinks:
+                await self._start_sink(sink_cfg)
+        except BaseException:
+            await self.broker.resources.stop_all()
+            raise
         eng = self.broker.config.engine
         if eng.batch_publish:
             self.broker.batcher = PublishBatcher(
@@ -265,27 +279,51 @@ class BrokerServer:
         )
 
     async def _housekeep(self) -> None:
-        """The broker's 1 Hz housekeeping, the $SYS heartbeat and the
-        listeners' CRL reloads."""
+        """The broker's 1 Hz housekeeping, the $SYS heartbeat, the
+        aggregators' interval flushes and the listeners' CRL reloads."""
         while True:
             await asyncio.sleep(1.0)
             try:
                 self.broker.tick()
                 self.sys.tick()
+                for agg in self.broker.aggregators:
+                    agg.tick()
                 for lst in self.listeners:
                     lst.maybe_reload_crl()
             except Exception:
                 log.exception("housekeeping tick failed")
 
+    async def _start_sink(self, sink_cfg: dict) -> None:
+        """One config-declared data-integration sink: registered with
+        the resource manager under its id, addressable from rule
+        SinkActions (the emqx_bridge boot path)."""
+        stype = sink_cfg.get("type", "http")
+        if stype == "kafka":
+            raise ValueError(
+                f"sink {sink_cfg.get('id')!r}: kafka is not ported to "
+                "emqx_tpu_torch (ROADMAP.md section 1, item 10)")
+        if stype != "http":
+            raise ValueError(f"unknown sink type {stype!r}")
+        res = HttpSink(
+            sink_cfg["url"],
+            method=sink_cfg.get("method", "POST"),
+            headers=sink_cfg.get("headers"),
+        )
+        await self.broker.resources.create(
+            sink_cfg["id"], res,
+            max_buffer=int(sink_cfg.get("max_buffer", 10_000)),
+        )
+
     async def stop(self) -> None:
         if self._housekeeper is not None:
-            self._housekeeper.cancel()
+            await cancel_and_wait(self._housekeeper)
             self._housekeeper = None
         for lst in self.listeners:
             await lst.stop()
         if self.broker.batcher is not None:
             await self.broker.batcher.stop()
             self.broker.batcher = None
+        await self.broker.resources.stop_all()
         self.broker.shutdown()
 
     async def run_forever(self) -> None:

@@ -181,6 +181,10 @@ class BrokerConfig:
     # server-side subscriptions made at every connect: entries
     # {"topic": ..., "qos": 0}; %c (client id) and %u (username)
     auto_subscribe: List[Dict[str, Any]] = field(default_factory=list)
+    # data-integration sinks started at boot, addressable from rule
+    # SinkActions by id: {"id": ..., "type": "http", "url": ...,
+    # "method": "POST", "headers": {...}, "max_buffer": 10000}
+    sinks: List[Dict[str, Any]] = field(default_factory=list)
     node_name: str = "emqx_tpu@127.0.0.1"
 
 
@@ -202,7 +206,6 @@ NOT_PORTED = {
     "cluster_name": "cluster linking",
     "cluster_links": "cluster linking",
     "exhooks": "exhook",
-    "sinks": "the rule sinks",
     "gateways": "the gateways",
     "plugins": "plugins",
     "plugin_dir": "plugins",
@@ -391,4 +394,21 @@ def check_config(cfg: BrokerConfig) -> List[str]:
         bad("mqtt.mqueue_default_priority must be lowest|highest")
     if int(cfg.mqtt.outbound_high_watermark) < 0:
         bad("mqtt.outbound_high_watermark must be >= 0")
+    if not isinstance(cfg.sinks, list):
+        bad("sinks: expected a list of sink objects")
+        return problems
+    for j, sink in enumerate(cfg.sinks):
+        if not isinstance(sink, dict):
+            bad(f"sinks[{j}]: expected an object")
+            continue
+        if "id" not in sink:
+            bad(f"sinks[{j}]: missing id")
+        stype = sink.get("type", "http")
+        if stype == "kafka":
+            bad(f"sinks[{j}].type: kafka is not ported to emqx_tpu_torch")
+        elif stype == "http":
+            if not sink.get("url"):
+                bad(f"sinks[{j}]: http sink needs url")
+        else:
+            bad(f"sinks[{j}]: unknown type {stype!r}")
     return problems

@@ -40,7 +40,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..message import Message
-from .runtime import LazyEnv, lookup_var
+from .runtime import LazyEnv, _PayloadStr, lookup_var
 
 # reserved string-lane ids: bools are equality-comparable but must
 # never participate in rank (string) ordering
@@ -81,7 +81,7 @@ class WindowColumns:
 
     __slots__ = (
         "n", "paths", "num", "sid", "err", "prs", "lit_ranks",
-        "envs", "n_strings", "has_nan_value",
+        "envs", "n_strings", "has_nan_value", "vals",
     )
 
     def __init__(
@@ -90,6 +90,7 @@ class WindowColumns:
         paths: Sequence[Tuple[str, ...]],
         lit_strings: Sequence[str],
         envs: Optional[List[Optional[LazyEnv]]] = None,
+        keep_values: bool = False,
     ) -> None:
         n = len(msgs)
         n_paths = len(paths)
@@ -99,11 +100,21 @@ class WindowColumns:
         self.sid = np.full((n_paths, n), SID_NONE, np.int32)
         self.err = np.zeros((n_paths, n), bool)
         self.prs = np.zeros((n_paths, n), bool)
+        # ``keep_values``: also keep each cell's RAW extracted value
+        # (the batched SELECT transform's input — int-ness and nested
+        # objects survive, which the f64/rank planes erase).  None
+        # covers both "missing" and "error" cells; the err lane
+        # disambiguates where it matters (expression operands).
+        self.vals: Optional[List[List[Any]]] = (
+            [[None] * n for _ in range(n_paths)] if keep_values
+            else None
+        )
         if envs is None:
             envs = [None] * n
         self.envs = envs
         self.has_nan_value = False
         num, sid, err, prs = self.num, self.sid, self.err, self.prs
+        vals = self.vals
         # (plane, msg, string, is_term) cells holding a string-interned
         # value, resolved after the scan once the window's full
         # dictionary is known
@@ -122,6 +133,10 @@ class WindowColumns:
         _ERR = object()
 
         def classify(p: int, i: int, v: Any) -> None:
+            if vals is not None and v is not None:
+                # raw-value plane: _PayloadStr flattens to plain str
+                # here, exactly eval_select's output conversion
+                vals[p][i] = str(v) if type(v) is _PayloadStr else v
             if isinstance(v, bool):
                 sid[p, i] = SID_TRUE if v else SID_FALSE
                 prs[p, i] = True

@@ -11,9 +11,9 @@ returns routes and rule hits together; `Broker._dispatch_window` splits
 the classes.
 
 Actions: republish (with ${var} placeholder templates, `emqx_placeholder`
-semantics), console, and arbitrary Python callables.  The JAX package's
-sink and aggregate actions wait for its resource manager and
-aggregator.
+semantics), console, arbitrary Python callables, and the egress
+actions: a sink (the broker's `resources.ResourceManager` buffer
+worker under a resource id) and an aggregate (`aggregator.Aggregator`).
 
 Execution is window-at-a-time: `apply_batch` decodes the dispatch window
 ONCE into shared column planes and evaluates every lowerable rule's
@@ -24,11 +24,23 @@ RULE to the interpreter over the same lazily materialized envs, never
 pushing the window off the matrix path.  ``eval_force = "scalar"`` (or
 the broker's ``engine.rules_matrix = False``) pins the per-rule
 interpreter walk, the referee the matrix path must equal.
+
+The output half mirrors it: a rule whose SELECT lowers
+(`select.build_select_stack`) and whose actions are all sinks or
+aggregates takes the batched SELECT lane — its matched rows
+materialize from raw-value planes of the same `WindowColumns` walk
+(`select.materialize_rows`) and leave as ONE `enqueue_batch` per sink
+and ONE `push` per aggregator a window.  Other rules take the scalar
+lane (`eval_select` per row).  A cost EWMA per lane trips the batched
+lane off when it measures slower (re-armed by registry churn);
+``select_force`` pins ``"batched"`` or ``"scalar"``.
 """
 
 from __future__ import annotations
 
+import json as _json
 import logging
+import time
 from collections import Counter
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -39,7 +51,9 @@ from ..message import Message
 from .columns import WindowColumns
 from .predicate import StackedRules, build_stack
 from .runtime import LazyEnv, build_env, eval_select, eval_where
-from .select import compile_template
+from .select import (
+    SelectStack, build_select_stack, compile_template, materialize_rows,
+)
 from .sql import ParsedSql, parse_sql
 
 log = logging.getLogger("emqx_tpu_torch.rules")
@@ -75,6 +89,28 @@ class ConsoleAction:
 class FunctionAction:
     fn: Callable[[Dict[str, Any], Message], None]
     kind: str = "function"
+
+
+@dataclass
+class SinkAction:
+    """Forward the rule output to a registered resource's buffer worker
+    (the bridge/action path: emqx_resource buffered IO).  The payload
+    template renders against the SELECTed columns; None sends them as
+    JSON."""
+
+    resource_id: str
+    payload: Optional[str] = None  # template; None => selected as JSON
+    kind: str = "sink"
+
+
+@dataclass
+class AggregateAction:
+    """Push the SELECTed columns into an Aggregator (the
+    emqx_connector_aggregator path: records batch into time-bucketed
+    CSV/JSONL objects and flush to the aggregator's delivery sink)."""
+
+    aggregator: Any  # aggregator.Aggregator
+    kind: str = "aggregate"
 
 
 Action = Any
@@ -126,9 +162,24 @@ class RuleEngine:
         # the broker's ``engine.rules_matrix = False`` pins it as well
         self._matrix_enabled = (broker is None
                                 or broker.config.engine.rules_matrix)
+        # SELECT lane pin: "scalar" keeps the interpreter referee for
+        # every rule's SELECT+actions, "batched" pins the column
+        # transform past the cost gate, None auto (EWMA-gated)
+        self.select_force: Optional[str] = None
+        self._sel_cache: Optional[Tuple[int, SelectStack]] = None
+        # cost-EWMA gate state: per-row us for each lane, sampled on
+        # single-lane windows only; tripping the breaker pins scalar
+        # until registry churn
+        self._sel_batch_off = False
+        self._sel_us_b: Optional[float] = None
+        self._sel_us_s: Optional[float] = None
+        self._sel_n_b = 0
+        self._sel_n_s = 0
         self._stats = {
             "matrix_windows": 0, "scalar_windows": 0,
             "fallback_rule_evals": 0,
+            "select_batched_rows": 0, "select_scalar_rows": 0,
+            "select_ewma_off": 0,
         }
         # rev-keyed flatten tables: a stable position per rule (the
         # REGISTRY enumeration order — deterministic, so action order
@@ -143,6 +194,11 @@ class RuleEngine:
         self._pos_row = np.zeros(0, np.int64)
         self._pos_of: Dict[str, int] = {}
         self._ids_cache: Dict[Tuple[str, ...], np.ndarray] = {}
+        # per-position batched-egress plan: (SelectProgram, planes)
+        # when the rule's SELECT lowered AND every action is window-
+        # shaped (Sink/Aggregate); None degrades the rule to the
+        # scalar referee loop
+        self._pos_selp: List[Optional[tuple]] = []
 
     # ------------------------------------------------------ registry
 
@@ -159,6 +215,24 @@ class RuleEngine:
         ])
         self._stack_cache = (self.rules_rev, stack)
         return stack
+
+    def _select_stack(self, stack: StackedRules) -> SelectStack:
+        """The enabled registry's lowered SELECT programs, sharing the
+        WHERE stack's path union (SELECT-only paths are APPENDED, so
+        the WHERE rows' plane indices survive)."""
+        cached = self._sel_cache
+        if cached is not None and cached[0] == self.rules_rev:
+            return cached[1]
+        sel = build_select_stack(
+            [
+                (rid, r.parsed)
+                for rid, r in self.rules.items()
+                if r.enabled
+            ],
+            stack.paths,
+        )
+        self._sel_cache = (self.rules_rev, sel)
+        return sel
 
     def add_rule(
         self,
@@ -185,10 +259,14 @@ class RuleEngine:
             enabled=enabled,
             description=description,
         )
-        # precompile every action template ONCE at rule-add
+        # precompile every action template ONCE at rule-add; both the
+        # batched transform and the scalar referee render through the
+        # attached programs
         for a in rule.actions:
             if isinstance(a, RepublishAction):
                 a._topic_prog = compile_template(a.topic)
+                a._payload_prog = compile_template(a.payload)
+            elif isinstance(a, SinkAction) and a.payload is not None:
                 a._payload_prog = compile_template(a.payload)
         self.rules[rule_id] = rule
         self.rules_rev += 1
@@ -256,7 +334,9 @@ class RuleEngine:
             self._evaluator = RulesEvaluator(self.device)
         return self._evaluator
 
-    def apply_batch(self, items: List[Tuple[Message, List[str]]]) -> int:
+    def apply_batch(
+        self, items: List[Tuple[Message, List[str]]], rec=None
+    ) -> int:
         """Run rule hits for a whole dispatch window in ONE registry
         pass: the window's messages decode once into shared column
         planes (`WindowColumns`), every lowerable rule's WHERE
@@ -265,7 +345,12 @@ class RuleEngine:
         CASE) degrade — per RULE, not per window — to the interpreter
         over the SAME lazily-materialized envs.  Matched/passed/failed
         counters update once per rule and broker metrics flush in one
-        pass."""
+        pass.  Passing rules with a batched plan take the SELECT lane
+        (`_run_rule_batched`), the rest the scalar lane.
+
+        ``rec`` (the window's profiler record) takes ``rules_extract``
+        / ``rules_eval`` sub-stages: column extraction vs matrix
+        evaluation inside the ``rules`` lap."""
         if not items:
             return 0
         msgs = [m for m, _ in items]
@@ -282,8 +367,10 @@ class RuleEngine:
         # the rev-stable position space (see __init__)
         use_matrix = self._matrix_enabled and self.eval_force != "scalar"
         stack: Optional[StackedRules] = None
+        selstack: Optional[SelectStack] = None
         if use_matrix:
             stack = self._stacked()
+            selstack = self._select_stack(stack)
         key = (self.rules_rev, use_matrix)
         if self._flat_key != key:
             self._flat_key = key
@@ -305,6 +392,22 @@ class RuleEngine:
                 np.int64, n_all,
             )
             self._ids_cache = {}
+            sel_progs = selstack.progs if selstack is not None else {}
+            self._pos_selp = [
+                (
+                    (sel_progs[r.rule_id], selstack.planes[r.rule_id])
+                    if r.enabled and r.rule_id in sel_progs
+                    and r.actions
+                    and all(
+                        isinstance(a, (SinkAction, AggregateAction))
+                        for a in r.actions
+                    )
+                    else None
+                )
+                for r in objs
+            ]
+            # registry churn re-arms the SELECT cost gate
+            self._sel_batch_off = False
         objs = self._pos_objs
         n_pos = len(objs)
         pos_of = self._pos_of
@@ -333,19 +436,48 @@ class RuleEngine:
         plive = self._pos_live[ppos]
         prow = self._pos_row[ppos]
         matrix = None
+        cols: Optional[WindowColumns] = None
         if use_matrix:
             known = prow >= 0
             active = np.unique(prow[known])
-            if active.size:
-                cols = WindowColumns(
-                    msgs, stack.paths, stack.lit_strings, envs,
+            # SELECT lane decision: extract the combined WHERE+SELECT
+            # path union (the WHERE rows' plane indices are a prefix,
+            # which is all the rules kernel reads) and keep raw values
+            # whenever some live matched rule has a batched plan
+            use_all = (
+                selstack.n_lowered > 0
+                and self.select_force != "scalar"
+                and (
+                    self.select_force == "batched"
+                    or not self._sel_batch_off
                 )
+            )
+            batch_sel = False
+            if use_all and ppos.size:
+                selp = self._pos_selp
+                batch_sel = any(
+                    selp[p] is not None
+                    for p in np.unique(ppos[plive]).tolist()
+                )
+            if active.size or batch_sel:
+                t0 = time.perf_counter()
+                cols = WindowColumns(
+                    msgs,
+                    selstack.all_paths if use_all else stack.paths,
+                    stack.lit_strings, envs,
+                    keep_values=batch_sel,
+                )
+                t1 = time.perf_counter()
                 # a literal NaN payload value aliases the num lane's
                 # not-a-number sentinel: this window's rules take the
                 # interpreter
-                if not cols.has_nan_value:
+                if active.size and not cols.has_nan_value:
                     matrix = self._matrix(stack, cols, active)
                     self._stats["matrix_windows"] += 1
+                    if rec is not None:
+                        t2 = time.perf_counter()
+                        rec.sub("rules_extract", t1 - t0)
+                        rec.sub("rules_eval", t2 - t1)
         if matrix is None:
             self._stats["scalar_windows"] += 1
             known = np.zeros(len(ppos), bool)
@@ -387,22 +519,152 @@ class RuleEngine:
             # message index ascending within a rule — identical across
             # the matrix and scalar-referee paths
             order = np.lexsort((pmsg[sel], ppos[sel]))
+            sel_l = sel[order].tolist()
             ppos_l = ppos.tolist()
             pmsg_l = pmsg.tolist()
-            for j in sel[order].tolist():
-                rule = objs[ppos_l[j]]
+            selp = self._pos_selp
+            use_batched = cols is not None and cols.vals is not None
+            t_act0 = time.perf_counter()  # hoisted (no clocks in loop)
+            rows_b = 0
+            rows_s = 0
+            k = 0
+            n_sel = len(sel_l)
+            while k < n_sel:
+                # consecutive run of pairs for ONE rule (sel_l is
+                # rule-major after the lexsort)
+                pos = ppos_l[sel_l[k]]
+                k2 = k + 1
+                while k2 < n_sel and ppos_l[sel_l[k2]] == pos:
+                    k2 += 1
+                rule = objs[pos]
                 if not rule.actions:
                     # nothing consumes the SELECT columns: skip the
                     # per-hit projection (counter-only rules)
+                    k = k2
                     continue
-                i = pmsg_l[j]
-                selected = eval_select(rule.parsed, env(i))
-                self._run_actions(rule, selected, msgs[i], mloc)
+                plan = selp[pos] if use_batched else None
+                if plan is not None:
+                    rows = [pmsg_l[sel_l[t]] for t in range(k, k2)]
+                    self._run_rule_batched(rule, plan, cols, rows, mloc)
+                    rows_b += k2 - k
+                else:
+                    for t in range(k, k2):
+                        i = pmsg_l[sel_l[t]]
+                        selected = eval_select(rule.parsed, env(i))
+                        self._run_actions(rule, selected, msgs[i], mloc)
+                    rows_s += k2 - k
+                k = k2
+            self._sel_lane_account(
+                rows_b, rows_s, time.perf_counter() - t_act0)
         if hits:
             mloc["rules.matched"] += hits
         if self.broker is not None and mloc:
             self.broker.metrics.inc_bulk(mloc)
         return hits
+
+    def _sel_lane_account(
+        self, rows_b: int, rows_s: int, dt: float
+    ) -> None:
+        """Fold one window's SELECT+action lap into the per-lane cost
+        EWMAs (sampled on single-lane windows only, so the figures
+        aren't cross-contaminated) and trip the batched lane's cost
+        breaker when it measures materially slower than the scalar
+        referee — re-armed by registry churn, overridden by
+        ``select_force``."""
+        if rows_b and not rows_s:
+            us = dt * 1e6 / rows_b
+            self._sel_us_b = (
+                us if self._sel_us_b is None
+                else 0.2 * us + 0.8 * self._sel_us_b
+            )
+            self._sel_n_b += 1
+        elif rows_s and not rows_b:
+            us = dt * 1e6 / rows_s
+            self._sel_us_s = (
+                us if self._sel_us_s is None
+                else 0.2 * us + 0.8 * self._sel_us_s
+            )
+            self._sel_n_s += 1
+        if rows_b:
+            self._stats["select_batched_rows"] += rows_b
+        if rows_s:
+            self._stats["select_scalar_rows"] += rows_s
+        if (
+            self.select_force is None
+            and not self._sel_batch_off
+            and self._sel_n_b >= 16
+            and self._sel_n_s >= 16
+            and self._sel_us_b is not None
+            and self._sel_us_s is not None
+            and self._sel_us_b > self._sel_us_s * 1.5
+        ):
+            self._sel_batch_off = True
+            self._stats["select_ewma_off"] += 1
+
+    def _sink_worker(self, action: SinkAction):
+        if self.broker is None:
+            raise RuntimeError("sink action without a broker")
+        worker = self.broker.resources.get(action.resource_id)
+        if worker is None:
+            raise RuntimeError(f"unknown resource {action.resource_id!r}")
+        return worker
+
+    def _run_rule_batched(
+        self,
+        rule: Rule,
+        plan: tuple,
+        cols: WindowColumns,
+        rows: List[int],
+        mloc: Counter,
+    ) -> None:
+        """One rule's whole matched-row set through its lowered
+        SELECT and window-shaped actions: one `materialize_rows` pass
+        over the shared column planes, then ONE bulk handoff per
+        (action, window) — `BufferWorker.enqueue_batch` for sinks,
+        one `Aggregator.push` for aggregate actions.  Counter totals
+        and per-sink query streams match the scalar referee exactly
+        (same values, same order); only the cross-ACTION interleave
+        differs (batched emits action-major within a rule, the scalar
+        lane row-major)."""
+        prog, planes = plan
+        names, colvals = materialize_rows(prog, planes, cols, rows)
+        n = len(rows)
+        for action in rule.actions:
+            try:
+                if isinstance(action, AggregateAction):
+                    action.aggregator.push([
+                        dict(zip(names, row)) for row in zip(*colvals)
+                    ])
+                else:  # SinkAction (plan eligibility guarantees it)
+                    worker = self._sink_worker(action)
+                    if action.payload is not None:
+                        prog_t = getattr(action, "_payload_prog", None)
+                        if prog_t is None:
+                            prog_t = compile_template(action.payload)
+                        colmap: Dict[str, Any] = {}
+                        for nm, col in zip(names, colvals):
+                            colmap[nm] = col
+                        queries = prog_t.render_rows(colmap, n)
+                    else:
+                        queries = [
+                            _json.dumps(
+                                dict(zip(names, row)), default=str
+                            )
+                            for row in zip(*colvals)
+                        ]
+                    worker.enqueue_batch(queries)
+                rule.actions_success += n
+                mloc["actions.success"] += n
+                mloc["actions.batched"] += n
+            except Exception as exc:
+                rule.actions_failed += n
+                mloc["actions.failed"] += n
+                log.warning(
+                    "rule %s batched action %s failed: %s",
+                    rule.rule_id,
+                    getattr(action, "kind", action),
+                    exc,
+                )
 
     def _run_actions(
         self,
@@ -461,6 +723,18 @@ class RuleEngine:
             log.info("rule output: %s", selected)
         elif isinstance(action, FunctionAction):
             action.fn(selected, msg)
+        elif isinstance(action, AggregateAction):
+            action.aggregator.push([selected])
+        elif isinstance(action, SinkAction):
+            worker = self._sink_worker(action)
+            if action.payload is not None:
+                pprog = getattr(action, "_payload_prog", None)
+                if pprog is None:
+                    pprog = compile_template(action.payload)
+                query: Any = pprog.render(selected)
+            else:
+                query = _json.dumps(selected, default=str)
+            worker.enqueue(query)
         else:
             raise RuntimeError(f"unknown action {action!r}")
 
@@ -478,8 +752,9 @@ class RuleEngine:
 
     def stats(self) -> Dict[str, Any]:
         """The rule-eval gauges: lowered-vs-fallback registry split,
-        the path window counts and, once a matrix window has run, the
-        evaluator's per-device window counts."""
+        the path window counts, the SELECT lane's split, row counts,
+        cost EWMAs and breaker state and, once a matrix window has run,
+        the evaluator's per-device window counts."""
         stack = self._stacked()
         out: Dict[str, Any] = {
             "rules": len(self.rules),
@@ -487,6 +762,10 @@ class RuleEngine:
             "program_rows": stack.n_rules,  # after program dedup
             "fallback": len(stack.fallback),
             **self._stats,
+            "select_lowered": self._select_stack(stack).n_lowered,
+            "select_batched_us_ewma": self._sel_us_b,
+            "select_scalar_us_ewma": self._sel_us_s,
+            "select_batch_disabled": self._sel_batch_off,
         }
         ev = (self.broker.router.engine.rules_evaluator
               if self.broker is not None else self._evaluator)

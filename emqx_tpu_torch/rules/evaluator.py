@@ -47,8 +47,14 @@ class RulesEvaluator:
         rules matched this window, is not needed there.  On the CPU the
         plain version evaluates just ``rows`` and scatters them back, as
         the JAX engine's host twin does.  Both compute in float64, so no
-        window needs another route."""
+        window needs another route.
+
+        Only the planes of ``stack.paths`` go to the kernel: they are a
+        prefix of ``cols``' rows, which the SELECT lane extends with
+        the paths only a SELECT reads (a row prefix of a C-ordered
+        plane is contiguous)."""
         r_n, w_n = stack.n_rules, cols.n
+        k = len(stack.paths)
         dev = self.device
         if dev.type == "cpu":
             self.counters["rules_host_windows"] += 1
@@ -62,8 +68,8 @@ class RulesEvaluator:
                                        stack.last)), dev,
                 )
                 planes = columns_from_reference(
-                    cols.num, cols.sid, cols.err, cols.prs, cols.lit_ranks,
-                    dev)
+                    cols.num[:k], cols.sid[:k], cols.err[:k],
+                    cols.prs[:k], cols.lit_ranks, dev)
                 mat[sel] = rules_eval_batch(
                     prog.code, prog.a0, prog.a1, prog.a2, prog.a3,
                     prog.litn, planes.lit_ranks, prog.last, planes.num,
@@ -77,18 +83,20 @@ class RulesEvaluator:
                 stack.code, stack.a0, stack.a1, stack.a2, stack.a3,
                 stack.litn, stack.last, dev, n_lits=len(stack.lit_strings),
             ))
-        return self._eval(cache[1], cols), "dev"
+        return self._eval(cache[1], cols, k), "dev"
 
-    def _eval(self, prog: LoweredRules, cols) -> np.ndarray:
-        p, w = cols.num.shape
+    def _eval(self, prog: LoweredRules, cols, p: int) -> np.ndarray:
+        """K4 over the first ``p`` planes of ``cols``."""
+        w = cols.n
         with self._lock:
             host = self._stage.views([
                 (np.float64, (p, w)), (np.int32, (p, w)),
                 (np.int32, (cols.lit_ranks.size,)), (bool, (p, w)),
                 (bool, (p, w)),
             ])
-            for dst, src in zip(host, (cols.num, cols.sid, cols.lit_ranks,
-                                       cols.err, cols.prs)):
+            for dst, src in zip(host, (cols.num[:p], cols.sid[:p],
+                                       cols.lit_ranks, cols.err[:p],
+                                       cols.prs[:p])):
                 dst[...] = src
             num, sid, lit_ranks, err, prs = self._stage.upload()
             mat = rules_eval_lowered(prog, lit_ranks, num, sid, err, prs)

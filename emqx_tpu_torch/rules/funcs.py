@@ -7,8 +7,11 @@ type conversion, time, hashing, compression-free encoding.  All
 functions are total over ``None`` where EMQX is (undefined propagates
 as failure -> the rule's WHERE treats it as false).
 
-``schema_decode``, ``schema_encode`` and ``schema_check`` need the
-schema registry, which this package does not have yet: they raise.
+``schema_decode``, ``schema_encode`` and ``schema_check`` resolve names
+in the node's `schema_registry.global_registry()`.  Unlike the JAX
+package's, ``schema_decode`` and ``schema_check`` read the env's
+``payload`` as the message's bytes, not as its UTF-8 text, so a binary
+payload (Avro, protobuf) decodes.
 """
 
 from __future__ import annotations
@@ -340,18 +343,39 @@ def _is_array(x):
 # -------------------------------------------------------- json / encoding
 
 
-def _no_schema_registry(name):
-    def fn(*_args):
-        raise RuntimeError(
-            f"{name}: the schema registry is not ported to "
-            "emqx_tpu_torch yet"
-        )
+def _payload_bytes(payload):
+    """A payload argument as bytes: the message's own bytes when it is
+    the env's ``payload`` (whose text is the UTF-8 decode with
+    replacement, which loses binary schema payloads), else the text's
+    UTF-8 encoding."""
+    raw = getattr(payload, "_raw", None)
+    if raw is not None:
+        return raw
+    return payload.encode() if isinstance(payload, str) else payload
 
-    return fn
+
+@_register("schema_decode")
+def _schema_decode(name, payload, message_type=None):
+    """Decode a payload against a registered schema
+    (emqx_rule_funcs:schema_decode — avro/protobuf/json by name)."""
+    from ..schema_registry import global_registry
+
+    return global_registry().decode(name, _payload_bytes(payload),
+                                    message_type)
 
 
-for _name in ("schema_decode", "schema_encode", "schema_check"):
-    FUNCS[_name] = _no_schema_registry(_name)
+@_register("schema_encode")
+def _schema_encode(name, value, message_type=None):
+    from ..schema_registry import global_registry
+
+    return global_registry().encode(name, value, message_type)
+
+
+@_register("schema_check")
+def _schema_check(name, payload):
+    from ..schema_registry import global_registry
+
+    return global_registry().check(name, _payload_bytes(payload))
 
 
 @_register("json_decode")

@@ -27,6 +27,13 @@ SQL rules whose FROM filters cover the fleet topic families and whose
 WHERE clauses are the predicate shapes of ``bench.py``'s rules bench,
 plus arithmetic and presence checks, over JSON telemetry payloads that
 carry float32-lossy values (millisecond timestamps, 2**24 + 1).
+
+`add_sink_rules` gives the same 99 fleet rules the rule egress — sink
+actions into a `RecordingSink` (JSON rows or a template) and aggregate
+actions into a JSONL `Aggregator` — plus one Avro rule on
+``avro/+/state`` that decodes `FLEET_AVRO` records
+(`make_avro_records`); `sinks_world` runs windows through such a broker
+in process and returns everything that left it.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from .ops.dictionary import PAD_TOK, PLUS_TOK, TokenDict
+from .resources import Resource
 
 
 def populations(n_subs: int, fanout: int) -> Tuple[int, int, int, int]:
@@ -219,6 +227,161 @@ def make_rule_payloads(rng: np.random.Generator, n: int,
             body["w"] = int(v[i]) % 5
         out.append(json.dumps(body).encode())
     return out
+
+
+# ------------------------------------------------------ rule egress
+
+# a vehicle's state record, Avro-encoded by the fleet's gateways
+FLEET_AVRO = {
+    "type": "record", "name": "FleetState", "fields": [
+        {"name": "vin", "type": "string"},
+        {"name": "speed", "type": "double"},
+        {"name": "odometer", "type": "long"},
+        {"name": "gear", "type": {"type": "enum", "name": "Gear",
+                                  "symbols": ["P", "R", "N", "D"]}},
+        {"name": "fault", "type": ["null", "string"]},
+    ],
+}
+FLEET_AVRO_NAME = "fleet_avro"
+SINK_ID = "fleet"
+SINK_TEMPLATE = "${clientid}|${topic}|${qos}"
+AVRO_SQL = (f"SELECT schema_decode('{FLEET_AVRO_NAME}', payload) AS d, "
+            'topic FROM "avro/+/state"')
+SINK_AGG_RECORDS = 512  # the aggregator's record cap
+
+
+def make_avro_records(rng: np.random.Generator, n: int) -> List[dict]:
+    """``n`` `FLEET_AVRO` records: a VIN, a speed, an odometer reading,
+    a gear and now and then a fault code."""
+    speed = rng.random(n) * 130.0
+    odo = rng.integers(0, 400_000, n)
+    gear = rng.integers(0, 4, n)
+    fault = rng.random(n) < 0.1
+    return [{"vin": f"VIN{int(odo[i]) % 997:05d}",
+             "speed": float(speed[i]), "odometer": int(odo[i]),
+             "gear": "PRND"[int(gear[i])],
+             "fault": f"P0{int(odo[i]) % 900 + 100}" if fault[i] else None}
+            for i in range(n)]
+
+
+class RecordingSink(Resource):
+    """A batching sink that keeps every query it is handed, in order,
+    and the size of every batch."""
+
+    max_batch = 512
+
+    def __init__(self) -> None:
+        self.queries: List = []
+        self.batches: List[int] = []
+
+    async def on_query(self, query) -> None:
+        self.queries.append(query)
+
+    async def on_query_batch(self, queries) -> int:
+        self.queries.extend(queries)
+        self.batches.append(len(queries))
+        return len(queries)
+
+
+def add_sink_rules(broker, aggregator) -> None:
+    """Config 4's 99 fleet rules (`make_rules(99, n_fallback=6)`, all
+    ``SELECT *``) with the egress actions: rules 0-79 sink their row as
+    JSON into `SINK_ID`, rules 80-92 sink `SINK_TEMPLATE`, rules 93-98
+    push into ``aggregator``; then `AVRO_SQL` sinking into `SINK_ID`
+    (its SELECT calls a function, so it takes the scalar lane)."""
+    from .rules.engine import AggregateAction, SinkAction
+
+    for k, (rid, sql) in enumerate(make_rules(99, n_fallback=6)):
+        action = (SinkAction(SINK_ID) if k < 80
+                  else SinkAction(SINK_ID, payload=SINK_TEMPLATE) if k < 93
+                  else AggregateAction(aggregator))
+        broker.rules.add_rule(rid, sql, actions=[action])
+    broker.rules.add_rule("avro", AVRO_SQL, actions=[SinkAction(SINK_ID)])
+
+
+def sink_aggregator(bodies: List[bytes]):
+    """The JSONL aggregator of `add_sink_rules`: an object per
+    `SINK_AGG_RECORDS` records (or per hour), its body appended to
+    ``bodies``."""
+    from .aggregator import Aggregator
+
+    return Aggregator(lambda key, body: bodies.append(body), name="fleet",
+                      container="jsonl", interval_s=3600.0,
+                      max_records=SINK_AGG_RECORDS)
+
+
+def sink_windows(rng: np.random.Generator, n_windows: int, n: int,
+                 pops) -> List[List[dict]]:
+    """Windows of ``n`` fleet telemetry messages (`make_topics`,
+    `make_rule_payloads`) as `Message` keywords, every 8th an Avro
+    state record on ``avro/<vin>/state``; ids and timestamps fixed."""
+    from .schema_registry import AvroSchema
+
+    avro = AvroSchema(FLEET_AVRO)
+    out, k = [], 0
+    for _ in range(n_windows):
+        topics = make_topics(rng, n, pops)
+        bodies = make_rule_payloads(rng, n)
+        recs = make_avro_records(rng, n)
+        win = []
+        for i in range(n):
+            topic, body = topics[i], bodies[i]
+            if i % 8 == 7:
+                topic = f"avro/{recs[i]['vin']}/state"
+                body = avro.encode(recs[i])
+            win.append(dict(topic=topic, payload=body, qos=1,
+                            from_client=f"pub{i % 4}",
+                            mid=k.to_bytes(16, "big"),
+                            timestamp=1752000000.0 + k / 1000))
+            k += 1
+        out.append(win)
+    return out
+
+
+def sinks_world(device: str, windows: Sequence[Sequence[dict]],
+                select_force: Optional[str] = None):
+    """`add_sink_rules` on a `Broker` on ``device`` (the match engine
+    holding only the rules' filters, built), the schema registered in the
+    node's registry, ``select_force`` on its rule engine: every window
+    through `Broker.publish_many`, then the sink's worker drained and
+    the aggregator flushed.  Returns the sink's queries, the aggregator
+    bodies, each rule's counters, the broker's action metrics and the
+    rule engine's `stats()`."""
+    from .broker.broker import Broker
+    from .message import Message
+    from .schema_registry import global_registry
+
+    global_registry().add(FLEET_AVRO_NAME, "avro", FLEET_AVRO)
+    b = Broker(device=device)
+    b.rules.select_force = select_force
+    bodies: List[bytes] = []
+    agg = sink_aggregator(bodies)
+    b.aggregators.append(agg)
+    add_sink_rules(b, agg)
+    b.router.engine.rebuild()  # the rules' filters onto the device
+    sink = RecordingSink()
+
+    async def run() -> None:
+        worker = await b.resources.create(
+            SINK_ID, sink, batch_records=512, batch_age=0.05,
+            max_buffer=1 << 20)
+        try:
+            for win in windows:
+                b.publish_many([Message(**m) for m in win])
+            want = worker.stats["matched"]
+            while len(sink.queries) < want:
+                await asyncio.sleep(0.005)
+        finally:
+            await b.resources.stop_all()
+
+    asyncio.run(asyncio.wait_for(run(), 60))
+    agg.flush()
+    counters = {rid: (r.matched, r.passed, r.failed, r.actions_success,
+                      r.actions_failed) for rid, r in b.rules.rules.items()}
+    metrics = {k: b.metrics[k] for k in (
+        "actions.success", "actions.failed", "actions.batched",
+        "rules.matched")}
+    return sink.queries, bodies, counters, metrics, b.rules.stats()
 
 
 def full_frontier(rng: np.random.Generator, n_topics: int,

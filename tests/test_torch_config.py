@@ -54,6 +54,9 @@ DICTS = [
      "sys": {"interval": 5.0}, "flapping": {"max_count": 3},
      "slow_subs": {"top_k": 3}, "profiler": {"ring_size": 16},
      "auto_subscribe": [{"topic": "inbox/%c", "qos": 1}]},
+    {"sinks": [{"id": "web", "type": "http", "url": "http://h:8080/in",
+                "method": "PUT", "headers": {"X-K": "v"}, "max_buffer": 5},
+               {"id": "b", "url": "http://h/b"}]},
 ]
 
 
@@ -367,3 +370,69 @@ def test_rules_matrix_false_pins_the_interpreter():
     assert outs["config"] == outs["force"] == (outs["default"][0], 0, 1)
     assert outs["default"][1:] == (1, 0)
     assert len(outs["default"][0]) == 3
+
+
+_SINK_CASES = [
+    [],
+    [{"id": "a", "type": "http", "url": "http://h/p"}],
+    [{"type": "http", "url": "http://h/p"}],
+    [{"id": "a", "type": "http"}],
+    [{"id": "a", "url": ""}],
+    [{"id": "a", "type": "smtp"}, {"url": "http://h/q"}],
+]
+
+
+@pytest.mark.parametrize("sinks", _SINK_CASES)
+def test_sinks_check_config_equal_reference(sinks):
+    got = []
+    for mod in (RC, PCfg):
+        cfg = mod.BrokerConfig()
+        cfg.sinks = json.loads(json.dumps(sinks))
+        got.append(mod.check_config(cfg))
+    assert got[0] == got[1]
+
+
+def test_kafka_sink_is_not_ported():
+    """The JAX package's kafka sink is refused by check_config (and by
+    `BrokerServer.start`, tests/test_torch_sinks.py), never skipped."""
+    sink = {"id": "k", "type": "kafka", "bootstrap": [["h", 9092]],
+            "topic": "t"}
+    ref = RC.BrokerConfig()
+    ref.sinks = [sink]
+    assert RC.check_config(ref) == []
+    cfg = PCfg.ConfigHandler.from_dict({"sinks": [sink]}).root
+    assert PCfg.check_config(cfg) == [
+        "sinks[0].type: kafka is not ported to emqx_tpu_torch"]
+    bad = PCfg.BrokerConfig()
+    bad.sinks = ["http://h/p"]
+    assert PCfg.check_config(bad) == ["sinks[0]: expected an object"]
+    bad.sinks = {"id": "a"}
+    assert PCfg.check_config(bad) == [
+        "sinks: expected a list of sink objects"]
+
+
+def test_sinks_from_a_file_and_the_environment(tmp_path):
+    sinks = [{"id": "web", "type": "http", "url": "http://h/in",
+              "max_buffer": 3}]
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps({"sinks": sinks}))
+    assert PCfg.ConfigHandler.load(str(path)).root.sinks == sinks
+    assert RC.ConfigHandler.load(str(path)).root.sinks == sinks
+    env = {"EMQX_TPU_SINKS": json.dumps(sinks + [{"id": "x",
+                                                   "url": "http://h/x"}])}
+    got = []
+    for mod in (RC, PCfg):
+        cfg = mod.ConfigHandler.load(str(path)).root
+        got.append((mod.apply_env_overrides(cfg, environ=dict(env)),
+                    cfg.sinks))
+    assert got[0] == got[1]
+    assert [s["id"] for s in got[1][1]] == ["web", "x"]
+    # the CLI's --check-config reads both and finds the kafka sink
+    env = dict(os.environ, PYTHONPATH=REPO,
+               EMQX_TPU_SINKS=json.dumps([{"id": "k", "type": "kafka"}]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "emqx_tpu_torch.broker", "--config",
+         str(path), "--check-config"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1
+    assert "sinks[0].type: kafka is not ported" in proc.stderr

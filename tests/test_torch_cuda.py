@@ -1188,3 +1188,82 @@ def test_listeners_tcp_and_ws_on_card_equal_cpu(cuda):
     n = mk.launches()
     assert got == asyncio.run(asyncio.wait_for(run("cpu"), 120))
     assert n["match_batch_compact"] >= 2 and n["decide_packed"] >= 2, n
+
+
+@pytest.mark.cuda
+def test_rules_kernel_reads_only_the_where_prefix_on_card(cuda):
+    """The SELECT lane appends SELECT-only planes to the window's
+    columns: the evaluator stages and uploads only the WHERE prefix,
+    and K4's matrix equals the one without the appended planes, and the
+    plain version's on the CPU."""
+    from emqx_tpu_torch.message import Message
+    from emqx_tpu_torch.rules.columns import WindowColumns
+    from emqx_tpu_torch.rules.evaluator import RulesEvaluator
+    from emqx_tpu_torch.rules.predicate import build_stack
+    from emqx_tpu_torch.rules.select import build_select_stack
+    from emqx_tpu_torch.rules.sql import parse_sql
+
+    rng = random.Random(8)
+    rules = [(f"r{i}", f'SELECT *, payload.t AS t FROM "t/#" WHERE {p}')
+             for i, p in enumerate(RULE_CORPUS)]
+    stack = build_stack([(rid, parse_sql(q).where) for rid, q in rules])
+    sel = build_select_stack([(rid, parse_sql(q)) for rid, q in rules],
+                             stack.paths)
+    assert len(sel.all_paths) > len(stack.paths)
+    msgs = []
+    for k in range(300):
+        body = rng.choice(TRAP_PAYLOADS)
+        if body[:1] == b"{" and rng.random() < 0.7:
+            body = body[:-1] + b', "t": "%s"}' % rng.choice(
+                [b"aa", b"zz", b"m"])
+        msgs.append(Message(topic="t/1", payload=body, qos=k % 3,
+                            from_client=f"c{k % 5}"))
+    plain = WindowColumns(msgs, stack.paths, stack.lit_strings)
+    wide = WindowColumns(msgs, sel.all_paths, stack.lit_strings,
+                         keep_values=True)
+    ev = RulesEvaluator("cuda")
+    shapes = []
+    views = ev._stage.views
+
+    def spy(specs):
+        shapes.append([s for _, s in specs])
+        return views(specs)
+
+    ev._stage.views = spy
+    mk.reset_launches()
+    a = ev.eval_window(stack, 1, plain)[0]
+    b = ev.eval_window(stack, 1, wide)[0]
+    assert mk.launches()["rules_eval_lowered"] == 2
+    p = len(stack.paths)
+    assert [s[0] for s in shapes] == [(p, len(msgs))] * 2
+    assert np.array_equal(a, b)
+    want = RulesEvaluator("cpu").eval_window(stack, 1, wide)[0]
+    assert np.array_equal(b, want)
+    assert a.any() and not a.all()
+
+
+@pytest.mark.cuda
+def test_sinks_world_on_card_equals_cpu(cuda):
+    """chip_smoke's sinks broker world in process at a small size:
+    config 4's rules with sink, template and aggregate actions and the
+    Avro rule, on the card (K1, K4) and on the CPU: the same sink
+    queries, aggregator bodies, rule counters and action metrics, in
+    the batched lane and against the scalar referee."""
+    from emqx_tpu_torch import workload as W
+
+    wins = W.sink_windows(np.random.default_rng(6), 4, 256,
+                          W.populations(1000, 8))
+    mk.reset_launches()
+    got = W.sinks_world("cuda", wins, "batched")
+    launches = mk.launches()
+    want = W.sinks_world("cpu", wins, "batched")
+    scalar = W.sinks_world("cuda", wins, "scalar")
+    assert got[:4] == want[:4]
+    assert got[0] == scalar[0] and got[2] == scalar[2]
+    assert b"".join(got[1]) == b"".join(scalar[1])
+    st = got[4]
+    assert st["select_lowered"] == 99 and st["dev_windows"] == len(wins)
+    assert st["select_scalar_rows"] == got[2]["avro"][1] == 4 * 32
+    assert st["select_batched_rows"] > 0
+    assert launches["match_batch_compact"] >= len(wins)
+    assert launches["rules_eval_lowered"] == len(wins)

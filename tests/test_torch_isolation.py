@@ -54,12 +54,23 @@ import emqx_tpu_torch.rules.predicate
 import emqx_tpu_torch.rules.runtime
 import emqx_tpu_torch.rules.select
 import emqx_tpu_torch.rules.sql
+import emqx_tpu_torch.aio
+import emqx_tpu_torch.resources
+import emqx_tpu_torch.aggregator
+import emqx_tpu_torch.schema_registry
+import emqx_tpu_torch.workload
 bad = sorted(
     n for n in sys.modules
     if n == "jax" or n.startswith("jax.")
     or n == "emqx_tpu" or n.startswith("emqx_tpu.")
 )
 print("BAD", bad)
+opt = sorted(
+    n for n in sys.modules
+    if n.split(".")[0] in ("aiohttp", "jsonschema")
+    or n == "google.protobuf" or n.startswith("google.protobuf.")
+)
+print("OPT", opt)
 """
 
 
@@ -73,6 +84,15 @@ def test_port_imports_no_jax_and_no_reference():
     proc = _run("-c", _CHECK)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
+
+
+def test_port_imports_no_optional_dependency():
+    """The HTTP sink's aiohttp, protobuf and jsonschema load when a sink
+    starts or a schema is added, never when the port is imported (the
+    card's machine has none of them)."""
+    proc = _run("-c", _CHECK)
+    assert proc.returncode == 0, proc.stderr
+    assert "OPT []" in proc.stdout, proc.stdout
 
 
 def test_default_device_raises_without_cuda():

@@ -130,12 +130,15 @@ def test_broker_window_record_has_every_stage(native):
     ])
     assert counts == [2, 2]
     (win,) = prof.windows()
+    # the nested sub-stages follow the spans: the native splice's share
+    # of deliver, then the rules lap's column walk and matrix
     assert list(win["stages_us"]) == BROKER_LAPS + (
-        ["assemble"] if native else [])
+        ["assemble"] if native else []) + ["rules_extract", "rules_eval"]
     assert win["path"] == "dev" and win["n_deliveries"] == 4
     assert win["n_clients"] == 2 and len(win["e2e_ms"]) == 2
     summ = prof.summary()
-    for name in BROKER_LAPS + ["tokenize", "e2e"]:
+    for name in BROKER_LAPS + ["tokenize", "e2e", "rules_extract",
+                               "rules_eval"]:
         assert summ[name]["count"] >= 1, name
     for name in ("batch_wait", "replay_read", "ds_sync"):
         assert summ[name]["count"] == 0, name  # not faked

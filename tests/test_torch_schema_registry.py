@@ -1,0 +1,310 @@
+"""The port's schema registry against the JAX package's: the Avro codec
+(round trips, known bytes, truncation, schema errors), protobuf schemas
+compiled with ``protoc``, JSON schemas, the registry's persistence, and
+``schema_decode``/``schema_encode``/``schema_check`` through rules on
+both brokers, in both SELECT lanes.
+
+One deliberate difference is pinned here: the port's schema functions
+read the env's ``payload`` as the message's bytes, so a binary (non
+UTF-8) payload decodes; the JAX package passes the payload's UTF-8 text
+(decoded with replacement), on which such a record fails or decodes
+to wrong values.
+"""
+
+import json
+
+import pytest
+
+from emqx_tpu import schema_registry as ref_sr
+from emqx_tpu.broker.broker import Broker as RefBroker
+from emqx_tpu.config import BrokerConfig as RefConfig
+from emqx_tpu.message import Message as RefMessage
+from emqx_tpu.rules import engine as ref_engine
+from emqx_tpu.rules.funcs import FUNCS as REF_FUNCS
+
+from emqx_tpu_torch import schema_registry as port_sr
+from emqx_tpu_torch import workload as W
+from emqx_tpu_torch.broker.broker import Broker
+from emqx_tpu_torch.message import Message
+from emqx_tpu_torch.rules import engine as port_engine
+from emqx_tpu_torch.rules.funcs import FUNCS
+
+SR = {"ref": ref_sr, "port": port_sr}
+
+AVRO_SCHEMA = {
+    "type": "record", "name": "Telemetry", "fields": [
+        {"name": "device", "type": "string"},
+        {"name": "temp", "type": "double"},
+        {"name": "t32", "type": "float"},
+        {"name": "seq", "type": "long"},
+        {"name": "ok", "type": "boolean"},
+        {"name": "raw", "type": "bytes"},
+        {"name": "mac", "type": {"type": "fixed", "name": "Mac", "size": 2}},
+        {"name": "tags", "type": {"type": "array", "items": "string"}},
+        {"name": "attrs", "type": {"type": "map", "values": "long"}},
+        {"name": "note", "type": ["null", "string"]},
+        {"name": "mode", "type": {"type": "enum", "name": "Mode",
+                                  "symbols": ["AUTO", "MANUAL"]}},
+        {"name": "prev", "type": ["null", "Mode"]},
+        {"name": "opt", "type": "long", "default": 7},
+    ],
+}
+
+PROTO_SRC = """
+syntax = "proto3";
+message SensorReading {
+  string device = 1;
+  double temp = 2;
+  int64 seq = 3;
+  repeated string tags = 4;
+}
+"""
+
+PROTO_TWO = PROTO_SRC + """
+message Other { int32 x = 1; }
+"""
+
+JSON_SCHEMA = {"type": "object", "required": ["mode"],
+               "properties": {"mode": {"type": "string"}}}
+
+
+def _value(**kw):
+    v = {"device": "v-17", "temp": 21.5, "t32": 0.5, "seq": 12345678901,
+         "ok": True, "raw": b"\x00\xff", "mac": b"\x01\x02",
+         "tags": ["a", "b"], "attrs": {"x": 1, "y": -2}, "note": None,
+         "mode": "MANUAL", "prev": "AUTO", "opt": 3}
+    v.update(kw)
+    return v
+
+
+@pytest.mark.parametrize("value", [
+    _value(), _value(note="hello", prev=None, tags=[], attrs={}),
+    _value(seq=-1, attrs={"z": -(2 ** 40)}, ok=False, temp=-0.0),
+    _value(seq=2 ** 62, t32=-3.25, raw=b"", device="ü" * 70),
+])
+def test_avro_round_trip_equals_reference(value):
+    port = port_sr.AvroSchema(AVRO_SCHEMA)
+    ref = ref_sr.AvroSchema(AVRO_SCHEMA)
+    data = port.encode(value)
+    assert data == ref.encode(value)
+    assert port.decode(data) == ref.decode(data) == value
+    # a missing field with a default takes it
+    short = {k: v for k, v in value.items() if k != "opt"}
+    assert port.encode(short) == ref.encode(short)
+    assert port.decode(port.encode(short))["opt"] == 7
+
+
+def test_avro_known_bytes_and_errors_equal_reference():
+    rec = {"type": "record", "name": "R", "fields": [
+        {"name": "a", "type": "long"}, {"name": "b", "type": "string"}]}
+    for side in ("ref", "port"):
+        s = SR[side].AvroSchema(rec)
+        # long 1 -> 0x02; long -1 -> 0x01; "foo" -> 0x06 'f' 'o' 'o'
+        assert s.encode({"a": 1, "b": "foo"}) == b"\x02\x06foo"
+        assert s.encode({"a": -1, "b": ""}) == b"\x01\x00"
+        assert s.decode(b"\x02\x06foo") == {"a": 1, "b": "foo"}
+        full = SR[side].AvroSchema(AVRO_SCHEMA)
+        for bad in (b"\x02", b"\x02\x06fo", b"\xff" * 11):
+            with pytest.raises(ValueError):
+                full.decode(bad)
+        with pytest.raises(ValueError, match="missing field"):
+            s.encode({"a": 1})
+        with pytest.raises(ValueError, match="fits no union"):
+            SR[side].AvroSchema(["null", "long"]).encode("x")
+        for schema in ({"type": "record", "name": "X"},
+                       {"type": "enum", "name": "E"},
+                       {"type": "fixed", "name": "F"},
+                       {"type": "array"}, {"type": "map"},
+                       {"type": "decimal"},
+                       {"type": "record", "name": "Y", "fields": [{"x": 1}]}):
+            with pytest.raises(ValueError):
+                SR[side].AvroSchema(schema)
+
+
+def test_protobuf_compile_and_round_trip_equal_reference():
+    port = port_sr.ProtobufSchema(PROTO_SRC)
+    ref = ref_sr.ProtobufSchema(PROTO_SRC)
+    assert port.message_types() == ref.message_types() == ["SensorReading"]
+    value = {"device": "d1", "temp": 3.5, "seq": "42", "tags": ["x", "y"]}
+    data = port.encode(value, "SensorReading")
+    assert data == ref.encode(value, "SensorReading")
+    assert data.startswith(b"\x0a\x02d1")  # field 1, "d1"
+    assert port.decode(data, "SensorReading") == ref.decode(
+        data, "SensorReading")
+    for side in ("ref", "port"):
+        with pytest.raises(ValueError, match="protoc rejected"):
+            SR[side].ProtobufSchema("syntax = nonsense;")
+        with pytest.raises(ValueError, match="unknown message type"):
+            SR[side].ProtobufSchema(PROTO_SRC).decode(data, "Nope")
+
+
+def test_registry_persistence_and_dispatch_equal_reference(tmp_path):
+    out = {}
+    for side in ("ref", "port"):
+        path = str(tmp_path / f"{side}.json")
+        reg = SR[side].SchemaRegistry(persist_path=path)
+        reg.add("tele", "avro", json.dumps(AVRO_SCHEMA))
+        reg.add("sensor", "protobuf", PROTO_SRC)
+        reg.add("two", "protobuf", PROTO_TWO)
+        reg.add("cfg", "json", JSON_SCHEMA)
+        with pytest.raises(ValueError, match="unknown schema type"):
+            reg.add("x", "thrift", "{}")
+        enc = reg.encode("sensor", {"device": "d9", "seq": "3"})
+        res = [reg.decode("sensor", enc), reg.encode("cfg", {"mode": "on"}),
+               reg.decode("cfg", b'{"mode": "on"}'),
+               reg.check("cfg", b'{"mode": "on"}'),
+               reg.check("cfg", b'{"other": 1}'),
+               reg.check("tele", b"garbage"),
+               reg.decode("two", reg.encode("two", {"x": 5}, "Other"),
+                          "Other")]
+        with pytest.raises(ValueError, match="2 message types"):
+            reg.decode("two", enc)
+        with pytest.raises(ValueError, match="unknown schema"):
+            reg.decode("nope", b"")
+        assert reg.remove("sensor") and not reg.remove("sensor")
+        saved = json.load(open(path))
+        again = SR[side].SchemaRegistry()
+        again.load(path)
+        missing = SR[side].SchemaRegistry()
+        missing.load(str(tmp_path / "none.json"))  # absent: nothing
+        out[side] = (res, saved, again.dump(), again.info(), reg.info(),
+                     missing.dump())
+    assert out["port"] == out["ref"]
+    res, saved, dumped, info, _, none = out["port"]
+    assert res[3:6] == [True, False, False] and res[6] == {"x": 5}
+    assert sorted(saved) == ["cfg", "tele", "two"] and dumped == saved
+    assert none == {}
+
+
+# ------------------------------------------------- through rules
+
+class FakeWorker:
+    def __init__(self):
+        self.queries = []
+
+    def enqueue(self, q):
+        self.queries.append(q)
+        return True
+
+    def enqueue_batch(self, qs):
+        self.queries.extend(qs)
+        return 0
+
+
+_TEXT_AVRO = {"type": "record", "name": "T", "fields": [
+    {"name": "id", "type": "string"}, {"name": "n", "type": "long"},
+    {"name": "on", "type": "boolean"}]}
+
+_RULES = [
+    ("dec", "SELECT schema_decode('tav', payload) AS d, topic "
+            'FROM "avro/#"'),
+    ("chk", "SELECT payload.mode AS m FROM \"cfg/#\" "
+            "WHERE schema_check('cfg', payload)"),
+    ("enc", "SELECT schema_encode('cfg', payload.inner) AS e "
+            'FROM "cfg/#" WHERE is_not_null(payload.inner)'),
+    ("bad", "SELECT schema_decode('nope', payload) AS d FROM \"cfg/#\""),
+    ("all", 'SELECT * FROM "#"'),
+]
+
+
+def _messages():
+    avro = port_sr.AvroSchema(_TEXT_AVRO)
+    out = []
+    for k in range(12):
+        if k % 3 == 0:
+            # small longs and short strings: every byte < 0x80, so the
+            # record survives a UTF-8 text round trip in both packages
+            body = avro.encode({"id": f"d{k}", "n": k, "on": k % 2 == 0})
+            topic = f"avro/{k}"
+        elif k % 3 == 1:
+            body = json.dumps({"mode": f"m{k}",
+                               "inner": {"mode": "x"}}).encode()
+            topic = "cfg/a"
+        else:
+            body = b'{"other": 1}'
+            topic = "cfg/b"
+        out.append(dict(topic=topic, payload=body, qos=1, from_client="c",
+                        mid=k.to_bytes(16, "big"), timestamp=1.7e9 + k))
+    return out
+
+
+def _rule_run(side, force):
+    if side == "ref":
+        cfg = RefConfig()
+        cfg.engine.use_device = False
+        b, R, M = RefBroker(config=cfg), ref_engine, RefMessage
+    else:
+        b, R, M = Broker(device="cpu"), port_engine, Message
+    reg = SR[side].global_registry()
+    reg.add("tav", "avro", _TEXT_AVRO)
+    reg.add("cfg", "json", JSON_SCHEMA)
+    try:
+        b.rules.select_force = force
+        sink = FakeWorker()
+        b.resources._workers["s"] = sink
+        for rid, sql in _RULES:
+            b.rules.add_rule(rid, sql, actions=[R.SinkAction("s")])
+        msgs = _messages()
+        b.publish_many([M(**m) for m in msgs[:7]])
+        b.publish_many([M(**m) for m in msgs[7:]])
+        counters = {rid: (r.matched, r.passed, r.actions_success,
+                          r.actions_failed)
+                    for rid, r in b.rules.rules.items()}
+        return sink.queries, counters
+    finally:
+        reg.remove("tav")
+        reg.remove("cfg")
+
+
+@pytest.mark.parametrize("force", ["batched", "scalar"])
+def test_schema_functions_through_rules_equal_reference(force):
+    port, ref = _rule_run("port", force), _rule_run("ref", force)
+    assert port == ref
+    queries, counters = port
+    decoded = [json.loads(q)["d"] for q in queries
+               if q.startswith('{"d": {')]
+    assert decoded == [{"id": f"d{k}", "n": k, "on": k % 2 == 0}
+                       for k in (0, 3, 6, 9)]
+    assert counters["chk"][:2] == (8, 4)  # schema_check in WHERE
+    # schema_encode's bytes go out through json.dumps(default=str)
+    assert queries.count(json.dumps({"e": str(b'{"mode":"x"}')})) == 4
+    assert sum(q == '{"d": null}' for q in queries) == 8  # unknown schema
+
+
+def test_binary_payload_decodes_in_the_port_only():
+    """The deliberate difference: a `workload.FLEET_AVRO` record (its
+    double is not UTF-8 text) decodes through the port's schema_decode
+    from the message's bytes; the JAX package's function gets the
+    payload's text, whose replacement characters shift the fields after
+    the double: this record decodes there to a wrong odometer."""
+    rec = {"vin": "VIN00001", "speed": 88.25, "odometer": 1234,
+           "gear": "D", "fault": None}
+    body = port_sr.AvroSchema(W.FLEET_AVRO).encode(rec)
+    with pytest.raises(UnicodeDecodeError):
+        body.decode("utf-8")
+    out = {}
+    for side, B, M in (("ref", RefBroker, RefMessage),
+                       ("port", Broker, Message)):
+        reg = SR[side].global_registry()
+        reg.add(W.FLEET_AVRO_NAME, "avro", W.FLEET_AVRO)
+        try:
+            if side == "ref":
+                cfg = RefConfig()
+                cfg.engine.use_device = False
+                b = B(config=cfg)
+                R = ref_engine
+            else:
+                b, R = B(device="cpu"), port_engine
+            got = []
+            b.rules.add_rule("avro", W.AVRO_SQL, actions=[R.FunctionAction(
+                lambda sel, msg: got.append(sel["d"]))])
+            b.publish(M(topic="avro/VIN00001/state", payload=body))
+            out[side] = got
+            direct = (FUNCS if side == "port" else REF_FUNCS)[
+                "schema_check"](W.FLEET_AVRO_NAME, body)
+            assert direct  # handed bytes, both decode
+        finally:
+            reg.remove(W.FLEET_AVRO_NAME)
+    assert out["port"] == [rec]
+    assert out["ref"][0]["speed"] == rec["speed"]
+    assert out["ref"][0]["odometer"] != rec["odometer"]
