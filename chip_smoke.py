@@ -15,8 +15,10 @@ the publish path, then the publish path with config 4's 100 rules,
 whose kernel launches it counts, then the same rules with sink and
 aggregate actions and a schema-decoding rule, then shared subscriptions, the
 retained store, the publish path behind authentication, the ACL,
-a topic rewrite, delayed publish, topic metrics and $SYS, and the
-server booted from a config file with tcp, ssl, ws and wss listeners.
+a topic rewrite, delayed publish, topic metrics and $SYS, the server
+booted from a config file with tcp, ssl, ws and wss listeners, and the
+management API's REST publishes, rules, read-backs and scrape beside
+MQTT traffic.
 Phases:
 
   device          the card's name and power limit (nvidia-smi)
@@ -95,6 +97,23 @@ Phases:
                   on the scalar and the batched lane in turns, each
                   equal to the TCP run (queries, records, metrics,
                   counters), with their rules laps
+  mgmt broker     the broker phase's world (1M filters, its 8 subscribers)
+                  with the management API on: admin login (one PBKDF2),
+                  an API key of each role and a viewer user, config 4's
+                  100 rules over REST (no actions), then 4 MQTT
+                  publishers x 1,000 QoS 1 fleet messages beside 2,000
+                  POST /api/v5/publish from 4 keep-alive client threads
+                  under the publisher key (each delivered count checked);
+                  REST publishes/s with one request's p50/p99, MQTT
+                  msgs/s in; K1, K3 and K4 launched (K4 once a rules
+                  window); the read-back routes, the /metrics scrape
+                  (ms, bytes, families; a strict parse); GET
+                  /api/v5/topics over the 1M filters' routes beside a light
+                  client's QoS 1 every 10 ms (its longest PUBACK wait);
+                  401/403 by role, an unported route's 501; ctl status,
+                  rules and stats as subprocesses; then
+                  `workload.mgmt_world` on the card against the CPU,
+                  response for response
   main-path shapes  the N of every K3 launch of the broker run and the
                   (R, W) of every K4 launch of the rules broker run,
                   with K3 and K4 timed on their median launch's window
@@ -2640,6 +2659,425 @@ def phase_sinks_broker(results, filters) -> None:
     results["sinks"] = asyncio.run(sinks_load(results, filters))
 
 
+# ------------------------------------------------------- management API
+
+MGMT_REST, MGMT_HTTP_THREADS = 2000, 4  # REST publishes, client threads
+MGMT_LIGHT_GAP_S = 0.01  # the light client's publish gap during /topics
+
+
+def mgmt_concrete(template: str) -> str:
+    return re.sub(r"\{(\w+)(?::[^}]+)?\}", "x1", template)
+
+
+async def mgmt_load(results, filters) -> dict:
+    """The broker phase's world on the card (1M background filters, its
+    8 subscribers) with the management API on: admin login (one
+    PBKDF2), an API key of each role and a viewer user, config 4's 100
+    rules over REST (no actions: K4 runs their WHERE), then 4 MQTT
+    publishers x 1,000 QoS 1 fleet messages while 4 client threads send
+    2,000 ``POST /api/v5/publish`` at QoS 1 under the publisher key;
+    the read-back routes and the scrape; ``GET /api/v5/topics`` over
+    the 1M filters beside a light client's QoS 1 every 10 ms; the roles'
+    refusals, an unported route's 501 and three ctl subprocesses."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from emqx_tpu_torch import mgmt as PM
+    from emqx_tpu_torch import topic as T
+    from emqx_tpu_torch import workload as W
+    from emqx_tpu_torch.broker.listener import BrokerServer
+    from emqx_tpu_torch.broker.session import SubOpts
+    from emqx_tpu_torch.config import BrokerConfig, ListenerConfig
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    card = results["card"]
+    tmp = tempfile.mkdtemp(prefix="emqx-mgmt-")
+    cfg = BrokerConfig(listeners=[ListenerConfig(bind="127.0.0.1", port=0)])
+    cfg.mqtt.max_mqueue_len = 1 << 20
+    cfg.sys.enable = False
+    cfg.api.enable, cfg.api.port, cfg.api.data_dir = True, 0, tmp
+    server = BrokerServer(cfg)
+    broker = server.broker
+    eng = broker.router.engine
+    t0 = time.perf_counter()
+    eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    await server.start()
+    loop = asyncio.get_running_loop()
+    port = server.api.port
+    clients, subs, pubs = [], [], []
+
+    def api(auth=None):
+        cl = W.ApiClient(port, auth)
+        clients.append(cl)
+        return cl
+
+    async def call(cl, *a, **kw):
+        return await loop.run_in_executor(None, lambda: cl.call(*a, **kw))
+
+    def expect(what, got, want):
+        if got != want:
+            fail(f"mgmt broker: {what}: {got!r}, expected {want!r}")
+
+    try:
+        admin = api()
+        t1 = time.perf_counter()
+        admin.auth = await loop.run_in_executor(None, admin.login)
+        login_ms = (time.perf_counter() - t1) * 1e3
+        keys = {}
+        for role in ("administrator", "viewer", "publisher"):
+            st, _, body = await call(admin, "POST", "/api/v5/api_key",
+                                     {"name": f"k-{role}", "role": role})
+            expect(f"POST api_key {role}", st, 201)
+            keys[role] = (body["api_key"], body["api_secret"])
+        st, _, _ = await call(admin, "POST", "/api/v5/users", {
+            "username": "auditor", "password": "s3cret", "role": "viewer"})
+        expect("POST users", st, 201)
+        for rid, sql in W.make_rules(100, n_fallback=6):
+            st, _, body = await call(admin, "POST", "/api/v5/rules",
+                                     {"id": rid, "sql": sql})
+            expect(f"POST rules {rid}", st, 201)
+        st, _, body = await call(admin, "GET", "/api/v5/rules")
+        if body["stats"]["lowered"] != 94:
+            fail(f"mgmt broker: {body['stats']['lowered']} rules lowered")
+        for j, flt in enumerate(SUB_FILTERS):
+            cl = Client(server.port, f"msub{j}")
+            await cl.connect()
+            await cl.subscribe(flt, 1)
+            subs.append(cl)
+        eng.rebuild()  # subscribers' and rules' filters onto the card
+        print(f"mgmt broker: {len(filters)} background filters + "
+              f"{len(SUB_FILTERS)} subscribers + 100 rules over REST on the "
+              f"card ({eng._aut.n_nodes} nodes) in "
+              f"{time.perf_counter() - t0:.1f} s; login {login_ms:.3f} ms "
+              f"(one PBKDF2) [{card}]", flush=True)
+        for p in range(N_PUB):
+            cl = Client(server.port, f"mpub{p}")
+            await cl.connect()
+            pubs.append(cl)
+        rng = np.random.default_rng(21)
+        pops = W.populations(len(filters), 8)
+        work = [list(zip(W.make_topics(rng, N_MSG, pops),
+                         W.make_rule_payloads(rng, N_MSG)))
+                for _ in range(N_PUB)]
+        rest = list(zip(W.make_topics(rng, MGMT_REST, pops),
+                        W.make_rule_payloads(rng, MGMT_REST)))
+        topics = [t for items in work for t, _ in items] + \
+            [t for t, _ in rest] + ["warm/up"]
+        want = [sum(T.match(t, f) for t in topics) for f in SUB_FILTERS]
+        fan = {t: sum(T.match(t, f) for f in SUB_FILTERS)
+               for t in set(topics)}
+        pub_key = W.basic_auth(*keys["publisher"])
+        # warm the publisher key: its first Basic request runs one
+        # PBKDF2 on the loop; later ones compare a cached digest
+        warm = api(pub_key)
+        st, _, _ = await call(warm, "POST", "/api/v5/publish",
+                              {"topic": "warm/up", "payload": "x"})
+        expect("warm publish", st, 200)
+        got = [0] * len(subs)
+
+        async def consume(j, cl):
+            while got[j] < want[j]:
+                pkt = await asyncio.wait_for(cl.inbox.get(), 120)
+                if pkt is None:
+                    fail(f"mgmt broker: msub{j} disconnected")
+                if pkt.type == cl.C.PUBLISH:
+                    if pkt.qos:
+                        cl.send(cl.C.Puback(packet_id=pkt.packet_id))
+                    got[j] += 1
+
+        lat, bad, ends = [], [], []
+
+        def rest_thread(items):
+            cl = W.ApiClient(port, pub_key)
+            try:
+                for topic, payload in items:
+                    t = time.perf_counter()
+                    st, _, body = cl.call("POST", "/api/v5/publish", {
+                        "topic": topic, "payload": payload.decode(),
+                        "qos": 1})
+                    lat.append(time.perf_counter() - t)
+                    if st != 200 or body["delivered"] != fan[topic]:
+                        bad.append((topic, st, body))
+            finally:
+                ends.append(time.perf_counter())
+                cl.close()
+
+        st0 = broker.rules.stats()
+        dec0 = eng.counters["decide_windows"]
+        mk.reset_launches()  # counts of the mgmt path start here
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=rest_thread,
+                                    args=(rest[i::MGMT_HTTP_THREADS],))
+                   for i in range(MGMT_HTTP_THREADS)]
+        for th in threads:
+            th.start()
+
+        async def mqtt_side():
+            await asyncio.gather(*(publish_items(cl, items)
+                                   for cl, items in zip(pubs, work)))
+            return time.perf_counter() - t0
+
+        mqtt_wall, *_ = await asyncio.wait_for(asyncio.gather(
+            mqtt_side(), *(consume(j, cl) for j, cl in enumerate(subs)),
+            loop.run_in_executor(None, lambda: [th.join()
+                                                for th in threads])), 600)
+        wall = time.perf_counter() - t0
+        rest_wall = max(ends) - t0
+        launches = mk.launches()
+        st1 = broker.rules.stats()
+        if bad:
+            fail(f"mgmt broker: {len(bad)} REST publishes failed or "
+                 f"delivered other counts, first {bad[0]}")
+        if len(lat) != MGMT_REST:
+            fail(f"mgmt broker: {len(lat)} of {MGMT_REST} REST publishes")
+        if got != want:
+            fail(f"mgmt broker: subscribers got {got}, expected {want}")
+        rules_windows = st1["dev_windows"] - st0["dev_windows"]
+        for k in ("match_batch_compact", "decide_packed",
+                  "rules_eval_lowered"):
+            if launches[k] < 1:
+                fail(f"mgmt broker: {k} never launched: {launches}")
+        if launches["rules_eval_lowered"] != rules_windows:
+            fail(f"mgmt broker: {launches['rules_eval_lowered']} K4 "
+                 f"launches for {rules_windows} rules windows")
+        decides = eng.counters["decide_windows"] - dec0
+        if launches["decide_packed"] != decides:
+            fail(f"mgmt broker: {launches['decide_packed']} K3 launches "
+                 f"for {decides} decide windows")
+        lat.sort()
+        p50, p99 = lat[len(lat) // 2] * 1e3, lat[int(len(lat) * .99)] * 1e3
+        n_mqtt = N_PUB * N_MSG
+        print(f"mgmt broker: {MGMT_REST} REST publishes (QoS 1, "
+              f"{MGMT_HTTP_THREADS} keep-alive client threads, the publisher "
+              f"key) beside {n_mqtt} MQTT QoS 1 messages from {N_PUB} "
+              f"publishers, each delivered to the {sum(want)} expected "
+              f"subscriptions: REST {MGMT_REST / rest_wall:.1f} publishes/s, "
+              f"one request p50 {p50:.3f} ms p99 {p99:.3f} ms; MQTT "
+              f"{n_mqtt / mqtt_wall:.1f} msgs/s in ({mqtt_wall:.3f} s; all "
+              f"{wall:.3f} s); {rules_windows} rules windows, {decides} "
+              f"decide windows; launches {launches} [{card}]", flush=True)
+
+        # read back
+        reads = {}
+        for path in ("/api/v5/rules", "/api/v5/stats", "/api/v5/metrics",
+                     "/api/v5/clients", "/api/v5/subscriptions",
+                     "/api/v5/nodes", "/api/v5/profiler?windows=32",
+                     "/api/v5/profiler/trace"):
+            st, ct, body = await call(admin, "GET", path)
+            expect(f"GET {path}", (st, ct),
+                   (200, "application/json; charset=utf-8"))
+            reads[path] = body
+        matched = sum(r["matched"] for r in reads["/api/v5/rules"]["data"])
+        if not matched or reads["/api/v5/metrics"]["messages.received"] \
+                < n_mqtt:
+            fail(f"mgmt broker: rules matched {matched}, metrics "
+                 f"{reads['/api/v5/metrics']['messages.received']}")
+        if len(reads["/api/v5/profiler?windows=32"]["windows"]) != 32 or \
+                not reads["/api/v5/profiler/trace"]["traceEvents"]:
+            fail("mgmt broker: the profiler routes are empty")
+        t1 = time.perf_counter()
+        st, ct, text = await call(admin, "GET", "/metrics")
+        scrape_ms = (time.perf_counter() - t1) * 1e3
+        expect("GET /metrics", (st, ct), (200, "text/plain; charset=utf-8"))
+        fams, _ = W.prom_parse(text)
+        hist = sum(k == "histogram" for k in fams.values())
+        print(f"mgmt broker: /metrics scrape {scrape_ms:.3f} ms, "
+              f"{len(text.encode())} bytes, {len(fams)} families ({hist} "
+              f"histograms), strict parse ok (one TYPE a family, +Inf == "
+              f"_count); rules matched {matched} [{card}]", flush=True)
+
+        # GET /api/v5/topics over the 1M filters beside a light client:
+        # the filters' distinct strings become routes, held by 1,000
+        # offline clients (no fleet topic reaches light/x)
+        t1 = time.perf_counter()
+        routes = sorted({"/".join(ws) for _, ws in filters})
+        for i, flt in enumerate(routes):
+            broker.router.subscribe(f"bg{i % 1000}", flt, SubOpts(qos=0))
+        eng.rebuild()
+        print(f"mgmt broker: the {len(routes)} distinct routes of the "
+              f"{len(filters)} filters subscribed by 1,000 offline clients "
+              f"and rebuilt in {time.perf_counter() - t1:.1f} s [{card}]",
+              flush=True)
+        # the light client runs its own loop in a thread, so the broker
+        # loop's stall shows in its PUBACK waits
+        waits, errors = [], []
+        stop, ready = threading.Event(), threading.Event()
+
+        def light_thread():
+            async def run():
+                light = Client(server.port, "mlight")
+                await light.connect()
+                ready.set()
+                k = 0
+                while not stop.is_set():
+                    k += 1
+                    t = time.perf_counter()
+                    light.send(light.C.Publish(
+                        topic="light/x", payload=b"l", qos=1,
+                        packet_id=k % 65535 + 1))
+                    await light.expect(light.C.PUBACK, 60)
+                    waits.append((t, time.perf_counter() - t))
+                    await asyncio.sleep(MGMT_LIGHT_GAP_S)
+                await light.close()
+
+            try:
+                asyncio.run(run())
+            except Exception as exc:  # reported on the phase's thread
+                errors.append(exc)
+                ready.set()
+
+        th = threading.Thread(target=light_thread)
+        th.start()
+        if not await loop.run_in_executor(None, ready.wait, 60) or errors:
+            fail(f"mgmt broker: the light client did not connect: {errors}")
+        await asyncio.sleep(0.3)
+        t1 = time.perf_counter()
+        st, ct, raw = await call(admin, "GET", "/api/v5/topics",
+                                 parse=False)
+        t2 = time.perf_counter()
+        await asyncio.sleep(0.3)
+        stop.set()
+        await loop.run_in_executor(None, th.join, 60)
+        if errors or th.is_alive():
+            fail(f"mgmt broker: the light client failed: {errors}")
+        topics_ms = (t2 - t1) * 1e3
+        n_routes = len(broker.router.topics())
+        if n_routes < len(routes):
+            fail(f"mgmt broker: {n_routes} routes of {len(routes)}")
+        body = await loop.run_in_executor(None, json.loads, raw)
+        expect("GET /api/v5/topics", (st, ct, body["meta"]["count"]),
+               (200, "application/json; charset=utf-8", n_routes))
+        topics_bytes = len(raw)
+        during = [w for t, w in waits if t <= t2 and t + w >= t1] or [0.0]
+        before = [w for t, w in waits if t < t1 - 0.05]
+        print(f"mgmt broker: GET /api/v5/topics over {n_routes} routes in "
+              f"{topics_ms:.3f} ms, {topics_bytes} bytes; the light "
+              f"client's longest PUBACK wait while it was served "
+              f"{max(during) * 1e3:.3f} ms ({len(waits)} PUBACKs; before "
+              f"it, max {max(before or [0.0]) * 1e3:.3f} ms) [{card}]",
+              flush=True)
+        del body, raw
+
+        # the roles' refusals and an unported route
+        anon, viewer = api(), api(W.basic_auth(*keys["viewer"]))
+        expect("anonymous GET stats", (await call(anon, "GET",
+                                                  "/api/v5/stats"))[0], 401)
+        vuser = api()
+        vuser.auth = await loop.run_in_executor(
+            None, lambda: vuser.login("auditor", "s3cret"))
+        for cl in (viewer, vuser):
+            expect("viewer POST publish", (await call(
+                cl, "POST", "/api/v5/publish", {"topic": "t"}))[0], 403)
+        publisher = api(pub_key)
+        refused = 0
+        for method, template, name in PM.ROUTES:
+            if (method, template) == ("POST", "/api/v5/publish"):
+                continue
+            if template in ("/", "/dashboard", "/metrics") and \
+                    method == "GET":
+                continue  # open routes
+            if template == "/api/v5/login":
+                continue
+            st, _, _ = await call(publisher, method,
+                                  mgmt_concrete(template), {})
+            expect(f"publisher {method} {template}", st, 403)
+            refused += 1
+        st, _, body = await call(admin, "GET", "/api/v5/olp")
+        expect("GET /api/v5/olp", (st, body["code"]), (501, "NOT_PORTED"))
+
+        # the CLI, as subprocesses
+        key = ":".join(keys["administrator"])
+        base = f"http://127.0.0.1:{port}"
+        ctl_out = {}
+        for cmd in ("status", "rules", "stats"):
+            proc = await asyncio.create_subprocess_exec(
+                sys.executable, "-m", "emqx_tpu_torch.ctl", "--api", base,
+                "--api-key", key, cmd, cwd=HERE,
+                stdout=asyncio.subprocess.PIPE,
+                stderr=asyncio.subprocess.PIPE)
+            out, err = await asyncio.wait_for(proc.communicate(), 60)
+            if proc.returncode != 0:
+                fail(f"mgmt broker: ctl {cmd} exited {proc.returncode}: "
+                     f"{err.decode()[-500:]}")
+            ctl_out[cmd] = out.decode()
+        if "is running" not in ctl_out["status"] or \
+                ctl_out["rules"].count("\n") != 100:
+            fail(f"mgmt broker: ctl output {ctl_out['status']!r}")
+        print(f"mgmt broker: no credentials 401, viewer POST 403, the "
+              f"publisher key 403 on {refused} other routes, GET "
+              f"/api/v5/olp 501 NOT_PORTED; ctl status, rules and stats "
+              f"exit 0 [{card}]", flush=True)
+    finally:
+        for cl in clients:
+            cl.close()
+        for cl in subs + pubs:
+            await cl.close()
+        await server.stop()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, k in (("match_batch_compact", "match_batch_compact"),
+                    ("decide_batch", "decide_packed"),
+                    ("rules_eval_batch", "rules_eval_lowered")):
+        results["kernels"][name]["mgmt"] = {"launches": launches[k]}
+    return {"rest_publishes_per_s": MGMT_REST / rest_wall,
+            "rest_p50_ms": p50, "rest_p99_ms": p99,
+            "mqtt_msgs_per_s": n_mqtt / mqtt_wall, "login_ms": login_ms,
+            "scrape_ms": scrape_ms, "scrape_bytes": len(text.encode()),
+            "scrape_families": len(fams), "topics_ms": topics_ms,
+            "topics_bytes": topics_bytes, "topics_routes": n_routes,
+            "route_filters": len(filters),
+            "light_puback_max_ms_during_topics": max(during) * 1e3,
+            "rules_windows": rules_windows, "decide_windows": decides,
+            "launches": {k: launches[k] for k in (
+                "match_batch_compact", "decide_packed",
+                "rules_eval_lowered")}}
+
+
+def mgmt_parity(results) -> None:
+    """`workload.mgmt_world` on the card against the CPU: every
+    normalised response equal; K1, K3 and K4 launched on the card."""
+    from emqx_tpu_torch import workload as W
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    t0 = time.perf_counter()
+    mk.reset_launches()
+    card = W.mgmt_world("cuda")
+    launches = mk.launches()
+    cpu = W.mgmt_world("cpu")
+    got, want = W.mgmt_outcome(card), W.mgmt_outcome(cpu)
+    if got != want:
+        bad = [k for k in want if got.get(k) != want[k]]
+        if "reads" in bad:
+            bad += [p for p in want["reads"]
+                    if got["reads"].get(p) != want["reads"][p]]
+        fail(f"mgmt broker: the card's mgmt_world differs from the CPU's "
+             f"in {bad}")
+    eng = card["engine"]
+    if not (launches["match_batch_compact"] >= 1
+            and launches["decide_packed"] == eng["decide_windows"] >= 1
+            and launches["rules_eval_lowered"]
+            == eng["rules_dev_windows"] >= 1):
+        fail(f"mgmt broker: mgmt_world launches {launches}, engine {eng}")
+    n_rest = len(card["delivered"])
+    print(f"mgmt broker: workload.mgmt_world on the card equals the CPU "
+          f"response for response ({n_rest} REST publishes' delivered, "
+          f"100 rules' counters, {len(card['subscriber_bytes'])} "
+          f"subscribers' bytes, metrics, {len(card['reads'])} read-backs, "
+          f"the scrape's families) in {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches} [{results['card']}]", flush=True)
+
+
+def phase_mgmt_broker(results, filters) -> None:
+    phase("mgmt broker")
+    t0 = time.perf_counter()
+    results["mgmt"] = asyncio.run(mgmt_load(results, filters))
+    mgmt_parity(results)
+    results["mgmt"]["phase_s"] = time.perf_counter() - t0
+
+
 def phase_main_shapes(results) -> None:
     """K3 and K4 at the shapes the main path gave them: the N of every
     K3 launch of the broker run and the (R, W) of every K4 launch of the
@@ -4352,6 +4790,7 @@ def main() -> None:
     phase_churn(results, filters)
     phase_broker(results, filters)
     phase_sinks_broker(results, filters)
+    phase_mgmt_broker(results, filters)
     phase_main_shapes(results)
     phase_shared_broker(results, filters)
     phase_retained(results, filters)
@@ -4371,7 +4810,7 @@ def main() -> None:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
             **{x: k[x] for x in ("main_path", "churn", "shared", "access",
-                                 "listeners", "sinks", "stress",
+                                 "listeners", "sinks", "mgmt", "stress",
                                  "empty_launch_ms")
                if x in k},
         })
@@ -4383,6 +4822,7 @@ def main() -> None:
     print(f"listeners summary: {json.dumps(results['listeners'])}",
           flush=True)
     print(f"sinks summary: {json.dumps(results['sinks'])}", flush=True)
+    print(f"mgmt summary: {json.dumps(results['mgmt'])}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

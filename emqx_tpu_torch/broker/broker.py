@@ -716,6 +716,68 @@ class Broker:
     def shutdown(self) -> None:
         self._pending_wills.clear()
 
+    # ------------------------------------------- management surface
+
+    def node_info(self) -> Dict:
+        """This node's row for ``GET /api/v5/nodes``: node, uptime,
+        connections, status and, once sinks exist, the egress roll-up.
+        The JAX package's resume, olp, durability, flight and multicore
+        rows come with their modules (ROADMAP.md section 1)."""
+        node: Dict = {
+            "node": self.config.node_name,
+            "uptime": int(time.time() - self.metrics.start_time),
+            "connections": len(self.cm),
+            "node_status": "running",
+        }
+        egress = self.resources.summary()
+        if egress["sinks"]:
+            # buffered depth, batch count, breaker state at a glance
+            node["egress"] = egress
+        return node
+
+    def apply_config(self, path: str, value) -> None:
+        """Apply one dotted-path update to the live config tree (the
+        emqx_config_handler runtime-update role), coercing the value to
+        the existing leaf's type, then run the ``config.updated`` hook.
+        Raises ValueError for an unknown path segment and for a path
+        under `config.NOT_PORTED`, as a config file does."""
+        from ..config import NOT_PORTED, _not_ported
+
+        parts = path.split(".")
+        for k in range(1, len(parts) + 1):
+            if ".".join(parts[:k]) in NOT_PORTED:
+                raise _not_ported(".".join(parts[:k]))
+        obj = self.config
+        for part in parts[:-1]:
+            if isinstance(obj, dict):
+                if part not in obj:
+                    raise ValueError(f"unknown config key: {path}")
+                obj = obj[part]
+            else:
+                if not hasattr(obj, part):
+                    raise ValueError(f"unknown config key: {path}")
+                obj = getattr(obj, part)
+        leaf = parts[-1]
+        if isinstance(obj, dict):
+            obj[leaf] = value
+        else:
+            if not hasattr(obj, leaf):
+                raise ValueError(f"unknown config key: {path}")
+            old = getattr(obj, leaf)
+            # coerce to the existing leaf's type (JSON loses int/float)
+            if old is not None and not isinstance(value, type(old)):
+                value = type(old)(value)
+            setattr(obj, leaf, value)
+        self.hooks.run("config.updated", path, value)
+
+    def info(self) -> Dict[str, object]:
+        return {
+            "connections": len(self.cm),
+            "subscriptions": self.router.subscription_count(),
+            "retained": len(self.retainer),
+            "metrics": self.metrics.all(),
+        }
+
 
 def merge_counts(results: List[Optional[int]],
                  counts: Sequence[int]) -> List[int]:

@@ -26,7 +26,9 @@ and runs the 1 Hz housekeeping: ``Broker.tick``, ``SysTopics.tick``,
 each aggregator's ``tick`` and each listener's CRL reload.  It starts
 the configuration's ``sinks`` (``http``, `resources.HttpSink`) in the
 broker's resource manager before anything else, and a sink that fails
-to start fails `BrokerServer.start`.
+to start fails `BrokerServer.start`.  With ``api.enable`` it starts the
+management API (`mgmt.MgmtApi`) after the listeners, and prints its
+address beside theirs; an API port that cannot bind fails `start`.
 """
 
 from __future__ import annotations
@@ -248,6 +250,7 @@ class BrokerServer:
                     f"listener {lc.name}: unknown type {lc.type!r}")
             self.listeners.append(Listener(self.broker, lc))
         self._housekeeper: Optional[asyncio.Task] = None
+        self.api = None  # the management API, once started
 
     @property
     def port(self) -> Optional[int]:
@@ -274,6 +277,18 @@ class BrokerServer:
             await self.broker.batcher.start()
         for lst in self.listeners:
             await lst.start()
+        api_cfg = self.broker.config.api
+        if api_cfg.enable:
+            from ..mgmt import MgmtApi
+
+            try:
+                self.api = MgmtApi(self, bind=api_cfg.bind,
+                                   port=api_cfg.port)
+                await self.api.start()
+            except BaseException:
+                self.api = None
+                await self.stop()
+                raise
         self._housekeeper = asyncio.get_running_loop().create_task(
             self._housekeep()
         )
@@ -318,6 +333,9 @@ class BrokerServer:
         if self._housekeeper is not None:
             await cancel_and_wait(self._housekeeper)
             self._housekeeper = None
+        if self.api is not None:
+            await self.api.stop()
+            self.api = None
         for lst in self.listeners:
             await lst.stop()
         if self.broker.batcher is not None:
@@ -335,6 +353,9 @@ class BrokerServer:
                       f"({lst.cfg.type}) listening on "
                       f"{lst.cfg.bind}:{lst.port} (device {device})",
                       flush=True)
+            if self.api is not None:
+                print(f"emqx_tpu_torch management API listening on "
+                      f"http://{self.api.bind}:{self.api.port}", flush=True)
             await asyncio.Event().wait()
         finally:
             await self.stop()

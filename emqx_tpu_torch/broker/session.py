@@ -461,3 +461,14 @@ class Session:
                 out.append(C.Pubrel(packet_id=pid))
         out.extend(self._dequeue())
         return out
+
+    def info(self) -> Dict[str, object]:
+        return {
+            "clientid": self.clientid,
+            "created_at": self.created_at,
+            "subscriptions_cnt": len(self.subscriptions),
+            "mqueue_len": len(self.mqueue),
+            "mqueue_dropped": self.mqueue.dropped,
+            "inflight_cnt": len(self.inflight),
+            "awaiting_rel_cnt": len(self.awaiting_rel),
+        }

@@ -6,10 +6,10 @@ key is an error) and gives dotted-path ``get``/``update`` with
 validating handlers; `apply_env_overrides` applies the
 ``EMQX_TPU_<PATH>`` environment variables; `check_config` lists the
 problems a typo would cause at boot.  A key of a section this package
-has not ported yet (overload protection, the management API, durable
-storage, clustering, ...) and ``engine.use_device`` (``--device``
-chooses the device here) raise ValueError naming the key: such a
-setting is never dropped silently.
+has not ported yet (overload protection, durable storage, clustering,
+...) and ``engine.use_device`` (``--device`` chooses the device here)
+raise ValueError naming the key: such a setting is never dropped
+silently.
 """
 
 from __future__ import annotations
@@ -166,6 +166,28 @@ class RetainerConfig:
 
 
 @dataclass
+class ApiConfig:
+    """Management REST + Prometheus endpoint (`mgmt.MgmtApi`).
+
+    Authentication is always on (emqx_mgmt_auth): a default admin is
+    bootstrapped on first start from default_username/default_password
+    (EMQX ships admin/public the same way); set ``default_password`` to
+    None to disable bootstrap entirely (then seed users via MgmtAuth
+    directly)."""
+
+    enable: bool = False
+    bind: str = "127.0.0.1"
+    port: int = 18083
+    data_dir: str = "data/mgmt"
+    default_username: str = "admin"
+    default_password: Optional[str] = "public"
+    token_ttl: float = 3600.0
+    # whether /metrics (Prometheus scrape) also requires credentials;
+    # EMQX leaves the scrape endpoint open by default
+    prometheus_auth: bool = False
+
+
+@dataclass
 class BrokerConfig:
     mqtt: MqttConfig = field(default_factory=MqttConfig)
     listeners: List[ListenerConfig] = field(
@@ -178,6 +200,7 @@ class BrokerConfig:
     flapping: FlappingConfig = field(default_factory=FlappingConfig)
     slow_subs: SlowSubsConfig = field(default_factory=SlowSubsConfig)
     profiler: ProfilerConfig = field(default_factory=ProfilerConfig)
+    api: ApiConfig = field(default_factory=ApiConfig)
     # server-side subscriptions made at every connect: entries
     # {"topic": ..., "qos": 0}; %c (client id) and %u (username)
     auto_subscribe: List[Dict[str, Any]] = field(default_factory=list)
@@ -191,7 +214,6 @@ class BrokerConfig:
 # keys of the JAX package's configuration whose modules this package
 # has not ported: loading one raises, naming the key and its module
 NOT_PORTED = {
-    "api": "the management API",
     "olp": "overload protection",
     "flight": "the flight recorder",
     "tracing": "message tracing",

@@ -290,6 +290,9 @@ class Router:
         for flt in list(self._by_client.get(clientid, ())):
             self.unsubscribe(clientid, flt)
 
+    def subscriptions_of(self, clientid: str) -> Set[str]:
+        return set(self._by_client.get(clientid, ()))
+
     def topics(self) -> List[str]:
         """All indexed real filters."""
         return list(self._subs.keys() | self._shared_opts.keys())

@@ -761,6 +761,7 @@ class RuleEngine:
             "lowered": stack.n_lowered,
             "program_rows": stack.n_rules,  # after program dedup
             "fallback": len(stack.fallback),
+            "matrix_enabled": self._matrix_enabled,
             **self._stats,
             "select_lowered": self._select_stack(stack).n_lowered,
             "select_batched_us_ewma": self._sel_us_b,

@@ -28,6 +28,12 @@ WHERE clauses are the predicate shapes of ``bench.py``'s rules bench,
 plus arithmetic and presence checks, over JSON telemetry payloads that
 carry float32-lossy values (millisecond timestamps, 2**24 + 1).
 
+`ApiClient` is a management-API client on one keep-alive
+``http.client`` connection, and `mgmt_world` a seeded script through a
+`BrokerServer`'s management API and its MQTT listener (API keys of each
+role, config 4's rules over REST, REST and MQTT publishes, the read-back
+routes, the scrape), normalised for a card-against-CPU comparison.
+
 `add_sink_rules` gives the same 99 fleet rules the rule egress — sink
 actions into a `RecordingSink` (JSON rows or a template) and aggregate
 actions into a JSONL `Aggregator` — plus one Avro rule on
@@ -755,3 +761,305 @@ class TransportClient:
                 await self.writer.wait_closed()
             except (ConnectionError, OSError):
                 pass
+
+
+# ------------------------------------------------- the management API
+
+API_VOLATILE = {"token", "at", "created_at", "uptime", "activated_at",
+                "deactivated_at", "expired_at", "api_key", "api_secret",
+                "from", "until", "rate.in"}
+
+
+def api_norm(x):
+    """A management-API body with its volatile fields (tokens, times,
+    a rate the 1 Hz tick computes, key ids and secrets, remote
+    addresses) replaced by "*"."""
+    if isinstance(x, dict):
+        return {k: "*" if k in API_VOLATILE and v is not None else api_norm(v)
+                for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(api_norm(v) for v in x)
+    if isinstance(x, str) and x.startswith("key-") and len(x) == 20:
+        return "key-*"  # an API key's id as an audit actor
+    return x
+
+
+class ApiClient:
+    """A management-API client on one keep-alive `http.client`
+    connection to ``127.0.0.1:port``, sending ``auth`` (a header dict)
+    on every request.  Its calls block: make them from a thread, never
+    from the event loop the server runs on."""
+
+    def __init__(self, port: int, auth: Optional[dict] = None,
+                 timeout: float = 60.0) -> None:
+        import http.client
+
+        self.auth = dict(auth or {})
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=timeout)
+
+    def call(self, method: str, path: str, body=None, parse: bool = True):
+        """(status, content type, the JSON body parsed, or the text, or
+        b"" when empty); with ``parse=False`` the body's bytes."""
+        hdrs = dict(self.auth)
+        data = None
+        if body is not None:
+            data = json.dumps(body).encode()
+            hdrs["Content-Type"] = "application/json"
+        self.conn.request(method, path, body=data, headers=hdrs)
+        resp = self.conn.getresponse()
+        raw = resp.read()
+        ctype = resp.getheader("Content-Type") or ""
+        if not parse:
+            return resp.status, ctype, raw
+        if raw and ctype.startswith("application/json"):
+            return resp.status, ctype, json.loads(raw)
+        return resp.status, ctype, raw.decode("utf-8", "replace") \
+            if raw else b""
+
+    def login(self, username: str = "admin",
+              password: str = "public") -> dict:
+        st, _, body = self.call("POST", "/api/v5/login",
+                                {"username": username,
+                                 "password": password})
+        if st != 200:
+            raise AssertionError(f"login {username}: {st} {body}")
+        return {"Authorization": "Bearer " + body["token"]}
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def basic_auth(key: str, secret: str) -> dict:
+    import base64
+
+    return {"Authorization": "Basic " + base64.b64encode(
+        f"{key}:{secret}".encode()).decode()}
+
+
+def prom_parse(text: str):
+    """A strict parse of a Prometheus text exposition: ``({family:
+    kind}, [(name, labels, value)])``.  Raises on a repeated TYPE line,
+    a bad name or kind, an unknown comment, an unparseable sample, and a
+    histogram whose buckets are not cumulative or whose ``+Inf`` bucket
+    differs from its ``_count``."""
+    import re
+
+    name_re = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+    sample_re = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})?\s+"
+                           r"(\S+)$")
+    types: dict = {}
+    samples: list = []
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            if name in types or not name_re.match(name) or kind not in (
+                    "counter", "gauge", "histogram", "summary"):
+                raise AssertionError(f"bad or repeated TYPE line {line!r}")
+            types[name] = kind
+        elif line.startswith("# HELP "):
+            if not name_re.match(line.split(" ", 3)[2]):
+                raise AssertionError(f"bad HELP line {line!r}")
+        elif line.startswith("#"):
+            raise AssertionError(f"unknown comment {line!r}")
+        else:
+            m = sample_re.match(line)
+            if m is None:
+                raise AssertionError(f"unparseable sample {line!r}")
+            float(m.group(3))
+            samples.append((m.group(1), m.group(2) or "", m.group(3)))
+    by: dict = {}
+    for name, labels, value in samples:
+        by.setdefault(name, []).append((labels, value))
+    for fam, kind in types.items():
+        if kind != "histogram":
+            continue
+        buckets = by.get(fam + "_bucket", [])
+        cum = [int(v) for _, v in buckets]
+        (_, count), = by[fam + "_count"]
+        if not buckets or buckets[-1][0] != '{le="+Inf"}' or \
+                cum != sorted(cum) or cum[-1] != int(count):
+            raise AssertionError(f"{fam}: buckets {buckets} _count {count}")
+    return types, samples
+
+
+MGMT_SUBS = (("watch-all", "#", 1), ("watch-veh", "vehicles/+/sensors/#", 0),
+             ("watch-dev", "dev/+/+/d3", 1))
+
+
+def mgmt_world(device: str, n_filters: int = 4000, n_msgs: int = 64,
+               seed: int = 13) -> dict:
+    """A `BrokerServer` on ``device`` with the API on, ``n_filters`` of
+    config 3's fleet filters in its engine and the `MGMT_SUBS` MQTT
+    subscribers; over the API: admin login, an API key of each role and
+    a viewer user, config 4's 100 rules (`make_rules(100, n_fallback=6)`,
+    no actions), the engine rebuilt, then ``n_msgs`` fleet publishes one
+    at a time, alternately over REST (the publisher key) and over MQTT
+    (QoS 1, each PUBACK awaited); then the read-back routes, the roles'
+    refusals, an unported route and the scrape.  Every HTTP call runs in
+    a worker thread.  Returns the normalised outcome: each REST
+    publish's ``delivered``, each rule's counters, the subscribers'
+    bytes, the metrics, the other read-backs and the scrape's
+    families."""
+    import shutil
+    import tempfile
+
+    from . import topic as T
+    from .broker.listener import BrokerServer
+    from .config import BrokerConfig, ListenerConfig
+
+    rng = np.random.default_rng(seed)
+    filters, pops = make_filters(n_filters, 8)
+    topics = make_topics(rng, n_msgs, pops)
+    payloads = make_rule_payloads(rng, n_msgs)
+    out: dict = {}
+
+    async def run() -> None:
+        data_dir = tempfile.mkdtemp(prefix="emqx-mgmt-")
+        cfg = BrokerConfig(listeners=[ListenerConfig(bind="127.0.0.1",
+                                                     port=0)])
+        cfg.sys.enable = False
+        cfg.api.enable, cfg.api.port, cfg.api.data_dir = True, 0, data_dir
+        srv = BrokerServer(cfg, device=device)
+        eng = srv.broker.router.engine
+        eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+        await srv.start()
+        loop = asyncio.get_running_loop()
+        admin = ApiClient(srv.api.port)
+        clients = [admin]
+        subs = {}
+        acks = []
+
+        async def call(cl, *a, **kw):
+            return await loop.run_in_executor(
+                None, lambda: cl.call(*a, **kw))
+
+        async def ack(cl):
+            while True:
+                pkt = await cl.inbox.get()
+                if pkt is None:
+                    return
+                if pkt.type == cl.C.PUBLISH and pkt.qos == 1:
+                    cl.send(cl.C.Puback(packet_id=pkt.packet_id))
+
+        try:
+            admin.auth = await loop.run_in_executor(None, admin.login)
+            keys = {}
+            for role in ("administrator", "viewer", "publisher"):
+                st, _, body = await call(admin, "POST", "/api/v5/api_key",
+                                         {"name": f"k-{role}",
+                                          "role": role})
+                keys[role] = basic_auth(body["api_key"], body["api_secret"])
+            st, _, _ = await call(admin, "POST", "/api/v5/users",
+                                  {"username": "auditor",
+                                   "password": "s3cret", "role": "viewer"})
+            out["setup"] = st
+            posted = []
+            for rid, sql in make_rules(100, n_fallback=6):
+                st, _, body = await call(admin, "POST", "/api/v5/rules",
+                                         {"id": rid, "sql": sql})
+                posted.append((st, body))
+            out["rules_posted"] = posted
+            for cid, flt, qos in MGMT_SUBS:
+                cl = TransportClient(srv.listeners[0].port, cid)
+                await cl.connect()
+                await cl.subscribe(flt, qos)
+                subs[cid] = cl
+                acks.append(loop.create_task(ack(cl)))
+            pub = TransportClient(srv.listeners[0].port, "mqpub")
+            await pub.connect()
+            eng.rebuild()  # the rules' and subscribers' filters too
+            publisher = ApiClient(srv.api.port, keys["publisher"])
+            clients.append(publisher)
+            delivered = []
+            for k, (topic, payload) in enumerate(zip(topics, payloads)):
+                if k % 2 == 0:
+                    st, _, body = await call(
+                        publisher, "POST", "/api/v5/publish",
+                        {"topic": topic, "payload": payload.decode(),
+                         "qos": 1, "clientid": "restpub"})
+                    delivered.append((st, body))
+                else:
+                    pub.send(pub.C.Publish(topic=topic, payload=payload,
+                                           qos=1, packet_id=k))
+                    await pub.expect(pub.C.PUBACK)
+            out["delivered"] = delivered
+            want = {cid: sum(T.match(t, flt) for t in topics)
+                    for cid, flt, _ in MGMT_SUBS}
+            deadline = loop.time() + 60
+            for cid, cl in subs.items():
+                while len(_publishes(cl)) < want[cid]:
+                    if loop.time() > deadline:
+                        raise AssertionError(
+                            f"{cid}: {len(_publishes(cl))} of "
+                            f"{want[cid]} messages")
+                    await asyncio.sleep(0.01)
+            out["subscriber_bytes"] = {cid: bytes(cl.raw)
+                                       for cid, cl in subs.items()}
+            reads = {}
+            for path in ("/api/v5/rules", "/api/v5/metrics",
+                         "/api/v5/stats", "/api/v5/clients",
+                         "/api/v5/subscriptions", "/api/v5/topics",
+                         "/api/v5/nodes", "/api/v5/alarms",
+                         "/api/v5/banned", "/api/v5/api_key",
+                         "/api/v5/users", "/api/v5/audit",
+                         "/api/v5/schema_registry",
+                         "/api/v5/mqtt/topic_metrics"):
+                reads[path] = await call(admin, "GET", path)
+            st, ct, prof = await call(admin, "GET",
+                                      "/api/v5/profiler?windows=8")
+            reads["/api/v5/profiler"] = (st, ct, sorted(prof))
+            st, ct, text = await call(admin, "GET", "/metrics")
+            reads["/metrics"] = (st, ct, prom_parse(text)[0])
+            out["reads"] = reads
+            anon = ApiClient(srv.api.port)
+            viewer = ApiClient(srv.api.port, keys["viewer"])
+            clients += [anon, viewer]
+            out["refusals"] = [
+                (await call(anon, "GET", "/api/v5/stats"))[0],
+                (await call(viewer, "POST", "/api/v5/publish",
+                            {"topic": "t"}))[0],
+                (await call(publisher, "GET", "/api/v5/stats"))[0],
+                (await call(admin, "GET", "/api/v5/olp"))[:3],
+            ]
+            out["engine"] = eng.stats()
+        finally:
+            for t in acks:
+                t.cancel()
+            for cl in subs.values():
+                await cl.close()
+            for cl in clients:
+                cl.close()
+            await srv.stop()
+            shutil.rmtree(data_dir, ignore_errors=True)
+
+    asyncio.run(asyncio.wait_for(run(), 300))
+    return out
+
+
+def _publishes(cl):
+    """The PUBLISH packets in a `TransportClient`'s raw bytes."""
+    parser = cl.C.StreamParser(version=cl.version)
+    return [p for p in parser.feed(bytes(cl.raw))
+            if p.type == cl.C.PUBLISH]
+
+
+def mgmt_outcome(world: dict) -> dict:
+    """What `mgmt_world` on the card must equal on the CPU: everything
+    but the times, the device-path split of the rule windows and the
+    match engine's counters, normalised."""
+    reads = dict(world["reads"])
+    st, ct, rules = reads["/api/v5/rules"]
+    stats = {k: v for k, v in rules["stats"].items()
+             if k not in ("host_windows", "dev_windows")
+             and not k.endswith("_us_ewma")}
+    reads["/api/v5/rules"] = (st, ct, {**rules, "stats": stats})
+    fams = reads["/metrics"][2]
+    reads["/metrics"] = reads["/metrics"][:2] + ({
+        n: k for n, k in fams.items()
+        if not (n.startswith("emqx_engine_") and k == "gauge")},)
+    return api_norm({k: v for k, v in world.items() if k != "engine"}
+                    | {"reads": reads})
+

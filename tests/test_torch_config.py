@@ -436,3 +436,118 @@ def test_sinks_from_a_file_and_the_environment(tmp_path):
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 1
     assert "sinks[0].type: kafka is not ported" in proc.stderr
+
+
+# ------------------------------------------------------ the api section
+
+def test_api_section_ported_like_reference():
+    """``api`` is no longer refused: its fields and defaults are the
+    reference's, and a config dict with it loads in both alike."""
+    names = [f.name for f in dataclasses.fields(PCfg.ApiConfig)]
+    assert names == [f.name for f in dataclasses.fields(RC.ApiConfig)]
+    assert "api" not in PCfg.NOT_PORTED
+    d = {"api": {"enable": True, "port": 18084, "bind": "0.0.0.0",
+                 "data_dir": "d/m", "token_ttl": 60.0,
+                 "prometheus_auth": True, "default_password": None}}
+    _same_sections(RC.ConfigHandler.from_dict(d).to_dict(),
+                   PCfg.ConfigHandler.from_dict(d).to_dict())
+    assert dataclasses.asdict(PCfg.ApiConfig()) == \
+        dataclasses.asdict(RC.ApiConfig())
+
+
+def test_api_from_a_file_and_the_environment(tmp_path):
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps({"api": {"enable": False, "port": 1}}))
+    env = {"EMQX_TPU_API__ENABLE": "true", "EMQX_TPU_API__PORT": "18099",
+           "EMQX_TPU_API__DATA_DIR": str(tmp_path / "mgmt")}
+    got = []
+    for mod in (RC, PCfg):
+        cfg = mod.ConfigHandler.load(str(path)).root
+        applied = mod.apply_env_overrides(cfg, environ=dict(env))
+        got.append((applied, dataclasses.asdict(cfg.api)))
+    assert got[0] == got[1]
+    assert got[1][1]["enable"] is True and got[1][1]["port"] == 18099
+
+
+def test_put_configs_on_a_not_ported_path_gives_400(tmp_path):
+    """``PUT /api/v5/configs`` on a path under ``NOT_PORTED`` answers
+    400 naming the key (the reference applies it); a ported path is
+    applied with its type coerced and the ``config.updated`` hook run."""
+    import asyncio
+
+    from test_torch_mgmt import LIMIT, _token, acall, port_server
+
+    async def t():
+        srv = port_server(str(tmp_path))
+        seen = []
+        srv.broker.hooks.add("config.updated",
+                             lambda path, value: seen.append((path, value)))
+        await srv.start()
+        try:
+            hdr = await _token(srv.api.port)
+            out = {}
+            for path, value in (("olp.enable", True),
+                                ("engine.use_device", False),
+                                ("retainer.deliver_rate", 5),
+                                ("cluster.enable", True),
+                                ("mqtt.retry_interval", 7)):
+                st, _, body, _ = await acall(srv.api.port, "PUT",
+                                             "/api/v5/configs",
+                                             {"path": path,
+                                              "value": value}, hdr)
+                out[path] = (st, body)
+            return out, seen, srv.broker.config.mqtt.retry_interval
+        finally:
+            await srv.stop()
+
+    out, seen, retry = asyncio.run(asyncio.wait_for(t(), LIMIT))
+    for path in ("olp.enable", "engine.use_device", "retainer.deliver_rate",
+                 "cluster.enable"):
+        st, body = out[path]
+        key = path if path in PCfg.NOT_PORTED else path.split(".")[0]
+        assert st == 400 and body["code"] == "BAD_REQUEST", path
+        assert body["message"].startswith(
+            f"config key {key}: not ported to emqx_tpu_torch"), body
+    assert out["mqtt.retry_interval"] == (200, {"path":
+                                                "mqtt.retry_interval"})
+    assert retry == 7.0 and isinstance(retry, float)
+    assert seen == [("mqtt.retry_interval", 7.0)]
+
+
+def test_main_config_reaches_the_api(tmp_path):
+    """``python -m emqx_tpu_torch.broker --config`` with ``api.enable``:
+    the API's address line beside the listener's, and it logs in."""
+    import http.client
+    import queue
+    import threading
+
+    cfg = {"listeners": [{"name": "t", "bind": "127.0.0.1", "port": 0}],
+           "api": {"enable": True, "port": 0,
+                   "data_dir": str(tmp_path / "mgmt")}}
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps(cfg))
+    proc = _cli("emqx_tpu_torch.broker", "--config", str(path),
+                "--device", "cpu")
+    got: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [got.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    try:
+        lines = []
+        while not any("management API" in x for x in lines):
+            try:
+                lines.append(got.get(timeout=60))
+            except queue.Empty:
+                break
+        api = [x for x in lines if "management API listening" in x]
+        assert api, (lines, proc.poll())
+        assert any("listener t (tcp) listening on 127.0.0.1:" in x
+                   for x in lines)
+        port = int(api[0].rsplit(":", 1)[1])
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+        conn.request("POST", "/api/v5/login", body=json.dumps(
+            {"username": "admin", "password": "public"}))
+        resp = conn.getresponse()
+        assert resp.status == 200 and json.loads(resp.read())["token"]
+    finally:
+        proc.terminate()
+        proc.communicate(timeout=30)

@@ -1243,6 +1243,28 @@ def test_rules_kernel_reads_only_the_where_prefix_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_mgmt_world_on_card_equals_cpu(cuda):
+    """chip_smoke's management-API script at a small size, on the card
+    and on the CPU, response for response: each REST publish's
+    delivered count, each rule's counters, the subscribers' bytes, the
+    metrics and every read-back; K1, K3 and K4 launched on the card, K4
+    once a rules window."""
+    from emqx_tpu_torch import workload as W
+
+    mk.reset_launches()
+    got = W.mgmt_world("cuda")
+    launches = mk.launches()
+    want = W.mgmt_world("cpu")
+    assert W.mgmt_outcome(got) == W.mgmt_outcome(want)
+    eng = got["engine"]
+    assert launches["match_batch_compact"] >= 1
+    assert launches["decide_packed"] == eng["decide_windows"] >= 1
+    assert launches["rules_eval_lowered"] == eng["rules_dev_windows"] >= 1
+    assert eng["rules_host_windows"] == 0
+    assert got["refusals"][:3] == [401, 403, 403]
+
+
+@pytest.mark.cuda
 def test_sinks_world_on_card_equals_cpu(cuda):
     """chip_smoke's sinks broker world in process at a small size:
     config 4's rules with sink, template and aggregate actions and the

@@ -59,6 +59,11 @@ import emqx_tpu_torch.resources
 import emqx_tpu_torch.aggregator
 import emqx_tpu_torch.schema_registry
 import emqx_tpu_torch.workload
+import emqx_tpu_torch.httpd
+import emqx_tpu_torch.mgmt
+import emqx_tpu_torch.mgmt_auth
+import emqx_tpu_torch.dashboard
+import emqx_tpu_torch.ctl
 bad = sorted(
     n for n in sys.modules
     if n == "jax" or n.startswith("jax.")
@@ -93,6 +98,57 @@ def test_port_imports_no_optional_dependency():
     proc = _run("-c", _CHECK)
     assert proc.returncode == 0, proc.stderr
     assert "OPT []" in proc.stdout, proc.stdout
+
+
+_API_WITHOUT_AIOHTTP = """
+import asyncio, http.client, json, sys, tempfile
+sys.modules["aiohttp"] = None  # any import of it now fails
+from emqx_tpu_torch.broker.listener import BrokerServer
+from emqx_tpu_torch.config import BrokerConfig, ListenerConfig
+
+def call(port, method, path, body=None, headers=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    conn.request(method, path, body=body, headers=headers or {})
+    resp = conn.getresponse()
+    return resp.status, resp.getheader("Content-Type"), resp.read()
+
+async def main():
+    cfg = BrokerConfig(listeners=[ListenerConfig(bind="127.0.0.1", port=0)])
+    cfg.api.enable, cfg.api.port = True, 0
+    cfg.api.data_dir = tempfile.mkdtemp()
+    srv = BrokerServer(cfg, device="cpu")
+    await srv.start()
+    loop = asyncio.get_running_loop()
+    try:
+        st, _, body = await loop.run_in_executor(None, call, srv.api.port,
+            "POST", "/api/v5/login",
+            json.dumps({"username": "admin", "password": "public"}))
+        print("LOGIN", st)
+        tok = json.loads(body)["token"]
+        st, ct, body = await loop.run_in_executor(None, call, srv.api.port,
+            "GET", "/metrics", None, {"Authorization": "Bearer " + tok})
+        print("METRICS", st, ct, b"# TYPE emqx_messages_received counter"
+              in body)
+    finally:
+        await srv.stop()
+    print("LOADED", sorted(n for n in sys.modules
+                           if n.split(".")[0] in ("jax", "emqx_tpu")
+                           or (n.startswith("aiohttp")
+                               and sys.modules[n] is not None)))
+
+asyncio.run(asyncio.wait_for(main(), 60))
+"""
+
+
+def test_api_starts_and_serves_with_aiohttp_unimportable():
+    """The management API needs no aiohttp: with the module made
+    unimportable, a server with the API enabled starts, logs in and
+    serves the scrape, and neither aiohttp nor jax was loaded."""
+    proc = _run("-c", _API_WITHOUT_AIOHTTP)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOGIN 200" in proc.stdout, proc.stdout
+    assert "METRICS 200 text/plain; charset=utf-8 True" in proc.stdout
+    assert "LOADED []" in proc.stdout, proc.stdout
 
 
 def test_default_device_raises_without_cuda():

@@ -197,3 +197,170 @@ def test_sharded_engine_reports_tokenize_rebuild_and_upload(native):
     assert summ["engine_rebuild"]["count"] == 1
     (up,) = [e for e in prof.events() if e["kind"] == "upload"]
     assert up["bytes"] == sum(t.nbytes for t in eng.index.tables)
+
+
+# ------------------------------------------ the scrape and profiler REST
+# tests/test_observability.py:368, :436, :474 and :519 against the port's
+# management API, beside the JAX package's on the same world
+
+
+def _fanout_world(srv, cid, flt, topic, n_windows=3):
+    """An in-process subscriber on ``flt`` and ``n_windows`` windows of
+    4 QoS 0 messages on ``topic``, through either package's broker."""
+    b = srv.broker
+    if hasattr(b, "cm") and type(b).__module__.startswith("emqx_tpu_torch"):
+        _subscriber(b, cid, flt, 0)
+        msg = Message
+    else:
+        from emqx_tpu.broker.channel import Channel as RCh
+        from emqx_tpu.broker.session import SubOpts
+        from emqx_tpu.message import Message as RMsg
+
+        ch = RCh(b, send=lambda pkts: None, close=lambda r: None)
+        session, _ = b.cm.open_session(True, cid, ch)
+        session.subscribe(flt, SubOpts(qos=0))
+        b.subscribe(cid, flt, SubOpts(qos=0))
+        msg = RMsg
+    for _ in range(n_windows):
+        b.publish_many([msg(topic=topic, payload=b"x")] * 4)
+
+
+def test_prometheus_full_scrape_round_trips_like_reference():
+    """One world through both brokers: both scrapes parse strictly (one
+    TYPE a family, +Inf bucket == _count, cumulative buckets), carry the
+    same families apart from the match engine's own (ROADMAP.md section
+    3), the sanitised extra counter, and >= 4 sampled histograms; the
+    port's engine families are its `MatchEngine.stats()` keys."""
+    from test_torch_mgmt import (LIMIT, acall, families_apart_from_engine,
+                                 parse_prometheus, start_pair, stop_all)
+
+    async def t():
+        ref, prt = await start_pair()
+        try:
+            texts = []
+            for srv in (ref, prt):
+                _fanout_world(srv, "pm", "p/#", "p/t")
+                srv.broker.metrics.inc("5xx.responses-total")
+                st, ct, text, _ = await acall(srv.api.port, "GET",
+                                              "/metrics")
+                assert (st, ct) == (200, "text/plain; charset=utf-8")
+                texts.append(text)
+            return texts, sorted(prt.broker.router.engine.stats())
+        finally:
+            await stop_all(ref, prt)
+
+    (rtext, ptext), eng_keys = asyncio.run(asyncio.wait_for(t(), LIMIT))
+    rtypes, _ = parse_prometheus(rtext)
+    ptypes, psamples = parse_prometheus(ptext)
+    assert families_apart_from_engine(ptypes) == \
+        families_apart_from_engine(rtypes)
+    assert ptypes["emqx_messages_received"] == "counter"
+    assert ptypes["emqx_connections_count"] == "gauge"
+    assert "emqx_5xx_responses_total" in ptypes  # sanitised
+    assert {n for n, k in ptypes.items()
+            if n.startswith("emqx_engine_") and k == "gauge"} == \
+        {f"emqx_engine_{k}" for k in eng_keys}
+    hist = [n for n, k in ptypes.items() if k == "histogram"]
+    assert len(hist) >= 4
+    counts = {n: int(v) for n, _, v in psamples if n.endswith("_count")}
+    assert sum(counts[f + "_count"] for f in hist) > 0
+
+
+def test_prometheus_one_type_and_help_line_per_family():
+    from test_torch_mgmt import LIMIT, acall, port_server
+
+    async def t():
+        srv = port_server()
+        await srv.start()
+        try:
+            return (await acall(srv.api.port, "GET", "/metrics"))[2]
+        finally:
+            await srv.stop()
+
+    text = asyncio.run(asyncio.wait_for(t(), LIMIT))
+    for kind in ("TYPE", "HELP"):
+        names = [line.split(" ", 3)[2] for line in text.splitlines()
+                 if line.startswith(f"# {kind} ")]
+        assert names and len(names) == len(set(names)), kind
+
+
+def test_profiler_rest_endpoints_like_reference():
+    """A publish through the batcher, then the profiler's REST surface:
+    the same statuses and shapes in both packages (the ``engine`` field
+    is each package's own), the window's stages, the Chrome trace, the
+    bad query's 400 and the reset."""
+    from test_torch_mgmt import Both, LIMIT, start_pair, stop_all
+
+    async def t():
+        ref, prt = await start_pair()
+        B = Both(ref, prt, [])
+        try:
+            B.auth = await B.login()
+            await B.req("POST", "/api/v5/publish",
+                        {"topic": "nope/t", "payload": "x"}, expect=200)
+            rb, pb = await B.req("GET", "/api/v5/profiler", expect=200,
+                                 keys_only=True)
+            assert pb["enabled"] is True and pb["windows"]
+            win = pb["windows"][0]
+            assert win["source"] == "batcher" == rb["windows"][0]["source"]
+            assert "batch_wait" in win["stages_us"]
+            assert "prepare" in win["stages_us"]
+            rb, pb = await B.req("GET", "/api/v5/profiler/trace",
+                                 expect=200, keys_only=True)
+            assert any(e["ph"] == "B" for e in pb["traceEvents"])
+            await B.req("GET", "/api/v5/profiler/trace?windows=bogus",
+                        expect=400)
+            await B.req("DELETE", "/api/v5/profiler", expect=204)
+            rb, pb = await B.req("GET", "/api/v5/profiler", expect=200,
+                                 keys_only=True)
+            assert pb["windows"] == [] == rb["windows"]
+        finally:
+            await stop_all(ref, prt)
+
+    asyncio.run(asyncio.wait_for(t(), LIMIT))
+
+
+def test_ctl_profiler_commands(tmp_path):
+    """``python -m emqx_tpu_torch.ctl profiler`` (summary, trace, reset)
+    against the port's live server, off the loop."""
+    import json as _json
+    import os
+    import subprocess
+    import sys as _sys
+
+    from test_torch_mgmt import LIMIT, port_server
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    async def t():
+        srv = port_server()
+        await srv.start()
+        try:
+            _fanout_world(srv, "cc", "c/#", "c/t")
+            api = f"http://127.0.0.1:{srv.api.port}"
+
+            def ctl(*args):
+                out = subprocess.run(
+                    [_sys.executable, "-m", "emqx_tpu_torch.ctl", "--api",
+                     api, *args], capture_output=True, text=True,
+                    timeout=20, cwd=repo)
+                assert out.returncode == 0, out.stderr
+                return out.stdout
+
+            loop = asyncio.get_running_loop()
+            summary = await loop.run_in_executor(None, ctl, "profiler")
+            assert "profiler on" in summary
+            assert "deliver" in summary and "engine:" in summary
+            path = str(tmp_path / "trace.json")
+            traced = await loop.run_in_executor(None, ctl, "profiler",
+                                                "trace", path)
+            assert "perfetto" in traced
+            with open(path) as f:
+                assert _json.load(f)["traceEvents"]
+            reset = await loop.run_in_executor(None, ctl, "profiler",
+                                               "reset")
+            assert "reset" in reset
+        finally:
+            await srv.stop()
+
+    asyncio.run(asyncio.wait_for(t(), LIMIT))
