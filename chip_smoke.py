@@ -15,8 +15,9 @@ the publish path, then the publish path with config 4's 100 rules,
 whose kernel launches it counts, then the same rules with sink and
 aggregate actions and a schema-decoding rule, then shared subscriptions, the
 retained store, the publish path behind authentication, the ACL,
-a topic rewrite, delayed publish, topic metrics and $SYS, the server
-booted from a config file with tcp, ssl, ws and wss listeners, and the
+a topic rewrite, delayed publish, topic metrics and $SYS, then behind
+the GCP, LDAP, HTTP and Mongo authentication back ends with the
+per-client ACL cache, the server booted from a config file with tcp, ssl, ws and wss listeners, and the
 management API's REST publishes, rules, read-backs and scrape beside
 MQTT traffic.
 Phases:
@@ -154,6 +155,22 @@ Phases:
                   in waves of 64, CONNECT->CONNACK p50/p99; then
                   `workload.access_script` in process on the card
                   against the CPU, byte for byte
+  auth backends broker  the broker's 1M filters behind the chain GCP
+                  (32 RS256 2,048-bit and 32 ES256 devices, the registry
+                  file in a temporary directory), LDAP (64 users), HTTP
+                  (64 users), Mongo (100,000 salted SHA-256 users in
+                  `mqtt_user`) and the Mongo `mqtt_acl` rows as the ACL
+                  (authz default deny, anonymous refused), loopback
+                  servers of `workload`; 512 CONNECTs in waves of 64
+                  (CONNECT->CONNACK p50/p99 per back end, bcrypt_supported,
+                  the requests each back end served: exactly one ACL find
+                  a client and one authn find a Mongo client); 4,000 QoS 1
+                  publishes from 8 of those clients, every 8th outside its
+                  rows (PUBACK 0x87, authorization.deny), to 4
+                  subscribers: msgs/s in, deliveries, no back-end request
+                  after CONNECT, K1 and K3 once a decide window; then
+                  `workload.authdb_world` (4,000 filters, 64 clients) on
+                  the card against the CPU, byte for byte
   listeners       a JSON config with a tcp, an ssl, a ws and a wss
                   listener (the committed test certificate) and one
                   EMQX_TPU_* override: --check-config on it (exit 0) and
@@ -3888,6 +3905,297 @@ def phase_access_broker(results, filters) -> None:
     access_parity(results)
 
 
+# ------------------------------------------------- auth backends broker
+
+AUTH_MONGO_USERS = 100_000
+AUTH_GCP = (32, 32)  # RS256 (2,048-bit) and ES256 devices
+AUTH_LDAP = AUTH_HTTP = 64
+AUTH_CONNECTS, AUTH_WAVE = 512, 64
+AUTH_MSGS = 4000
+
+
+def auth_rsa_keys(n: int) -> list:
+    """``n`` 2,048-bit RSA keys (`workload.rsa_key`, seeded), made in
+    worker processes: Python's big-integer prime search takes ~0.5 s a
+    key."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from emqx_tpu_torch import workload as W
+
+    rngs = [np.random.default_rng([14, i]) for i in range(n)]
+    with ProcessPoolExecutor(
+            min(8, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        return list(ex.map(W.rsa_key, rngs, [2048] * n))
+
+
+async def auth_publish(cl, items, refused_want: int) -> None:
+    """Publisher ``cl`` sends ``items`` (``(k, topic)``) at QoS 1, at
+    most 32 unacknowledged; a publish outside its rows (every 8th) must
+    come back PUBACK 0x87 and every other PUBACK 0."""
+    C = cl.C
+    window = asyncio.Semaphore(32)
+    want = {}
+    n_acked = refused = 0
+
+    async def acks():
+        nonlocal n_acked, refused
+        while n_acked < len(items):
+            pkt = await asyncio.wait_for(cl.inbox.get(), 60)
+            if pkt is None or pkt.type != C.PUBACK:
+                fail(f"{cl.client_id}: expected PUBACK, got {pkt!r}")
+            if pkt.reason_code != want.pop(pkt.packet_id):
+                fail(f"{cl.client_id}: PUBACK {pkt.reason_code:#x} for "
+                     f"packet {pkt.packet_id}")
+            refused += pkt.reason_code == 0x87
+            n_acked += 1
+            window.release()
+
+    task = asyncio.get_running_loop().create_task(acks())
+    for j, (k, topic) in enumerate(items):
+        await window.acquire()
+        pid = j % 65535 + 1
+        want[pid] = 0x87 if k % 8 == 7 else 0
+        cl.send(C.Publish(topic=topic, qos=1, packet_id=pid,
+                          payload=f"{k}:{time.perf_counter()!r}".encode()))
+        if j % 32 == 0:
+            await cl.writer.drain()
+    await task
+    if refused != refused_want:
+        fail(f"{cl.client_id}: {refused} publishes refused, "
+             f"{refused_want} expected")
+
+
+async def auth_load(results, filters, script) -> dict:
+    """The broker phase's 1M filters behind the four authentication back
+    ends of `workload.authdb_script` (anonymous refused, authz default
+    deny): GCP devices (RS256 and ES256 JWTs, the registry file under a
+    temporary directory), LDAP simple binds, the HTTP service, and Mongo
+    (100,000 salted SHA-256 users) with its ``mqtt_acl`` rows as the
+    ACL, all loopback servers of `workload` on this machine.  512
+    CONNECTs in waves of 64 (the chain's order, each timed to its
+    CONNACK), then 4,000 QoS 1 publishes from 8 of those clients, every
+    8th outside the publisher's rows, to 4 subscribers."""
+    import shutil
+    import tempfile
+
+    from emqx_tpu_torch import workload as W
+    from emqx_tpu_torch.auth_db import bcrypt_supported
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    impl = W.port_impl("cuda")
+    tmp = tempfile.mkdtemp(prefix="emqx-auth-")
+    cfg = W.auth_config(impl, tmp)
+    cfg.mqtt.max_mqueue_len = 4 * AUTH_MSGS
+    server = impl.server(cfg)
+    broker = server.broker
+    eng = broker.router.engine
+    t0 = time.perf_counter()
+    fixtures = await W.start_auth_backends(script)
+    mongo, ldap, http = fixtures
+    imported = broker.gcp_devices.import_devices(script["devices"])
+    if imported != (sum(AUTH_GCP), 0):
+        fail(f"auth broker: GCP registry import {imported}")
+    W.auth_chain(impl, broker, fixtures)
+    eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    # settled before the timed CONNECTs: a background fold of the 1M
+    # filters would hold the interpreter lock through the waves
+    eng.rebuild()
+    await server.start()
+    port = server.listeners[0].port
+    connects = script["connects"]
+    keep = set(script["publishers"]) | set(script["subscribers"])
+    kept = {}
+    conn_ms = {kind: [] for kind in W.AUTH_KINDS}
+    try:
+        print(f"auth broker: {len(filters)} filters on the card, the back "
+              f"ends up (GCP {AUTH_GCP[0]} RS256 + {AUTH_GCP[1]} ES256 "
+              f"devices, LDAP {AUTH_LDAP}, HTTP {AUTH_HTTP}, Mongo "
+              f"{AUTH_MONGO_USERS} users, {len(script['acl'])} ACL "
+              f"documents) in {time.perf_counter() - t0:.1f} s; "
+              f"bcrypt_supported() {bcrypt_supported()}", flush=True)
+
+        async def one(i):
+            kind, cid, name, pw, ok = connects[i]
+            cl = Client(port, cid, version=5, username=name, password=pw)
+            t = time.perf_counter()
+            await cl.connect(rc=0 if ok else 0x86)
+            conn_ms[kind].append((time.perf_counter() - t) * 1e3)
+            if i in keep:
+                kept[i] = cl
+                return
+            if ok:
+                cl.send(cl.C.Disconnect())
+            await cl.eof()
+
+        t0 = time.perf_counter()
+        for w in range(0, AUTH_CONNECTS, AUTH_WAVE):
+            await asyncio.gather(*(one(i) for i in range(w, w + AUTH_WAVE)))
+        conn_wall = time.perf_counter() - t0
+        asked = (dict(mongo.finds), len(ldap.binds), len(http.requests))
+        accepted = sum(ok for *_, ok in connects)
+        by_kind = {k: sum(1 for c in connects if c[0] == k)
+                   for k in W.AUTH_KINDS}
+        want = ({"mqtt_user": by_kind["mongo"], "mqtt_acl": accepted},
+                AUTH_CONNECTS - by_kind["gcp"],
+                by_kind["http"] + by_kind["mongo"])
+        if asked != want:
+            fail(f"auth broker: back ends asked {asked}, expected {want} "
+                 f"(Mongo: one ACL find a client, one authn find a Mongo "
+                 f"client)")
+        lat = {}
+        for kind, xs in conn_ms.items():
+            xs.sort()
+            lat[kind] = [xs[int(len(xs) * q)] for q in (0.5, 0.99)]
+            print(f"auth broker: {len(xs)} {kind} CONNECTs "
+                  f"CONNECT->CONNACK p50 {lat[kind][0]:.3f} ms p99 "
+                  f"{lat[kind][1]:.3f} ms [{results['card']}]", flush=True)
+        print(f"auth broker: {AUTH_CONNECTS} CONNECTs in waves of "
+              f"{AUTH_WAVE} ({accepted} accepted, 4 refused) in "
+              f"{conn_wall:.3f} s, {AUTH_CONNECTS / conn_wall:.1f} "
+              f"connects/s; Mongo finds {asked[0]}, LDAP binds {asked[1]}, "
+              f"HTTP requests {asked[2]}", flush=True)
+        subs = [kept[i] for i in script["subscribers"]]
+        for cl in subs:
+            C = cl.C
+            cl.send(C.Subscribe(packet_id=1, subscriptions=[
+                C.Subscription(topic_filter=f, qos=1)
+                for f in ("vehicles/+/sensors/#", "nomatch/#")]))
+            ack = await cl.expect(C.SUBACK)
+            if ack.reason_codes != [1, 0x87]:
+                fail(f"auth broker: SUBACK {ack.reason_codes}")
+        eng.rebuild()
+        items = {i: [] for i in script["publishers"]}
+        for k, (i, topic) in enumerate(script["pubs"]):
+            items[i].append((k, topic))
+        n_ok = sum(1 for k in range(AUTH_MSGS) if k % 8 != 7)
+        seen = [0] * len(subs)
+        lat_d = []
+
+        async def consume(j, cl):
+            C = cl.C
+            while seen[j] < n_ok:
+                try:
+                    pkt = await asyncio.wait_for(cl.inbox.get(), 60)
+                except asyncio.TimeoutError:
+                    fail(f"auth subscriber {j} stalled at {seen[j]} of "
+                         f"{n_ok}")
+                if pkt is None:
+                    fail(f"auth subscriber {j} disconnected")
+                if pkt.type != C.PUBLISH:
+                    continue
+                cl.send(C.Puback(packet_id=pkt.packet_id))
+                k, ts = pkt.payload.split(b":")
+                if int(k) % 8 == 7:
+                    fail(f"auth subscriber {j} got refused message {k}")
+                seen[j] += 1
+                lat_d.append(time.perf_counter() - float(ts))
+
+        m = broker.metrics
+        deny0 = m["authorization.deny"]
+        decides = eng.counters["decide_windows"]
+        mk.reset_launches()  # counts of the auth path start here
+        t0 = time.perf_counter()
+        await asyncio.wait_for(asyncio.gather(
+            *(consume(j, cl) for j, cl in enumerate(subs)),
+            *(auth_publish(kept[i], its,
+                           sum(1 for k, _ in its if k % 8 == 7))
+              for i, its in items.items())), 600)
+        wall = time.perf_counter() - t0
+        launches = mk.launches()
+        decides = eng.counters["decide_windows"] - decides
+        denied = m["authorization.deny"] - deny0
+        if denied != AUTH_MSGS // 8:
+            fail(f"auth broker: authorization.deny +{denied}")
+        if launches["match_batch_compact"] != decides or \
+                launches["decide_packed"] != decides or decides < 1:
+            fail(f"auth broker: K1 {launches['match_batch_compact']} and "
+                 f"K3 {launches['decide_packed']} launches for {decides} "
+                 f"decide windows")
+        after = (dict(mongo.finds), len(ldap.binds), len(http.requests))
+        if after != asked:
+            fail(f"auth broker: back ends asked {after} after CONNECT, "
+                 f"{asked} before")
+        if m["delivery.dropped"]:
+            fail(f"auth broker dropped {m['delivery.dropped']} deliveries")
+        lat_d.sort()
+        p50, p99 = (lat_d[int(len(lat_d) * q)] * 1e3 for q in (0.5, 0.99))
+        n_del = n_ok * len(subs)
+        base = results["native"]["broker"]["native"][0]["msgs_per_s"]
+        print(f"auth broker: {AUTH_MSGS} QoS 1 publishes from "
+              f"{len(items)} clients ({denied} refused, "
+              f"authorization.deny {m['authorization.deny']}, PUBACK 0x87) "
+              f"in {wall:.3f} s: {n_ok / wall:.1f} msgs/s in (the broker "
+              f"phase: {base:.1f}), {n_del} deliveries, "
+              f"{n_del / wall:.1f} deliveries/s, delivery p50 {p50:.3f} ms "
+              f"p99 {p99:.3f} ms; no back-end request after CONNECT; "
+              f"{decides} decide windows; launches {launches} "
+              f"[{results['card']}]", flush=True)
+        stages = stage_medians("auth broker", broker.profiler)
+    finally:
+        for cl in kept.values():
+            await cl.close()
+        await server.stop()
+        for f in fixtures:
+            await f.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, k in (("match_batch_compact", "match_batch_compact"),
+                    ("decide_batch", "decide_packed")):
+        results["kernels"][name]["auth"] = {"launches": launches[k]}
+    return {"connect_ms": lat, "connects_per_s": AUTH_CONNECTS / conn_wall,
+            "asked": {"mongo": asked[0], "ldap": asked[1],
+                      "http": asked[2]},
+            "msgs_per_s": n_ok / wall, "deliveries": n_del,
+            "deliveries_per_s": n_del / wall, "denied": denied,
+            "p50_ms": p50, "p99_ms": p99, "decide_windows": decides,
+            "broker_msgs_per_s": base, "bcrypt_supported":
+            bcrypt_supported(), "stages": stages}
+
+
+def auth_parity(results) -> None:
+    """`workload.authdb_world` at 4,000 filters and 64 clients through
+    the card's broker and the CPU's: equal bytes to every client, equal
+    metrics, the back ends asked the same."""
+    from emqx_tpu_torch import workload as W
+
+    script = W.authdb_script(14, 64, 256, n_gcp=(4, 4), n_msgs=256)
+    t0 = time.perf_counter()
+    card = W.authdb_world("cuda", script)
+    cpu = W.authdb_world("cpu", script)
+    for key in ("bytes", "metrics", "asked"):
+        if card[key] != cpu[key]:
+            bad = [c for c in card[key] if card[key][c] != cpu[key].get(c)]
+            fail(f"auth parity: the card's {key} differ from the CPU's "
+                 f"at {bad[:3]}")
+    print(f"auth parity: {len(script['connects'])} clients over the four "
+          f"back ends, {len(script['pubs'])} publishes: the card's broker "
+          f"writes the CPU broker's {sum(map(len, card['bytes'].values()))} "
+          f"bytes, the same metrics, the back ends asked the same "
+          f"{card['asked']['mongo']} ({time.perf_counter() - t0:.1f} s) "
+          f"[{results['card']}]", flush=True)
+
+
+def phase_auth_broker(results, filters) -> None:
+    phase("auth backends broker")
+    t0 = time.perf_counter()
+    from emqx_tpu_torch import workload as W
+
+    keys = auth_rsa_keys(AUTH_GCP[0])
+    t_keys = time.perf_counter() - t0
+    script = W.authdb_script(
+        14, AUTH_CONNECTS, AUTH_MONGO_USERS, n_gcp=AUTH_GCP,
+        n_ldap=AUTH_LDAP, n_http=AUTH_HTTP, n_msgs=AUTH_MSGS, rsa_keys=keys)
+    print(f"auth broker: {AUTH_GCP[0]} RSA keys in {t_keys:.1f} s (worker "
+          f"processes), the script in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    results["auth"] = asyncio.run(auth_load(results, filters, script))
+    auth_parity(results)
+    results["auth"]["phase_s"] = time.perf_counter() - t0
+
+
 # ------------------------------------------------------------ listeners
 
 LISTENER_KINDS = ("tcp", "ssl", "ws", "wss")
@@ -4795,6 +5103,7 @@ def main() -> None:
     phase_shared_broker(results, filters)
     phase_retained(results, filters)
     phase_access_broker(results, filters)
+    phase_auth_broker(results, filters)
     phase_listeners(results, filters)
 
     phase("kernels")
@@ -4810,7 +5119,8 @@ def main() -> None:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
             **{x: k[x] for x in ("main_path", "churn", "shared", "access",
-                                 "listeners", "sinks", "mgmt", "stress",
+                                 "auth", "listeners", "sinks", "mgmt",
+                                 "stress",
                                  "empty_launch_ms")
                if x in k},
         })
@@ -4819,6 +5129,7 @@ def main() -> None:
     print(f"shared summary: {json.dumps(results['shared'])}", flush=True)
     print(f"retained summary: {json.dumps(results['retained'])}", flush=True)
     print(f"access summary: {json.dumps(results['access'])}", flush=True)
+    print(f"auth summary: {json.dumps(results['auth'])}", flush=True)
     print(f"listeners summary: {json.dumps(results['listeners'])}",
           flush=True)
     print(f"sinks summary: {json.dumps(results['sinks'])}", flush=True)

@@ -10,10 +10,10 @@ Providers follow the chain contract of `emqx_authn_chains` /
 Built-in providers re-create EMQX's file-based backends:
 ``DictAuthenticator`` ≈ the built-in-database password store (salted
 SHA-256), ``AclProvider`` ≈ the file authz source (acl.conf) with
-``%c``/``%u`` topic placeholders.  The DB-backed authz sources, their
-per-client ACL cache and its row evaluation are not in the port yet:
-``db_authz_sources`` is empty and cannot be filled, so ``prefetch_acl``
-returns at once.
+``%c``/``%u`` topic placeholders.  DB-backed authz sources
+(``auth_db``, ``auth_mongo``) go in ``db_authz_sources``: their rows for
+a client are fetched once at CONNECT into a per-client cache, which
+``authorize`` evaluates after the file sources without waiting on IO.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import hashlib
 import hmac
 import os
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 from . import topic as T
 
@@ -34,6 +34,8 @@ IGNORE = "ignore"  # provider has no opinion; fall through the chain
 PUBLISH = "publish"
 SUBSCRIBE = "subscribe"
 ALL_ACTIONS = "all"
+
+ACL_CACHE_MAX = 100_000  # cached clients before `_evict_acl` runs
 
 
 @dataclass
@@ -176,9 +178,14 @@ class AccessControl:
         self.deny_action = deny_action
         self.authenticators: List[Authenticator] = []
         self.authz_sources: List[AclProvider] = []
-        # DB-backed authz sources are not ported: a tuple, so none can
-        # be registered and have its rows silently ignored
-        self.db_authz_sources: Tuple = ()
+        # DB-backed authz (auth_db.SqlAuthorizer/RedisAuthorizer,
+        # auth_mongo.MongoAuthorizer): rows are prefetched per client
+        # at CONNECT into _acl_cache
+        self.db_authz_sources: List = []
+        self._acl_cache: Dict[str, List[Dict]] = {}
+        # liveness probe for cache eviction (wired by the broker to
+        # its connection manager); None = no pressure-based cleanup
+        self.is_live: Optional[Callable[[str], bool]] = None
 
     # ---------------------------------------------------------- authn
 
@@ -258,6 +265,15 @@ class AccessControl:
                 return out, client
         return self.allow_anonymous, client
 
+    async def close(self) -> None:
+        """Release IO-backed providers (HTTP clients, DB connections)."""
+        for auth in list(self.authenticators) + list(
+            self.db_authz_sources
+        ):
+            closer = getattr(auth, "close", None)
+            if closer is not None:
+                await closer()
+
     # ---------------------------------------------------------- authz
 
     def authorize(
@@ -305,15 +321,66 @@ class AccessControl:
             decision = src.authorize(client, action, topic)
             if decision in (ALLOW, DENY):
                 return decision == ALLOW
+        # DB-backed sources: evaluate the rows prefetched at CONNECT
+        # (EMQX's emqx_authz_cache role: authorize runs on the
+        # publish/subscribe hot path and must never wait on IO)
+        rows = self._acl_cache.get(client.clientid)
+        if rows is not None:
+            from .auth_db import evaluate_acl_rows
+
+            decision = evaluate_acl_rows(rows, client, action, topic)
+            if decision in (ALLOW, DENY):
+                return decision == ALLOW
         return self.authz_default == ALLOW
 
-    # ------------------------------------------- DB-backed sources
+    # -------------------------------------------- DB-backed ACL cache
 
     @property
     def has_async_authz(self) -> bool:
         return bool(self.db_authz_sources)
 
     async def prefetch_acl(self, client: ClientInfo) -> None:
-        """Where DB-backed sources exist, their rows for the client are
-        fetched once at CONNECT; the port has none, so this returns at
-        once."""
+        """Fetch the client's ACL rows from every DB source ONCE at
+        CONNECT; `authorize` then evaluates them synchronously.  A
+        fetch failure leaves no cache entry: the chain default applies
+        (and with authz_default=deny, fails closed)."""
+        if not self.db_authz_sources:
+            return
+        rows: List[Dict] = []
+        try:
+            for src in self.db_authz_sources:
+                rows.extend(await src.fetch_rows(client))
+        except Exception:
+            import logging
+
+            logging.getLogger("emqx_tpu_torch.access").exception(
+                "acl prefetch failed for %s", client.clientid
+            )
+            self._acl_cache.pop(client.clientid, None)
+            return
+        if len(self._acl_cache) >= ACL_CACHE_MAX:
+            self._evict_acl()
+        self._acl_cache[client.clientid] = rows
+
+    def _evict_acl(self) -> None:
+        """Bound the cache WITHOUT clearing live clients' entries (a
+        wholesale clear would deny every connected client under
+        authz_default=deny until it reconnects): drop entries of dead
+        sessions first, then the oldest tenth as a backstop."""
+        if self.is_live is not None:
+            dead = [
+                cid for cid in self._acl_cache if not self.is_live(cid)
+            ]
+            for cid in dead:
+                del self._acl_cache[cid]
+        if len(self._acl_cache) >= ACL_CACHE_MAX:
+            for cid in list(self._acl_cache)[: len(self._acl_cache) // 10]:
+                del self._acl_cache[cid]
+
+    def drop_acl(self, clientid: str) -> None:
+        """Never called eagerly on disconnect or discard: a reconnecting
+        client's NEW prefetch can land before the OLD channel's
+        teardown runs, and an eager drop would wipe the fresh entry.
+        Dead entries are reclaimed under cache pressure (`_evict_acl`)
+        and overwritten at each CONNECT."""
+        self._acl_cache.pop(clientid, None)

@@ -1,4 +1,4 @@
-"""Additional authentication backends: pbkdf2 store, JWT.
+"""Additional authentication backends: pbkdf2 store, JWT, HTTP.
 
 EMQX's per-backend provider apps (emqx_auth_jwt; password hashing per
 the emqx_authn hash options), as the JAX package has them:
@@ -9,9 +9,11 @@ the emqx_authn hash options), as the JAX package has them:
   * ``JwtAuthenticator`` — HS256 JWTs carried in the password field,
     verified with stdlib hmac (no JWT library); checks exp/nbf and
     optional required claims, honors an ``is_superuser`` claim.
-
-The JAX package's HTTP authenticator needs aiohttp and is not in the
-port yet.
+  * ``HttpAuthenticator`` — asks an external HTTP service
+    (emqx_auth_http); asynchronous, on this package's own HTTP client
+    (`httpc`, the standard library alone), and therefore only
+    used on the deferred connect path
+    (`AccessControl.authenticate_async`), never blocking the loop.
 """
 
 from __future__ import annotations
@@ -138,3 +140,61 @@ def make_jwt(secret: bytes, claims: Dict[str, Any]) -> str:
         .decode()
     )
     return f"{head}.{body}.{sig}"
+
+
+class HttpAuthenticator(Authenticator):
+    """POSTs credentials to an HTTP service (emqx_auth_http).  Response:
+    200 with {"result": "allow"|"deny"|"ignore", "is_superuser": bool};
+    any error => ignore (fall through the chain).  Async-only."""
+
+    is_async = True
+
+    def __init__(
+        self, url: str, timeout: float = 5.0, method: str = "POST"
+    ) -> None:
+        self.url = url
+        self.timeout = timeout
+        self.method = method
+        self._session = None
+
+    def authenticate(self, client: ClientInfo):
+        # sync chains skip async providers; the deferred connect path
+        # (AccessControl.authenticate_async) awaits authenticate_async
+        return IGNORE, {}
+
+    async def authenticate_async(self, client: ClientInfo):
+        from .httpc import Client
+
+        if self._session is None:
+            self._session = Client(timeout=self.timeout)
+        try:
+            resp = await self._session.request(
+                self.method,
+                self.url,
+                json={
+                    "clientid": client.clientid,
+                    "username": client.username,
+                    "password": (client.password or b"").decode(
+                        "utf-8", "replace"
+                    ),
+                    "peerhost": client.peerhost,
+                },
+            )
+            if resp.status != 200:
+                return IGNORE, {}
+            body = resp.json()
+        except Exception:
+            return IGNORE, {}
+        result = body.get("result", "ignore")
+        if result == ALLOW:
+            return ALLOW, {
+                "is_superuser": bool(body.get("is_superuser"))
+            }
+        if result == DENY:
+            return DENY, {}
+        return IGNORE, {}
+
+    async def close(self) -> None:
+        if self._session is not None:
+            await self._session.close()
+            self._session = None

@@ -49,7 +49,8 @@ native ``assemble`` share), ``flush`` and ``rules``, plus the engine's
 
 The broker's control surface sits beside the path: the hook registry
 (``hooks``), ``metrics`` and ``stats``, ``access`` (authentication and
-authorization, run by the channel), ``banned``, ``flapping``,
+authorization, run by the channel; with ``gcp_device_enable`` the
+GCP device registry, ``gcp_devices``), ``banned``, ``flapping``,
 ``alarms``, ``slow_subs``, the zone rate limiter, and the modules.
 The rules' egress hangs off it: ``resources`` (the sinks' buffer
 workers, by resource id) and ``aggregators`` (ticked by the server).
@@ -62,6 +63,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import time
 from collections import Counter, deque
 from typing import Dict, List, Optional, Sequence, Set, Tuple
@@ -141,7 +143,21 @@ class Broker:
             authz_default=auth.authz_default,
             deny_action=auth.deny_action,
         )
+        self.gcp_devices = None
+        if self.config.gcp_device_enable:
+            from ..gcp_device import GcpDeviceAuthenticator, GcpDeviceRegistry
+
+            os.makedirs(
+                os.path.dirname(self.config.gcp_device_file) or ".",
+                exist_ok=True,
+            )
+            self.gcp_devices = GcpDeviceRegistry(self.config.gcp_device_file)
+            self.access.authenticators.append(
+                GcpDeviceAuthenticator(self.gcp_devices))
         self.cm = ConnectionManager(self._make_session)
+        # ACL-cache eviction probes session liveness so pressure never
+        # wipes a connected client's prefetched rows
+        self.access.is_live = lambda cid: self.cm.lookup(cid) is not None
         self.cm.on_discarded = self._session_discarded
         self.cm.on_takenover = (
             lambda s: self.metrics.inc("session.takenover"))

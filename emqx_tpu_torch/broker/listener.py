@@ -244,7 +244,7 @@ class BrokerServer:
             if lc.type == "quic":
                 raise ValueError(
                     f"listener {lc.name}: quic is not ported to "
-                    "emqx_tpu_torch (ROADMAP.md section 1, item 10)")
+                    "emqx_tpu_torch (ROADMAP.md section 1, item 11)")
             if lc.type not in TRANSPORTS:
                 raise ValueError(
                     f"listener {lc.name}: unknown type {lc.type!r}")
@@ -316,7 +316,7 @@ class BrokerServer:
         if stype == "kafka":
             raise ValueError(
                 f"sink {sink_cfg.get('id')!r}: kafka is not ported to "
-                "emqx_tpu_torch (ROADMAP.md section 1, item 10)")
+                "emqx_tpu_torch (ROADMAP.md section 1, item 11)")
         if stype != "http":
             raise ValueError(f"unknown sink type {stype!r}")
         res = HttpSink(
@@ -342,6 +342,7 @@ class BrokerServer:
             await self.broker.batcher.stop()
             self.broker.batcher = None
         await self.broker.resources.stop_all()
+        await self.broker.access.close()
         self.broker.shutdown()
 
     async def run_forever(self) -> None:

@@ -208,6 +208,11 @@ class BrokerConfig:
     # SinkActions by id: {"id": ..., "type": "http", "url": ...,
     # "method": "POST", "headers": {...}, "max_buffer": 10000}
     sinks: List[Dict[str, Any]] = field(default_factory=list)
+    # GCP IoT-Core compat device registry (emqx_gcp_device): devices
+    # keep their projects/.../devices/D clientids and JWT-per-connect
+    # credentials after migrating off Google IoT Core
+    gcp_device_enable: bool = False
+    gcp_device_file: str = "data/gcp_devices.json"
     node_name: str = "emqx_tpu@127.0.0.1"
 
 
@@ -227,13 +232,11 @@ NOT_PORTED = {
     "cluster": "clustering",
     "cluster_name": "cluster linking",
     "cluster_links": "cluster linking",
-    "exhooks": "exhook",
+    "exhooks": "exhook, ROADMAP.md section 1, item 5",
     "gateways": "the gateways",
     "plugins": "plugins",
     "plugin_dir": "plugins",
     "ft": "file transfer",
-    "gcp_device_enable": "the GCP device registry",
-    "gcp_device_file": "the GCP device registry",
     "engine.use_device": "no device switch: --device chooses the device",
     "retainer.deliver_rate": "a retained-delivery rate nothing reads",
 }

@@ -64,18 +64,22 @@ Handler = Callable[["Request"], Awaitable["Response"]]
 
 class HTTPError(Exception):
     """Raised by a handler (or the router) to answer with ``status``
-    and a plain-text body, as aiohttp's ``web.HTTPException``."""
+    and a text body (``text/plain`` unless ``content_type`` says
+    otherwise), as aiohttp's ``web.HTTPException``."""
 
     def __init__(self, status: int, text: Optional[str] = None,
-                 headers: Optional[Dict[str, str]] = None) -> None:
+                 headers: Optional[Dict[str, str]] = None,
+                 content_type: Optional[str] = None) -> None:
         self.status = status
         self.text = (text if text is not None
                      else f"{status}: {http.HTTPStatus(status).phrase}")
         self.headers = dict(headers or {})
+        self.content_type = content_type
         super().__init__(self.text)
 
     def response(self) -> "Response":
         return Response(status=self.status, text=self.text,
+                        content_type=self.content_type,
                         headers=self.headers)
 
 

@@ -29,16 +29,15 @@ from .message import Message
 # the JAX package's routes whose modules are not ported, by path prefix:
 # (the module, its item in ROADMAP.md section 1)
 NOT_PORTED: Dict[str, Tuple[str, int]] = {
-    "/api/v5/failpoints": ("failpoints", 7),
-    "/api/v5/olp": ("overload protection", 6),
-    "/api/v5/flight": ("the flight recorder", 7),
-    "/api/v5/tracing": ("message lifecycle tracing", 7),
-    "/api/v5/trace": ("the trace log", 7),
-    "/api/v5/data": ("backup and restore", 10),
-    "/api/v5/gcp_devices": ("the GCP device registry", 10),
-    "/api/v5/gateways": ("the gateways", 10),
-    "/api/v5/plugins": ("plugins", 10),
-    "/api/v5/load_rebalance": ("rebalance and evacuation", 9),
+    "/api/v5/failpoints": ("failpoints", 8),
+    "/api/v5/olp": ("overload protection", 7),
+    "/api/v5/flight": ("the flight recorder", 8),
+    "/api/v5/tracing": ("message lifecycle tracing", 8),
+    "/api/v5/trace": ("the trace log", 8),
+    "/api/v5/data": ("backup and restore", 11),
+    "/api/v5/gateways": ("the gateways", 11),
+    "/api/v5/plugins": ("plugins", 11),
+    "/api/v5/load_rebalance": ("rebalance and evacuation", 10),
 }
 
 # every route, in the JAX package's order: (method, path, handler);
@@ -105,11 +104,11 @@ ROUTES = (
     ("GET", "/api/v5/schema_registry", "get_schemas"),
     ("POST", "/api/v5/schema_registry", "post_schema"),
     ("DELETE", "/api/v5/schema_registry/{name}", "delete_schema"),
-    ("GET", "/api/v5/gcp_devices", None),
-    ("POST", "/api/v5/gcp_devices", None),
-    ("GET", "/api/v5/gcp_devices/{deviceid:.+}", None),
-    ("PUT", "/api/v5/gcp_devices/{deviceid:.+}", None),
-    ("DELETE", "/api/v5/gcp_devices/{deviceid:.+}", None),
+    ("GET", "/api/v5/gcp_devices", "get_gcp_devices"),
+    ("POST", "/api/v5/gcp_devices", "post_gcp_devices"),
+    ("GET", "/api/v5/gcp_devices/{deviceid:.+}", "get_gcp_device"),
+    ("PUT", "/api/v5/gcp_devices/{deviceid:.+}", "put_gcp_device"),
+    ("DELETE", "/api/v5/gcp_devices/{deviceid:.+}", "delete_gcp_device"),
     ("GET", "/api/v5/gateways", None),
     ("GET", "/api/v5/plugins", None),
     ("GET", "/", "dashboard"),
@@ -520,7 +519,7 @@ class MgmtApi:
 
     async def get_nodes(self, request: Request) -> Response:
         # this node's row; no cluster is ported (ROADMAP.md section 1,
-        # item 9), so no peer rows and an empty cluster view
+        # item 10), so no peer rows and an empty cluster view
         return _json({"data": [self.broker.node_info()], "cluster": {}})
 
     # ----------------------------------------------------------- rules
@@ -714,6 +713,66 @@ class MgmtApi:
 
         ok = global_registry().remove(request.match_info["name"])
         return Response(status=204 if ok else 404)
+
+    # -------------------------------------------------- gcp devices
+
+    def _gcp_registry(self):
+        reg = self.broker.gcp_devices
+        if reg is None:
+            raise httpd.HTTPError(
+                501,
+                text=json.dumps({
+                    "code": "NOT_ENABLED",
+                    "message": "set gcp_device_enable: true",
+                }),
+                content_type="application/json",
+            )
+        return reg
+
+    async def get_gcp_devices(self, request: Request) -> Response:
+        devices = self._gcp_registry().list_devices()
+        return _json({"data": devices, "meta": {"count": len(devices)}})
+
+    async def post_gcp_devices(self, request: Request) -> Response:
+        """Bulk import (emqx_gcp_device:import_devices): a JSON list
+        of device objects."""
+        reg = self._gcp_registry()
+        try:
+            body = await request.json()
+            if not isinstance(body, list):
+                raise ValueError("expected a JSON list of devices")
+        except (ValueError, json.JSONDecodeError) as e:
+            return _json({"code": "BAD_REQUEST", "message": str(e)},
+                         status=400)
+        imported, errors = reg.import_devices(body)
+        return _json({"imported": imported, "errors": errors})
+
+    async def get_gcp_device(self, request: Request) -> Response:
+        device = self._gcp_registry().get_device(
+            request.match_info["deviceid"]
+        )
+        if device is None:
+            return _json({"code": "NOT_FOUND"}, status=404)
+        return _json(device)
+
+    async def put_gcp_device(self, request: Request) -> Response:
+        reg = self._gcp_registry()
+        try:
+            body = await request.json()
+            body["deviceid"] = request.match_info["deviceid"]
+            reg.put_device(body)
+        except (KeyError, TypeError, ValueError,
+                json.JSONDecodeError) as e:
+            return _json({"code": "BAD_REQUEST", "message": str(e)},
+                         status=400)
+        return _json(reg.get_device(request.match_info["deviceid"]))
+
+    async def delete_gcp_device(self, request: Request) -> Response:
+        if not self._gcp_registry().remove_device(
+            request.match_info["deviceid"]
+        ):
+            return _json({"code": "NOT_FOUND"}, status=404)
+        return Response(status=204)
 
     async def dashboard(self, request: Request) -> Response:
         """The web dashboard: a single self-contained HTML app (see

@@ -10,7 +10,8 @@ bounded buffer, failures retry with backoff while the resource is
 marked disconnected, and nothing is lost within the buffer bound.
 
 `HttpSink` is the built-in HTTP action target (the emqx_bridge_http
-role); it imports aiohttp when it starts, never at import.
+role), sent with this package's own client (`httpc`), so the sink
+needs nothing outside the standard library.
 
 The worker has no failpoint seams and no overload-protection flush
 deferral: this package has neither module yet.
@@ -80,11 +81,9 @@ class HttpSink(Resource):
         self._session = None
 
     async def on_start(self) -> None:
-        import aiohttp
+        from .httpc import Client
 
-        self._session = aiohttp.ClientSession(
-            timeout=aiohttp.ClientTimeout(total=self.timeout)
-        )
+        self._session = Client(timeout=self.timeout)
 
     async def on_stop(self) -> None:
         if self._session is not None:
@@ -94,22 +93,20 @@ class HttpSink(Resource):
     async def on_query(self, query: Any) -> None:
         body = query if isinstance(query, (bytes, str)) else None
         json_body = None if body is not None else query
-        async with self._session.request(
+        resp = await self._session.request(
             self.method,
             self.url,
             data=body,
             json=json_body,
             headers=self.headers,
-        ) as resp:
-            if resp.status >= 300:
-                raise RuntimeError(f"http sink status {resp.status}")
+        )
+        if resp.status >= 300:
+            raise RuntimeError(f"http sink status {resp.status}")
 
     async def health_check(self) -> bool:
         try:
-            async with self._session.head(
-                self.url, headers=self.headers
-            ) as resp:
-                return resp.status < 500
+            resp = await self._session.head(self.url, headers=self.headers)
+            return resp.status < 500
         except Exception:
             return False
 

@@ -1039,6 +1039,16 @@ def mgmt_world(device: str, n_filters: int = 4000, n_msgs: int = 64,
     return out
 
 
+async def _ack_publishes(cl) -> None:
+    """PUBACK every QoS 1 PUBLISH a `TransportClient` receives."""
+    while True:
+        pkt = await cl.inbox.get()
+        if pkt is None:
+            return
+        if pkt.type == cl.C.PUBLISH and pkt.qos == 1:
+            cl.send(cl.C.Puback(packet_id=pkt.packet_id))
+
+
 def _publishes(cl):
     """The PUBLISH packets in a `TransportClient`'s raw bytes."""
     parser = cl.C.StreamParser(version=cl.version)
@@ -1062,4 +1072,627 @@ def mgmt_outcome(world: dict) -> dict:
         if not (n.startswith("emqx_engine_") and k == "gauge")},)
     return api_norm({k: v for k, v in world.items() if k != "engine"}
                     | {"reads": reads})
+
+
+# ------------------------------------------- authentication back ends
+
+class _TcpFixture:
+    """A loopback TCP server whose ``stop`` also ends its connections;
+    ``_serve(r, w)`` serves one connection."""
+
+    port = 0
+    _server = None
+
+    async def start(self) -> None:
+        self._conns: set = set()
+        self._server = await asyncio.start_server(self._conn, "127.0.0.1", 0)
+        self.port = self._server.sockets[0].getsockname()[1]
+
+    async def stop(self) -> None:
+        self._server.close()
+        for t in list(self._conns):
+            t.cancel()
+        await asyncio.gather(*self._conns, return_exceptions=True)
+        await self._server.wait_closed()
+
+    async def _conn(self, r, w) -> None:
+        task = asyncio.current_task()
+        self._conns.add(task)
+        try:
+            await self._serve(r, w)
+        except (asyncio.IncompleteReadError, ConnectionError):
+            pass
+        finally:
+            self._conns.discard(task)
+            w.close()
+
+
+class MongoFixture(_TcpFixture):
+    """A loopback MongoDB stand-in speaking OP_MSG (opcode 2013):
+    ``find`` over named collections, by equality on every field of the
+    filter (``username`` indexed), with ``limit``; any other command
+    answers ``ok: 0``.  Pipelined requests on one connection are
+    answered in order.  ``finds`` counts requests by collection."""
+
+    def __init__(self, collections, database: str = "mqtt",
+                 index: str = "username") -> None:
+        self.database = database
+        self.index = index
+        self._by = {}
+        for name, docs in collections.items():
+            by = self._by[name] = {}
+            for d in docs:
+                by.setdefault(d.get(index), []).append(d)
+        self.finds: dict = {name: 0 for name in collections}
+        self.connections = 0
+
+    def _answer(self, doc: dict) -> dict:
+        coll = doc.get("find")
+        if coll not in self._by:
+            return {"ok": 0.0, "errmsg": f"no such command or collection "
+                                         f"{next(iter(doc), '')!r}"}
+        self.finds[coll] += 1
+        flt = doc.get("filter") or {}
+        docs = self._by[coll].get(flt.get(self.index), ()) \
+            if self.index in flt else \
+            [d for ds in self._by[coll].values() for d in ds]
+        batch = [d for d in docs
+                 if all(d.get(k) == v for k, v in flt.items())]
+        if doc.get("limit"):
+            batch = batch[:int(doc["limit"])]
+        return {"cursor": {"firstBatch": batch, "id": 0,
+                           "ns": f"{self.database}.{coll}"}, "ok": 1.0}
+
+    async def _serve(self, r, w) -> None:
+        import struct
+
+        from .auth_mongo import OP_MSG, bson_decode, bson_encode
+
+        self.connections += 1
+        while True:
+            length, rid, _to, opcode = struct.unpack(
+                "<iiii", await r.readexactly(16))
+            payload = await r.readexactly(length - 16)
+            if opcode != OP_MSG:
+                return
+            doc, _ = bson_decode(payload, 5)
+            body = (struct.pack("<I", 0) + b"\x00"
+                    + bson_encode(self._answer(doc)))
+            w.write(struct.pack("<iiii", 16 + len(body), 0, rid, OP_MSG)
+                    + body)
+            await w.drain()
+
+
+def _ber_read(buf: bytes, off: int):
+    """(tag, content, next offset) of the BER element at ``off``."""
+    tag, ln = buf[off], buf[off + 1]
+    off += 2
+    if ln & 0x80:
+        n = ln & 0x7F
+        ln = int.from_bytes(buf[off:off + n], "big")
+        off += n
+    if off + ln > len(buf):
+        raise ValueError("truncated BER element")
+    return tag, buf[off:off + ln], off + ln
+
+
+class LdapFixture(_TcpFixture):
+    """A loopback directory answering LDAPv3 simple binds: resultCode 0
+    for an entry's password, 49 (invalidCredentials) for a wrong one,
+    and 32 (noSuchObject) for a DN it does not hold, as a directory
+    without that entry under its base does (so the authenticator passes
+    the client on down the chain).  ``binds`` lists the (dn, password)
+    pairs it was asked."""
+
+    def __init__(self, entries) -> None:
+        self.entries = dict(entries)  # dn -> password bytes
+        self.binds: List[tuple] = []
+
+    def _answer(self, msg: bytes) -> Optional[bytes]:
+        from .auth_ldap import _ber, _ber_int
+
+        _, seq, _ = _ber_read(msg, 0)
+        _, mid, off = _ber_read(seq, 0)
+        tag, op, _ = _ber_read(seq, off)
+        if tag != 0x60:  # only BindRequest; an unbind ends the session
+            return None
+        _, _version, o = _ber_read(op, 0)
+        _, dn, o = _ber_read(op, o)
+        tag, pw, _ = _ber_read(op, o)
+        dn_s = dn.decode("utf-8", "replace")
+        self.binds.append((dn_s, pw))
+        want = self.entries.get(dn_s)
+        code = 32 if want is None else (0 if tag == 0x80 and pw == want
+                                        else 49)
+        resp = _ber(0x61, _ber(0x0A, bytes([code])) + _ber(0x04, b"")
+                    + _ber(0x04, b""))
+        return _ber(0x30, _ber_int(int.from_bytes(mid, "big")) + resp)
+
+    async def _serve(self, r, w) -> None:
+        while True:
+            head = await r.readexactly(2)
+            ext = b""
+            ln = head[1]
+            if ln & 0x80:
+                ext = await r.readexactly(ln & 0x7F)
+                ln = int.from_bytes(ext, "big")
+            try:
+                out = self._answer(head + ext + await r.readexactly(ln))
+            except (ValueError, IndexError):  # not an LDAPMessage
+                return
+            if out is None:
+                return
+            w.write(out)
+            await w.drain()
+
+
+class HttpAuthFixture:
+    """EMQX's HTTP authentication service on the port's own server
+    (`httpd`): ``POST /auth`` with the authenticator's JSON answers
+    ``{"result": "allow"}`` for a user's password, ``deny`` for a wrong
+    one and ``ignore`` for a user it does not know.  ``requests`` lists
+    the bodies it was sent."""
+
+    def __init__(self, users) -> None:
+        self.users = dict(users)  # username -> password
+        self.requests: List[dict] = []
+        self._http = None
+
+    @property
+    def url(self) -> str:
+        return f"http://127.0.0.1:{self._http.port}/auth"
+
+    async def _auth(self, request):
+        from . import httpd
+
+        body = await request.json()
+        self.requests.append(body)
+        want = self.users.get(body.get("username"))
+        result = ("ignore" if want is None
+                  else "allow" if body.get("password") == want else "deny")
+        return httpd.json_response({"result": result,
+                                    "is_superuser": False})
+
+    async def start(self) -> None:
+        from . import httpd
+
+        app = httpd.App()
+        app.add_post("/auth", self._auth)
+        self._http = httpd.HttpServer(app)
+        await self._http.start()
+
+    async def stop(self) -> None:
+        await self._http.stop()
+
+
+# users, keys and ACL rows from a seed
+
+def salted_sha256_docs(rng: np.random.Generator, users) -> List[dict]:
+    """EMQX's ``mqtt_user`` documents for ``[(username, password)]``:
+    salted SHA-256, the salt before the password (EMQX's default)."""
+    import hashlib
+
+    docs = []
+    for name, pw in users:
+        salt = rng.bytes(8).hex()
+        docs.append({"username": name, "salt": salt, "is_superuser": False,
+                     "password_hash": hashlib.sha256(
+                         (salt + pw).encode()).hexdigest()})
+    return docs
+
+
+def acl_docs(usernames) -> List[dict]:
+    """Two ``mqtt_acl`` documents a user, with placeholders: publish on
+    the user's own vehicle's sensors (``topics``) or its client's
+    ``up`` topic, subscribe to every vehicle's sensors (``topic``); the
+    broker's authz default denies the rest."""
+    docs = []
+    for u in usernames:
+        docs.append({"username": u, "permission": "allow",
+                     "action": "publish",
+                     "topics": ["vehicles/${username}/sensors/#",
+                                "${clientid}/up"]})
+        docs.append({"username": u, "permission": "allow",
+                     "action": "subscribe", "topic": "vehicles/+/sensors/#"})
+    return docs
+
+
+_PRIMORIAL: List[int] = []  # the product of the odd primes below 20,000
+
+
+def _rand_int(rng: np.random.Generator, bits: int) -> int:
+    return int.from_bytes(rng.bytes((bits + 7) // 8), "big") >> (
+        -bits % 8)
+
+
+def _probable_prime(rng: np.random.Generator, bits: int) -> int:
+    """A random prime of ``bits`` bits (its top two bits set): odd
+    candidates sieved by a gcd with `_PRIMORIAL`, then five
+    Miller-Rabin rounds with random bases (enough for random candidates
+    of 1,024 bits, FIPS 186-4 table C.2)."""
+    import math
+
+    if not _PRIMORIAL:
+        sieve = bytearray([1]) * 20_000
+        prod = 1
+        for p in range(3, 20_000, 2):
+            if sieve[p]:
+                prod *= p
+                sieve[p * p::2 * p] = bytes(len(range(p * p, 20_000, 2 * p)))
+        _PRIMORIAL.append(prod)
+    while True:
+        n = _rand_int(rng, bits) | (3 << (bits - 2)) | 1
+        if math.gcd(n, _PRIMORIAL[0]) != 1:
+            continue
+        d, s = n - 1, 0
+        while not d & 1:
+            d, s = d >> 1, s + 1
+        for _ in range(5):
+            x = pow(2 + _rand_int(rng, bits - 2) % (n - 3), d, n)
+            if x in (1, n - 1):
+                continue
+            for _ in range(s - 1):
+                x = x * x % n
+                if x == n - 1:
+                    break
+            else:
+                break
+        else:
+            return n
+
+
+def rsa_key(rng: np.random.Generator, bits: int = 2048) -> dict:
+    """An RSA key pair with e = 65537 from ``rng``: n, e and the CRT
+    parts of d."""
+    e = 65537
+    while True:
+        p = _probable_prime(rng, bits // 2)
+        q = _probable_prime(rng, bits - bits // 2)
+        if p == q or (p - 1) % e == 0 or (q - 1) % e == 0:
+            continue
+        n = p * q
+        if n.bit_length() == bits:
+            d = pow(e, -1, (p - 1) * (q - 1))
+            return {"kty": "RSA", "n": n, "e": e, "p": p, "q": q,
+                    "dp": d % (p - 1), "dq": d % (q - 1),
+                    "qi": pow(q, -1, p)}
+
+
+def _p256_times_g(k: int) -> Tuple[int, int]:
+    """k * G on P-256, affine."""
+    from .gcp_device import _G, _P, _mul2
+
+    x, y, z = _mul2(k, (*_G, 1), 0, (*_G, 1))
+    zi = pow(z, -1, _P)
+    return x * zi * zi % _P, y * zi * zi * zi % _P
+
+
+def p256_key(rng: np.random.Generator) -> dict:
+    """A P-256 key pair from ``rng``: d and the point (x, y)."""
+    from .gcp_device import _N
+
+    d = 1 + _rand_int(rng, 256) % (_N - 1)
+    x, y = _p256_times_g(d)
+    return {"kty": "EC", "d": d, "x": x, "y": y}
+
+
+def _der(tag: int, content: bytes) -> bytes:
+    n = len(content)
+    if n < 0x80:
+        return bytes([tag, n]) + content
+    ln = n.to_bytes((n.bit_length() + 7) // 8, "big")
+    return bytes([tag, 0x80 | len(ln)]) + ln + content
+
+
+def _der_uint(v: int) -> bytes:
+    return _der(0x02, v.to_bytes(v.bit_length() // 8 + 1, "big"))
+
+
+def public_pem(key: dict) -> str:
+    """The key's SubjectPublicKeyInfo as PEM (IoT Core's ``RSA_PEM`` and
+    ``ES256_PEM``)."""
+    import base64
+
+    if key["kty"] == "RSA":
+        alg = _der(0x30, bytes.fromhex("06092a864886f70d010101") +
+                   b"\x05\x00")
+        bits = _der(0x30, _der_uint(key["n"]) + _der_uint(key["e"]))
+    else:
+        alg = _der(0x30, bytes.fromhex("06072a8648ce3d0201"
+                                       "06082a8648ce3d030107"))
+        bits = (b"\x04" + key["x"].to_bytes(32, "big")
+                + key["y"].to_bytes(32, "big"))
+    der = _der(0x30, alg + _der(0x03, b"\x00" + bits))
+    b64 = base64.b64encode(der).decode()
+    lines = [b64[i:i + 64] for i in range(0, len(b64), 64)]
+    return "\n".join(["-----BEGIN PUBLIC KEY-----", *lines,
+                      "-----END PUBLIC KEY-----", ""])
+
+
+def _b64url(data: bytes) -> str:
+    import base64
+
+    return base64.urlsafe_b64encode(data).rstrip(b"=").decode()
+
+
+def sign_jwt(key: dict, claims: dict) -> str:
+    """A JWT over ``claims`` signed RS256 (an RSA key) or ES256 (a P-256
+    key, a random per-signature secret)."""
+    import hashlib
+    import secrets
+
+    from .gcp_device import _N
+
+    alg = "RS256" if key["kty"] == "RSA" else "ES256"
+    head = _b64url(json.dumps({"alg": alg, "typ": "JWT"}).encode())
+    signing = f"{head}.{_b64url(json.dumps(claims).encode())}"
+    digest = hashlib.sha256(signing.encode()).digest()
+    if alg == "RS256":
+        from .gcp_device import _SHA256_PREFIX
+
+        k = (key["n"].bit_length() + 7) // 8
+        t = _SHA256_PREFIX + digest
+        m = int.from_bytes(b"\x00\x01" + b"\xff" * (k - len(t) - 3)
+                           + b"\x00" + t, "big")
+        p, q = key["p"], key["q"]
+        m1, m2 = pow(m, key["dp"], p), pow(m, key["dq"], q)
+        s = m2 + q * (key["qi"] * (m1 - m2) % p)
+        sig = s.to_bytes(k, "big")
+    else:
+        e = int.from_bytes(digest, "big")
+        r = s = 0
+        while not (r and s):
+            nonce = 1 + secrets.randbelow(_N - 1)
+            r = _p256_times_g(nonce)[0] % _N
+            s = pow(nonce, -1, _N) * (e + r * key["d"]) % _N
+        sig = r.to_bytes(32, "big") + s.to_bytes(32, "big")
+    return f"{signing}.{_b64url(sig)}"
+
+
+AUTH_KINDS = ("gcp", "ldap", "http", "mongo")  # the chain's order
+GCP_PREFIX = "projects/p1/locations/us-central1/registries/fleet/devices/"
+LDAP_DN = "uid=${username},ou=users,dc=example,dc=com"
+
+
+def authdb_script(seed: int, n_clients: int, n_mongo_users: int,
+                  n_gcp: Tuple[int, int] = (4, 4), n_ldap: int = 16,
+                  n_http: int = 16, n_msgs: int = 64,
+                  rsa_bits: int = 2048,
+                  rsa_keys: Optional[List[dict]] = None) -> dict:
+    """A seeded world of the four authentication back ends, in the
+    chain's order (`AUTH_KINDS`): GCP devices (``n_gcp`` RS256 and ES256
+    keys, a JWT each, usernames v0...), LDAP users, HTTP users and
+    ``n_mongo_users`` Mongo users (salted SHA-256), each named after a
+    vehicle of the fleet filters (``v<j>``, disjoint ranges), with
+    `acl_docs` for every one of them.
+
+    ``connects``: ``n_clients`` CONNECTs round-robin over the kinds,
+    ``(kind, clientid, username, password, accepted)``; the first of
+    each kind is refused (a JWT of another key, a wrong password).
+    The clients that stay connected are the last three of each kind
+    whose clientid no later CONNECT reuses: two ``publishers`` and a
+    ``subscriber``.  ``pubs``: ``n_msgs`` QoS 1 publishes ``(connect
+    index, topic)`` round-robin over the publishers, each on its own
+    vehicle's sensors but every 8th on the next vehicle's (outside its
+    rows).  ``rsa_keys``, when given, are the RSA keys (`rsa_key`; a
+    caller may make them in parallel), else they are made here."""
+    rng = np.random.default_rng(seed)
+    n_rsa, n_ec = n_gcp
+    if rsa_keys is None:
+        rsa_keys = [rsa_key(rng, rsa_bits) for _ in range(n_rsa)]
+    keys = list(rsa_keys) + [p256_key(rng) for _ in range(n_ec)]
+    wrong = p256_key(rng)
+    base = {"gcp": 0}
+    base["ldap"] = len(keys)
+    base["http"] = base["ldap"] + n_ldap
+    base["mongo"] = base["http"] + n_http
+    sizes = {"gcp": len(keys), "ldap": n_ldap, "http": n_http,
+             "mongo": n_mongo_users}
+
+    def users(kind):
+        return [(f"v{base[kind] + i}", rng.bytes(6).hex())
+                for i in range(sizes[kind])]
+
+    by_kind = {kind: users(kind) for kind in AUTH_KINDS[1:]}
+    import time as _time
+
+    exp = int(_time.time()) + 3600
+    devices, tokens = [], []
+    for i, key in enumerate(keys):
+        devices.append({"deviceid": f"d{i}", "project": "p1",
+                        "location": "us-central1", "registry": "fleet",
+                        "keys": [{"key_type": "RSA_PEM" if key["kty"] == "RSA"
+                                  else "ES256_PEM", "key": public_pem(key),
+                                  "expires_at": 0}]})
+        tokens.append(sign_jwt(key, {"aud": "p1", "exp": exp}))
+    connects = []
+    seen = dict.fromkeys(AUTH_KINDS, 0)
+    for i in range(n_clients):
+        kind = AUTH_KINDS[i % len(AUTH_KINDS)]
+        j = seen[kind]
+        seen[kind] += 1
+        if kind == "gcp":
+            d = j % len(keys)
+            cid, name = f"{GCP_PREFIX}d{d}", f"v{d}"
+            pw = tokens[d] if j else sign_jwt(wrong, {"exp": exp})
+        else:
+            name, pw = by_kind[kind][j % sizes[kind]]
+            cid = f"{kind}-{j}"
+            if not j:
+                pw = "not-" + pw
+        connects.append((kind, cid, name, pw.encode(), j > 0))
+    keep = {kind: [] for kind in AUTH_KINDS}
+    later: set = set()
+    for i in range(n_clients - 1, -1, -1):
+        kind, cid, _n, _p, ok = connects[i]
+        if ok and cid not in later and len(keep[kind]) < 3:
+            keep[kind].append(i)
+        later.add(cid)
+    if any(len(v) < 3 for v in keep.values()):
+        raise ValueError(f"{n_clients} clients leave {keep}: each kind needs "
+                         f"three that stay connected")
+    publishers = [i for kind in AUTH_KINDS for i in keep[kind][:2]]
+    pubs = []
+    for k in range(n_msgs):
+        i = publishers[k % len(publishers)]
+        me = int(connects[i][2][1:])
+        j = me + 1 if k % 8 == 7 else me
+        pubs.append((i, f"vehicles/v{j}/sensors/temp"))
+    all_users = [(f"v{i}", None) for i in range(len(keys))] + [
+        u for kind in AUTH_KINDS[1:] for u in by_kind[kind]]
+    return {
+        "seed": seed, "devices": devices,
+        "ldap": {LDAP_DN.replace("${username}", name): pw.encode()
+                 for name, pw in by_kind["ldap"]},
+        "http": dict(by_kind["http"]),
+        "mongo_users": salted_sha256_docs(rng, by_kind["mongo"]),
+        "acl": acl_docs(name for name, _ in all_users),
+        "connects": connects, "pubs": pubs,
+        "publishers": publishers,
+        "subscribers": [keep[kind][2] for kind in AUTH_KINDS],
+    }
+
+
+def port_impl(device: str):
+    """The port's modules as `authdb_world` drives them."""
+    from types import SimpleNamespace
+
+    from . import auth_ldap, auth_mongo, auth_providers, config
+    from .broker.listener import BrokerServer
+
+    return SimpleNamespace(
+        config=config, ldap=auth_ldap, providers=auth_providers,
+        mongo=auth_mongo, server=lambda cfg: BrokerServer(cfg, device=device))
+
+
+async def start_auth_backends(script: dict):
+    """The script's Mongo, LDAP and HTTP fixtures, started."""
+    mongo = MongoFixture({"mqtt_user": script["mongo_users"],
+                          "mqtt_acl": script["acl"]})
+    ldap = LdapFixture(script["ldap"])
+    http = HttpAuthFixture(script["http"])
+    for f in (mongo, ldap, http):
+        await f.start()
+    return mongo, ldap, http
+
+
+def auth_chain(impl, broker, fixtures) -> None:
+    """Append the LDAP, HTTP and Mongo authenticators behind the GCP one
+    the broker made, and the Mongo ACL source, on one Mongo
+    connection."""
+    mongo, ldap, http = fixtures
+    conn = impl.mongo.MongoConnector("127.0.0.1", mongo.port)
+    broker.access.authenticators += [
+        impl.ldap.LdapAuthenticator("127.0.0.1", ldap.port, bind_dn=LDAP_DN),
+        impl.providers.HttpAuthenticator(http.url),
+        impl.mongo.MongoAuthenticator(conn),
+    ]
+    broker.access.db_authz_sources.append(impl.mongo.MongoAuthorizer(conn))
+
+
+def auth_config(impl, data_dir: str):
+    """The auth world's server config: no anonymous clients, authz
+    default deny, the GCP registry in ``data_dir``."""
+    cfg = impl.config.BrokerConfig(listeners=[impl.config.ListenerConfig(
+        bind="127.0.0.1", port=0)])
+    cfg.auth.allow_anonymous = False
+    cfg.auth.authz_default = "deny"
+    cfg.gcp_device_enable = True
+    cfg.gcp_device_file = os.path.join(data_dir, "gcp_devices.json")
+    cfg.sys.enable = False
+    return cfg
+
+
+def authdb_world(device: str, script: dict, n_filters: int = 4000,
+                 impl=None) -> dict:
+    """Run `authdb_script`'s world through a `BrokerServer` on
+    ``device`` over TCP (``impl``: the modules to drive, the port's by
+    default): the fixtures started, ``n_filters`` fleet filters in the
+    engine, the registry imported, the chain of `auth_chain`; each
+    CONNECT in turn (MQTT 5, each CONNACK awaited), the subscribers on
+    the vehicles' sensors and on a topic their rows do not allow, the
+    publishes one at a time (each PUBACK awaited), the deliveries
+    awaited.  Returns every client's bytes (by CONNECT index: a GCP
+    device connects more than once), the broker's metrics and what each
+    back end was asked."""
+    import shutil
+    import tempfile
+
+    impl = impl or port_impl(device)
+    filters, _ = make_filters(n_filters, 8)
+    out: dict = {}
+
+    async def run() -> None:
+        data_dir = tempfile.mkdtemp(prefix="emqx-authdb-")
+        fixtures = await start_auth_backends(script)
+        srv = impl.server(auth_config(impl, data_dir))
+        b = srv.broker
+        imported = b.gcp_devices.import_devices(script["devices"])
+        auth_chain(impl, b, fixtures)
+        b.router.engine.insert_many(
+            [("/".join(ws), fid) for fid, ws in filters])
+        await srv.start()
+        clients = {}
+        keepers = set(script["publishers"]) | set(script["subscribers"])
+        acks = []
+        try:
+            for i, (_k, cid, name, pw, ok) in enumerate(script["connects"]):
+                cl = TransportClient(srv.listeners[0].port, cid,
+                                     username=name, password=pw)
+                await cl.connect(rc=0 if ok else 0x86)
+                if i not in keepers:  # a refused client is never kept
+                    if ok:
+                        cl.send(cl.C.Disconnect())
+                    await cl.eof()
+                clients[i] = cl
+            for i in script["subscribers"]:
+                cl = clients[i]
+                cl.send(cl.C.Subscribe(packet_id=1, subscriptions=[
+                    cl.C.Subscription(topic_filter=f, qos=1)
+                    for f in ("vehicles/+/sensors/#", "nomatch/#")]))
+                await cl.expect(cl.C.SUBACK)
+                acks.append(asyncio.get_running_loop().create_task(
+                    _ack_publishes(cl)))
+            b.router.engine.rebuild()
+            asked = (dict(fixtures[0].finds), len(fixtures[1].binds),
+                     len(fixtures[2].requests))
+            for k, (i, topic) in enumerate(script["pubs"]):
+                cl = clients[i]
+                cl.send(cl.C.Publish(topic=topic, qos=1, packet_id=k + 1,
+                                     payload=b"%d" % k))
+                await cl.expect(cl.C.PUBACK)
+            accepted = sum(
+                1 for i, t in script["pubs"]
+                if t.split("/")[1] == script["connects"][i][2])
+            deadline = asyncio.get_running_loop().time() + 60
+            for i in script["subscribers"]:
+                while len(_publishes(clients[i])) < accepted:
+                    if asyncio.get_running_loop().time() > deadline:
+                        raise AssertionError(
+                            f"subscriber {i}: {len(_publishes(clients[i]))} "
+                            f"of {accepted} messages")
+                    await asyncio.sleep(0.01)
+            for i in script["publishers"]:
+                await clients[i].quiet()
+            out["bytes"] = {i: bytes(cl.raw) for i, cl in clients.items()}
+            out["imported"] = imported
+            out["asked"] = {
+                "mongo": dict(fixtures[0].finds),
+                "ldap": [dn for dn, _ in fixtures[1].binds],
+                "http": [r["username"] for r in fixtures[2].requests],
+                "before_publish": asked,
+            }
+            out["metrics"] = dict(b.metrics.all())
+        finally:
+            for t in acks:
+                t.cancel()
+            for cl in clients.values():
+                await cl.close()
+            await srv.stop()
+            for f in fixtures:
+                await f.stop()
+            shutil.rmtree(data_dir, ignore_errors=True)
+
+    asyncio.run(asyncio.wait_for(run(), 300))
+    return out
 

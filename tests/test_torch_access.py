@@ -342,17 +342,46 @@ def test_async_authorize_hook_keeps_publish_order():
 
 
 def test_acl_prefetch_returns_at_once_without_db_sources():
-    """Without DB-backed authz sources the reference's ``prefetch_acl``
-    returns at once and caches nothing; the port has no such sources
-    and refuses one, so no fetched row can go unread."""
-    ref = RA.AccessControl()
-    asyncio.run(ref.prefetch_acl(RA.ClientInfo("c0")))
-    assert ref._acl_cache == {} and not ref.has_async_authz
-    ac = PA.AccessControl()
-    assert asyncio.run(ac.prefetch_acl(PA.ClientInfo("c0"))) is None
-    assert not ac.has_async_authz and ac.db_authz_sources == ()
-    with pytest.raises(AttributeError):
-        ac.db_authz_sources.append(object())
+    """Without DB-backed authz sources ``prefetch_acl`` returns at once
+    and caches nothing, in both packages; with one, both cache the
+    client's rows at the prefetch, evaluate them after the file sources,
+    and keep no entry when a fetch fails (the chain default decides)."""
+
+    class Rows:
+        def __init__(self, rows):
+            self.rows, self.calls = rows, 0
+
+        async def fetch_rows(self, client):
+            self.calls += 1
+            if self.rows is None:
+                raise ConnectionError("db down")
+            return [dict(r, topic=r["topic"].replace("X", client.clientid))
+                    for r in self.rows]
+
+    rows = [{"permission": "deny", "action": "publish", "topic": "a/X/no"},
+            {"permission": "allow", "action": "all", "topic": "a/X/#"}]
+    out = []
+    for A in (RA, PA):
+        ac = A.AccessControl(authz_default="deny")
+        assert asyncio.run(ac.prefetch_acl(A.ClientInfo("c0"))) is None
+        assert ac._acl_cache == {} and not ac.has_async_authz
+        src = Rows(rows)
+        ac.db_authz_sources.append(src)
+        ac.authz_sources.append(A.AclProvider([A.AclRule(
+            "deny", action="subscribe", topics=["a/c1/sub"])]))
+        c1, c2 = A.ClientInfo("c1"), A.ClientInfo("c2")
+        asyncio.run(ac.prefetch_acl(c1))
+        verdicts = [ac.authorize(c, act, t) for c in (c1, c2)
+                    for act in (A.PUBLISH, A.SUBSCRIBE)
+                    for t in ("a/c1/x", "a/c1/no", "a/c1/sub", "b")]
+        src.rows = None
+        asyncio.run(ac.prefetch_acl(c1))
+        out.append((ac.has_async_authz, src.calls, verdicts,
+                    ac._acl_cache, ac.authorize(c1, A.PUBLISH, "a/c1/x")))
+    assert out[0] == out[1]
+    assert out[1][2][:8] == [True, False, True, False,
+                             True, True, False, False]
+    assert out[1][3] == {} and out[1][4] is False
 
 
 def test_access_world_refuses_delays_and_counts_on_cpu():

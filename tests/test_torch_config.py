@@ -469,6 +469,40 @@ def test_api_from_a_file_and_the_environment(tmp_path):
     assert got[1][1]["enable"] is True and got[1][1]["port"] == 18099
 
 
+@pytest.mark.parametrize("source", ["file", "environment"])
+def test_gcp_device_keys_ported_like_reference(tmp_path, source):
+    """``gcp_device_enable`` and ``gcp_device_file`` are no longer
+    refused: the reference's defaults, loaded from a file or the
+    environment alike; enabled, the broker holds the registry (its
+    directory made) and its authenticator leads the chain."""
+    assert "gcp_device_enable" not in PCfg.NOT_PORTED
+    assert "exhooks" in PCfg.NOT_PORTED
+    want = str(tmp_path / "gcp" / "devices.json")
+    got = []
+    for mod in (RC, PCfg):
+        assert (mod.BrokerConfig().gcp_device_enable,
+                mod.BrokerConfig().gcp_device_file) == (
+                    False, "data/gcp_devices.json")
+        if source == "file":
+            path = tmp_path / "c.json"
+            path.write_text(json.dumps({"gcp_device_enable": True,
+                                        "gcp_device_file": want}))
+            cfg = mod.ConfigHandler.load(str(path)).root
+        else:
+            cfg = mod.BrokerConfig()
+            mod.apply_env_overrides(cfg, environ={
+                "EMQX_TPU_GCP_DEVICE_ENABLE": "true",
+                "EMQX_TPU_GCP_DEVICE_FILE": json.dumps(want)})
+        got.append((cfg.gcp_device_enable, cfg.gcp_device_file))
+    assert got[0] == got[1] == (True, want)
+    b = Broker(cfg, device="cpu")  # the port's config, the last loaded
+    assert os.path.isdir(str(tmp_path / "gcp"))
+    assert b.gcp_devices.list_devices() == []
+    assert type(b.access.authenticators[0]).__name__ == \
+        "GcpDeviceAuthenticator"
+    assert Broker(PCfg.BrokerConfig(), device="cpu").gcp_devices is None
+
+
 def test_put_configs_on_a_not_ported_path_gives_400(tmp_path):
     """``PUT /api/v5/configs`` on a path under ``NOT_PORTED`` answers
     400 naming the key (the reference applies it); a ported path is

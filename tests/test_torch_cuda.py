@@ -1265,6 +1265,32 @@ def test_mgmt_world_on_card_equals_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_authdb_world_on_card_equals_cpu(cuda):
+    """chip_smoke's auth back-end world at a small size (4,000 filters,
+    64 clients over the GCP, LDAP, HTTP and Mongo back ends), on the card
+    and on the CPU: every client's bytes, the metrics and what each back
+    end was asked (one ACL find a client, none after CONNECT); K1 and K3
+    launched on the card, K3 once a decide window."""
+    from emqx_tpu_torch import workload as W
+
+    script = W.authdb_script(14, 64, 256, n_gcp=(4, 4), n_msgs=256)
+    impl, made = W.port_impl("cuda"), []
+    serve = impl.server
+    impl.server = lambda cfg: made.append(serve(cfg)) or made[-1]
+    mk.reset_launches()
+    got = W.authdb_world("cuda", script, impl=impl)
+    launches = mk.launches()
+    want = W.authdb_world("cpu", script)
+    assert got["bytes"] == want["bytes"]
+    assert got["asked"] == want["asked"]
+    assert got["metrics"] == want["metrics"]
+    decides = made[0].broker.router.engine.counters["decide_windows"]
+    assert launches["match_batch_compact"] >= 1
+    assert launches["decide_packed"] == decides >= 1
+    assert got["asked"]["mongo"] == got["asked"]["before_publish"][0]
+
+
+@pytest.mark.cuda
 def test_sinks_world_on_card_equals_cpu(cuda):
     """chip_smoke's sinks broker world in process at a small size:
     config 4's rules with sink, template and aggregate actions and the

@@ -64,6 +64,12 @@ import emqx_tpu_torch.mgmt
 import emqx_tpu_torch.mgmt_auth
 import emqx_tpu_torch.dashboard
 import emqx_tpu_torch.ctl
+import emqx_tpu_torch.httpc
+import emqx_tpu_torch.auth_db
+import emqx_tpu_torch.auth_mongo
+import emqx_tpu_torch.auth_ldap
+import emqx_tpu_torch.psk
+import emqx_tpu_torch.gcp_device
 bad = sorted(
     n for n in sys.modules
     if n == "jax" or n.startswith("jax.")
@@ -72,7 +78,8 @@ bad = sorted(
 print("BAD", bad)
 opt = sorted(
     n for n in sys.modules
-    if n.split(".")[0] in ("aiohttp", "jsonschema")
+    if n.split(".")[0] in ("aiohttp", "jsonschema", "grpc", "cryptography",
+                           "aiomysql", "asyncpg", "redis")
     or n == "google.protobuf" or n.startswith("google.protobuf.")
 )
 print("OPT", opt)
@@ -92,9 +99,10 @@ def test_port_imports_no_jax_and_no_reference():
 
 
 def test_port_imports_no_optional_dependency():
-    """The HTTP sink's aiohttp, protobuf and jsonschema load when a sink
-    starts or a schema is added, never when the port is imported (the
-    card's machine has none of them)."""
+    """Importing the port loads none of aiohttp, grpc, cryptography, the
+    SQL and Redis drivers (the gated connectors import theirs when
+    constructed), protobuf or jsonschema (loaded when a schema of their
+    type is added): the port needs none of them to run."""
     proc = _run("-c", _CHECK)
     assert proc.returncode == 0, proc.stderr
     assert "OPT []" in proc.stdout, proc.stdout
@@ -255,3 +263,81 @@ def test_native_loader_reads_only_the_ports_sources():
     mine = sorted(os.path.join(REPO, "emqx_tpu_torch", "native", f"{n}.cpp")
                   for n in ("dispatchasm", "hosttrie", "sortutil", "tokdict"))
     assert f"SRCS {mine}" in proc.stdout, proc.stdout
+
+
+_BACKENDS_WITHOUT_OPTIONAL = """
+import asyncio, json, sys, tempfile
+BLOCKED = ("aiohttp", "grpc", "cryptography", "aiomysql", "asyncpg",
+           "redis")
+for name in BLOCKED:
+    sys.modules[name] = None  # any import of it now fails
+from emqx_tpu_torch import httpd
+from emqx_tpu_torch import workload as W
+
+async def main():
+    hits = []
+
+    async def hook(request):
+        hits.append(await request.read())
+        return httpd.Response(status=204)
+
+    app = httpd.App()
+    app.add_route("HEAD", "/hook", hook)
+    app.add_post("/hook", hook)
+    hook_srv = httpd.HttpServer(app)
+    await hook_srv.start()
+    script = W.authdb_script(5, 16, 8, n_gcp=(1, 2), n_ldap=3, n_http=3,
+                             n_msgs=8, rsa_bits=1024)
+    fixtures = await W.start_auth_backends(script)
+    tmp = tempfile.mkdtemp()
+    impl = W.port_impl("cpu")
+    cfg = W.auth_config(impl, tmp)
+    cfg.sinks = [{"id": "web", "type": "http",
+                  "url": f"http://127.0.0.1:{hook_srv.port}/hook"}]
+    srv = impl.server(cfg)
+    srv.broker.gcp_devices.import_devices(script["devices"])
+    W.auth_chain(impl, srv.broker, fixtures)
+    await srv.start()
+    try:
+        w = srv.broker.resources.get("web")
+        w.enqueue(b"payload")
+        for _ in range(500):
+            if w.stats["success"]:
+                break
+            await asyncio.sleep(0.01)
+        print("SINK", w.status, w.stats["success"], hits)
+        codes = []
+        for kind, cid, name, pw, ok in script["connects"][4:8]:
+            cl = W.TransportClient(srv.listeners[0].port, cid,
+                                   username=name, password=pw)
+            codes.append((await cl.connect()).reason_code)
+            await cl.close()
+        print("CONNACK", codes, dict(fixtures[0].finds))
+    finally:
+        await srv.stop()
+        await hook_srv.stop()
+        for f in fixtures:
+            await f.stop()
+    print("LOADED", sorted(n for n in sys.modules
+                           if (n.split(".")[0] in ("jax", "emqx_tpu")
+                               or n.split(".")[0] in BLOCKED)
+                           and sys.modules[n] is not None))
+
+asyncio.run(asyncio.wait_for(main(), 60))
+"""
+
+
+def test_backends_sink_and_gcp_run_without_optional_dependencies():
+    """With aiohttp, grpc, cryptography and the SQL/Redis drivers made
+    unimportable, a `BrokerServer` with an ``http`` sink and the GCP
+    registry on starts, its sink delivers (the F3 repair: the port's own
+    HTTP client), a GCP device (ES256, the port's own verifier), an LDAP,
+    an HTTP and a Mongo user each connect, and neither those modules
+    nor jax nor the JAX package was loaded."""
+    proc = _run("-c", _BACKENDS_WITHOUT_OPTIONAL)
+    assert proc.returncode == 0, proc.stderr
+    # the health probe's HEAD, then the delivery
+    assert "SINK connected 1 [b'', b'payload']" in proc.stdout, proc.stdout
+    assert "CONNACK [0, 0, 0, 0] {'mqtt_user': 1, 'mqtt_acl': 4}" in \
+        proc.stdout, proc.stdout
+    assert "LOADED []" in proc.stdout, proc.stdout

@@ -82,7 +82,7 @@ def ref_server(data_dir=None, **api):
     cfg = _cfg(RC, data_dir or tempfile.mkdtemp(prefix="emqx-mgmt-"), **api)
     cfg.engine.use_device = False
     srv = RefServer(cfg)
-    # sysmon (not ported, ROADMAP.md section 1 item 6) samples the host:
+    # sysmon (not ported, ROADMAP.md section 1 item 7) samples the host:
     # on a loaded box it raises alarms whose $SYS messages add windows
     srv.sysmon.interval = float("inf")
     return srv
@@ -179,7 +179,7 @@ norm = W.api_norm  # volatile fields (tokens, times, key ids) as "*"
 
 # what the reference shows and the port does not have yet (ROADMAP.md
 # section 3): node rows of unported modules; the rule engine's gauges of
-# the engine's host/device auto-policy and breaker (item 6)
+# the engine's host/device auto-policy and breaker (item 7)
 NODE_ROWS_NOT_PORTED = ("resume", "olp_level", "durability", "flight",
                         "multicore")
 RULES_STATS_NOT_PORTED = ("dev_errors", "host_us_ewma", "dev_us_ewma",
@@ -569,6 +569,14 @@ def test_scripted_sequence_every_route_every_role(L):
             await B.req("GET", "/api/v5/nodes", auth=keys["administrator"],
                         expect=200)
 
+            # the GCP device registry is off: 501 NOT_ENABLED from both
+            # (tests/test_torch_gcp_device.py drives it on)
+            for method in ("GET", "POST"):
+                await B.req(method, "/api/v5/gcp_devices", {}, expect=501)
+            for method in ("GET", "PUT", "DELETE"):
+                await B.req(method, "/api/v5/gcp_devices/reg/d%2F1", {},
+                            expect=501)
+
             # kick, then the client is gone
             await B.req("DELETE", "/api/v5/clients/dev-7", expect=204)
             await asyncio.sleep(0.1)
@@ -845,7 +853,7 @@ def test_unported_routes_answer_501_naming_their_item(L):
     reference serves them (or answers its own 501 NOT_ENABLED for the
     GCP registry)."""
     unported = [(m, p) for m, p, h in PM.ROUTES if h is None]
-    assert len(unported) == 37
+    assert len(unported) == 32
 
     async def t():
         ref, prt = await start_pair()
