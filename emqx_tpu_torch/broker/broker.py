@@ -9,7 +9,9 @@
      publish error), then ingress accounting and the retained store
      (`Retainer.store`) of every surviving retained publish: the
      fold's result, not the original, goes on to the retainer and the
-     match;
+     match.  The batcher awaits `publish_prepare_async`: when an
+     IO-backed hook (an exhook verdict RPC) is registered, the folds of
+     the window's messages await off the event loop concurrently;
   1. match — `MatchEngine.match_batch_submit/finish`: one compact match
      kernel launch for the window's distinct topics, codes expanded to
      filters on the host, the host tiers overlaid;
@@ -28,8 +30,12 @@
      room, ``native=False``) go through `Session.deliver_decided`.
      Each connection gets one corked write.  A connected run's
      ``(msg, opts)`` list is built only when a ``message.delivered``
-     hook is registered (`_materialize_run`), and its publishes older
-     than the slow-subscriber threshold go to `SlowSubs`;
+     hook or a ``delivered_batch_sinks`` entry is registered
+     (`_materialize_run`), and its publishes older than the
+     slow-subscriber threshold go to `SlowSubs`.  After the flush each
+     sink gets one call with every connected run of the window
+     (``[(clientid, [(msg, opts), ...]), ...]``; the exhook client's
+     ``message.delivered`` bridge);
   4. rules — the window's rule hits (rule fids the match returned
      beside the subscriptions) run through `RuleEngine.apply_batch`:
      one rules x window WHERE matrix kernel launch, then the actions.
@@ -66,7 +72,7 @@ import logging
 import os
 import time
 from collections import Counter, deque
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -94,6 +100,9 @@ from .session import Session, SubOpts
 from .shared import SharedSubManager
 
 log = logging.getLogger("emqx_tpu_torch.broker")
+
+# a fold that raised: counted as a publish error, never routed
+_PREPARE_ERROR = object()
 
 class Broker:
     """``native`` (the default) runs the C++ host path — the engine's
@@ -175,6 +184,10 @@ class Broker:
         # aggregators attached by rules (emqx_connector_aggregator
         # buffers): ticked by the server's 1 Hz housekeeping
         self.aggregators: List = []
+        # window-level ``message.delivered`` consumers: each is called
+        # once per dispatch window, after the flush, with the window's
+        # connected runs (the exhook client's bridge)
+        self.delivered_batch_sinks: List[Callable] = []
         self.banned = BannedList()
         fl = self.config.flapping
         self.flapping = FlappingDetector(
@@ -329,13 +342,46 @@ class Broker:
         and goes on to the match.  Returns the messages that go on, and
         a count per input message: 0 where the fold swallowed it or
         failed, None where dispatch fills it in."""
-        live: List[Message] = []
-        results: List[Optional[int]] = []
+        outs: List[object] = []
         for msg in msgs:
             try:
-                out = self.hooks.run_fold("message.publish", (), msg)
+                outs.append(self.hooks.run_fold("message.publish", (), msg))
             except Exception:
                 log.exception("publish prepare failed for %s", msg.topic)
+                outs.append(_PREPARE_ERROR)
+        return self._prepare_finish(msgs, outs)
+
+    async def publish_prepare_async(
+        self, msgs: Sequence[Message]
+    ) -> Tuple[List[Message], List[Optional[int]]]:
+        """`publish_prepare` for the batcher: when an IO-backed
+        ``message.publish`` hook is registered (an exhook verdict RPC),
+        the window's folds await off the event loop concurrently instead
+        of blocking it one round trip after another; without one this
+        is the synchronous path."""
+        if not self.hooks.has_async("message.publish"):
+            return self.publish_prepare(msgs)
+
+        async def fold_one(msg: Message) -> object:
+            try:
+                return await self.hooks.run_fold_async(
+                    "message.publish", (), msg)
+            except Exception:
+                log.exception("publish prepare failed for %s", msg.topic)
+                return _PREPARE_ERROR
+
+        outs = await asyncio.gather(*(fold_one(m) for m in msgs))
+        return self._prepare_finish(msgs, list(outs))
+
+    def _prepare_finish(
+        self, msgs: Sequence[Message], outs: List[object]
+    ) -> Tuple[List[Message], List[Optional[int]]]:
+        """Stage 0's tail, shared by both folds: apply each verdict,
+        count, store the retained survivors."""
+        live: List[Message] = []
+        results: List[Optional[int]] = []
+        for msg, out in zip(msgs, outs):
+            if out is _PREPARE_ERROR:
                 self.metrics.inc("messages.publish.error")
                 results.append(0)
                 continue
@@ -460,8 +506,10 @@ class Broker:
         n_clients = 0
         assemble_s = 0.0
         # one registry probe a window: without a message.delivered hook
-        # no run builds its (msg, opts) list
+        # or a window sink no run builds its (msg, opts) list
         deliver_hook = self.hooks.has("message.delivered")
+        delivered_runs: Optional[List] = (
+            [] if self.delivered_batch_sinks else None)
         # one clock read a window; runs are scanned for slow deliveries
         # only when the window's oldest publish is past the threshold
         now_w = time.time()
@@ -498,6 +546,7 @@ class Broker:
                         kept = self._deliver_run(
                             clientid, msgs, k, e, dec, enc, mloc, corked,
                             plan, deliver_hook, now_w, slow_floor,
+                            delivered_runs,
                         )
                     except Exception:
                         log.exception("dispatch to %s failed", clientid)
@@ -522,6 +571,14 @@ class Broker:
             # one concatenated write per connection for the whole window
             for ch in corked:
                 ch.uncork()
+        if delivered_runs:
+            # one call a window a sink, after the flush: the wire never
+            # waits on it
+            for sink in self.delivered_batch_sinks:
+                try:
+                    sink(delivered_runs)
+                except Exception:
+                    log.exception("delivered batch sink failed")
         counts = cnt.tolist()
         delivered = sum(counts)
         if delivered:
@@ -613,14 +670,15 @@ class Broker:
         self, clientid: str, msgs, k: int, e: int, dec: "_Decided",
         enc: "C.DispatchEncoder", mloc: Counter, corked: List,
         plan: Optional[List], deliver_hook: bool, now: float,
-        slow_floor: Optional[float],
+        slow_floor: Optional[float], delivered_runs: Optional[List] = None,
     ):
         """Deliver one client's slice ``[k, e)`` of the window from its
         decided columns.  Returns the 0/1 count per delivery (an array),
         1 when every delivery counts, or None when the run joined the
         native splice ``plan`` (it counts once the splice succeeds).  A
         connected run then feeds the ``message.delivered`` hook (only
-        when ``deliver_hook``) and, past ``slow_floor``, `SlowSubs`."""
+        when ``deliver_hook``), joins ``delivered_runs`` (when the
+        window has sinks) and, past ``slow_floor``, `SlowSubs`."""
         nd = e - k
         session = self.cm.lookup(clientid)
         if session is None:
@@ -657,9 +715,12 @@ class Broker:
                 dec.decided(msgs, self.router, eff, k, e), encoder=enc,
                 version=channel.version,
             ))
-        if deliver_hook:
-            self.hooks.run("message.delivered", clientid,
-                           self._materialize_run(msgs, dec, k, e))
+        if deliver_hook or delivered_runs is not None:
+            deliveries = self._materialize_run(msgs, dec, k, e)
+            if deliver_hook:
+                self.hooks.run("message.delivered", clientid, deliveries)
+            if delivered_runs is not None:
+                delivered_runs.append((clientid, deliveries))
         if slow_floor is not None:
             self._slow_scan_run(clientid, map(msgs.__getitem__,
                                               dec.sm[k:e].tolist()),
@@ -1034,8 +1095,10 @@ class PublishBatcher:
                 self._inflight_count += len(batch)
                 try:
                     # the publish fold and the retained store mutate
-                    # broker state: loop thread, window order
-                    live, results = self.broker.publish_prepare(msgs)
+                    # broker state: loop thread, window order (an
+                    # IO-backed publish hook awaits off the loop inside)
+                    live, results = (
+                        await self.broker.publish_prepare_async(msgs))
                     if rec is not None:
                         rec.lap("prepare")
                     match_fut = loop.run_in_executor(

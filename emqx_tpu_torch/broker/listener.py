@@ -23,10 +23,14 @@ listener's mountpoint and its limiter (`HierarchicalLimiter`: the
 connection's own buckets, the listener's shared ones, the broker's zone
 buckets).  The server publishes the ``$SYS`` heartbeats (`SysTopics`)
 and runs the 1 Hz housekeeping: ``Broker.tick``, ``SysTopics.tick``,
-each aggregator's ``tick`` and each listener's CRL reload.  It starts
+each aggregator's ``tick``, each listener's CRL reload and the retry of
+each exhook client whose provider has not loaded.  It starts
 the configuration's ``sinks`` (``http``, `resources.HttpSink`) in the
 broker's resource manager before anything else, and a sink that fails
-to start fails `BrokerServer.start`.  With ``api.enable`` it starts the
+to start fails `BrokerServer.start`; then it dials the configuration's
+``exhooks`` (`exhook.client.ExhookClient`, each in an executor: an
+unreachable provider fails closed or open by its policy until a retry
+loads it), and stops them on shutdown.  With ``api.enable`` it starts the
 management API (`mgmt.MgmtApi`) after the listeners, and prints its
 address beside theirs; an API port that cannot bind fails `start`.
 """
@@ -251,6 +255,7 @@ class BrokerServer:
             self.listeners.append(Listener(self.broker, lc))
         self._housekeeper: Optional[asyncio.Task] = None
         self.api = None  # the management API, once started
+        self.exhook_clients: list = []  # ExhookClient per config.exhooks
 
     @property
     def port(self) -> Optional[int]:
@@ -266,6 +271,22 @@ class BrokerServer:
         except BaseException:
             await self.broker.resources.stop_all()
             raise
+        for ex_cfg in self.broker.config.exhooks:
+            from ..exhook.client import ExhookClient
+
+            client = ExhookClient(
+                self.broker,
+                name=ex_cfg["name"],
+                url=ex_cfg["url"],
+                timeout=float(ex_cfg.get("timeout", 5.0)),
+                failure_action=ex_cfg.get("failure_action", "deny"),
+            )
+            # OnProviderLoaded is a blocking round trip: off the loop.
+            # start() never raises on an unreachable provider (a deny
+            # policy fails closed, the housekeeping retries the load)
+            await asyncio.get_running_loop().run_in_executor(
+                None, client.start)
+            self.exhook_clients.append(client)
         eng = self.broker.config.engine
         if eng.batch_publish:
             self.broker.batcher = PublishBatcher(
@@ -305,6 +326,11 @@ class BrokerServer:
                     agg.tick()
                 for lst in self.listeners:
                     lst.maybe_reload_crl()
+                for client in self.exhook_clients:
+                    if not client.loaded:
+                        # a blocking dial: off the loop
+                        await asyncio.get_running_loop().run_in_executor(
+                            None, client.retry)
             except Exception:
                 log.exception("housekeeping tick failed")
 
@@ -341,6 +367,13 @@ class BrokerServer:
         if self.broker.batcher is not None:
             await self.broker.batcher.stop()
             self.broker.batcher = None
+        for client in self.exhook_clients:
+            try:
+                await asyncio.get_running_loop().run_in_executor(
+                    None, client.stop)
+            except Exception:
+                log.debug("exhook client stop failed", exc_info=True)
+        self.exhook_clients = []
         await self.broker.resources.stop_all()
         await self.broker.access.close()
         self.broker.shutdown()

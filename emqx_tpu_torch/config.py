@@ -214,6 +214,9 @@ class BrokerConfig:
     gcp_device_enable: bool = False
     gcp_device_file: str = "data/gcp_devices.json"
     node_name: str = "emqx_tpu@127.0.0.1"
+    # exhook CLIENT servers this broker calls out to (emqx_exhook):
+    # [{"name", "url", "timeout", "failure_action": "deny"|"ignore"}]
+    exhooks: List[Dict[str, Any]] = field(default_factory=list)
 
 
 # keys of the JAX package's configuration whose modules this package
@@ -232,7 +235,6 @@ NOT_PORTED = {
     "cluster": "clustering",
     "cluster_name": "cluster linking",
     "cluster_links": "cluster linking",
-    "exhooks": "exhook, ROADMAP.md section 1, item 5",
     "gateways": "the gateways",
     "plugins": "plugins",
     "plugin_dir": "plugins",

@@ -318,6 +318,13 @@ class Router:
         window's shared pick contributes to the decision columns)."""
         return self._shared_slot.get((real, group, clientid))
 
+    # --------------------------------------------------------- match
+
+    def match_batch(self, topics: Sequence[str]) -> List[Set]:
+        """The fids matching each topic: real filters, shared and rule
+        fids (one match kernel launch on the card)."""
+        return self.engine.match_batch(topics)
+
     # ----------------------------------------------- window expansion
 
     def expand_window(

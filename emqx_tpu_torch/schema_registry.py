@@ -7,17 +7,18 @@ emqx_schema_registry.erl: named avro / protobuf / json-schema entries
 the rule engine's schema_decode/schema_encode functions resolve by
 name).
 
-  * json  — JSON Schema, through ``jsonschema`` (imported when such a
-    schema is added).
-  * protobuf — the schema SOURCE (.proto text) is compiled with the
-    system ``protoc`` at registration; messages decode/encode through
-    the generated descriptor (``google.protobuf``, imported then).
+  * json  — JSON Schema (Draft 2020-12), through the port's own
+    validator (`json_schema.Validator`: ``jsonschema``'s verdicts on the
+    keywords it implements; the others raise at ``add``).
+  * protobuf — the schema SOURCE (.proto text) is compiled at
+    registration by the port's proto3 parser (`protobuf.py`); messages
+    decode/encode through its codec and JSON mapping.
   * avro — binary (single-object) encoding against a record schema,
     implemented directly (the spec's zig-zag varints + length-prefixed
     bytes); covers the primitive types plus records, arrays, maps,
     unions-with-null, and enums — the shapes IoT payload schemas use.
 
-Importing this module needs none of the optional packages.
+Nothing here needs ``protoc``, ``google.protobuf`` or ``jsonschema``.
 """
 
 from __future__ import annotations
@@ -27,9 +28,9 @@ import json
 import logging
 import os
 import struct
-import subprocess
-import tempfile
 from typing import Any, Dict, List, Optional, Tuple
+
+from . import json_schema
 
 log = logging.getLogger("emqx_tpu_torch.schema_registry")
 
@@ -310,72 +311,40 @@ class AvroSchema:
 # --------------------------------------------------------- protobuf
 
 class ProtobufSchema:
-    """Compile a .proto source with the system protoc and serve
-    message decode/encode by message-type name."""
+    """Compile a .proto source with the port's proto3 parser
+    (`protobuf.load`: no protoc, no ``google.protobuf``) and serve
+    message decode/encode by top-level message-type name, through the
+    JSON mapping (``json_format``'s, with proto field names)."""
 
     def __init__(self, source: str) -> None:
+        from . import protobuf
+
         self.source = source
-        self._messages: Dict[str, Any] = {}
-        self._compile()
-
-    def _compile(self) -> None:
-        from google.protobuf import descriptor_pb2, descriptor_pool
-        from google.protobuf import message_factory
-
-        with tempfile.TemporaryDirectory(prefix="emqx-proto-") as tmp:
-            src = os.path.join(tmp, "schema.proto")
-            with open(src, "w") as f:
-                f.write(self.source)
-            out = os.path.join(tmp, "schema.desc")
-            try:
-                proc = subprocess.run(
-                    ["protoc", f"--proto_path={tmp}",
-                     f"--descriptor_set_out={out}", src],
-                    capture_output=True, text=True,
-                )
-            except OSError as exc:
-                raise ValueError(
-                    f"protoc unavailable: {exc}"
-                ) from exc
-            if proc.returncode != 0:
-                raise ValueError(
-                    f"protoc rejected the schema: {proc.stderr.strip()}"
-                )
-            with open(out, "rb") as f:
-                fds = descriptor_pb2.FileDescriptorSet.FromString(
-                    f.read()
-                )
-        pool = descriptor_pool.DescriptorPool()
-        for fd in fds.file:
-            pool.Add(fd)
-            file_desc = pool.FindFileByName(fd.name)
-            for name, msg_desc in file_desc.message_types_by_name.items():
-                cls = message_factory.GetMessageClass(msg_desc)
-                self._messages[name] = cls
+        try:
+            module = protobuf.load(source, "schema.proto")
+        except ValueError as exc:
+            raise ValueError(
+                f"the proto3 parser rejected the schema: {exc}") from exc
+        self._messages: Dict[str, Any] = module.message_types()
 
     def message_types(self) -> List[str]:
         return sorted(self._messages)
 
     def decode(self, data: bytes, message_type: str) -> Dict:
-        from google.protobuf import json_format
+        from . import protobuf
 
         cls = self._messages.get(message_type)
         if cls is None:
             raise ValueError(f"unknown message type {message_type!r}")
-        msg = cls.FromString(data)
-        return json_format.MessageToDict(
-            msg, preserving_proto_field_name=True
-        )
+        return protobuf.to_dict(cls.FromString(data))
 
     def encode(self, value: Dict, message_type: str) -> bytes:
-        from google.protobuf import json_format
+        from . import protobuf
 
         cls = self._messages.get(message_type)
         if cls is None:
             raise ValueError(f"unknown message type {message_type!r}")
-        msg = cls()
-        json_format.ParseDict(value, msg)
-        return msg.SerializeToString()
+        return protobuf.from_dict(value, cls()).SerializeToString()
 
 
 # ---------------------------------------------------------- registry
@@ -432,9 +401,7 @@ class SchemaRegistry:
         elif schema_type == "json":
             if isinstance(source, str):
                 source = json.loads(source)
-            import jsonschema
-
-            entry = jsonschema.Draft202012Validator(source)
+            entry = json_schema.Validator(source)
         else:
             raise ValueError(f"unknown schema type {schema_type!r}")
         self._schemas[name] = (schema_type, entry, source)

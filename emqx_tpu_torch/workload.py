@@ -45,6 +45,7 @@ in process and returns everything that left it.
 from __future__ import annotations
 
 import asyncio
+import base64
 import json
 import os
 from typing import List, Optional, Sequence, Tuple
@@ -1554,15 +1555,18 @@ def authdb_script(seed: int, n_clients: int, n_mongo_users: int,
 
 
 def port_impl(device: str):
-    """The port's modules as `authdb_world` drives them."""
+    """The port's modules as `authdb_world` and `exhook_world` drive
+    them (``kernels``: the launch counters)."""
     from types import SimpleNamespace
 
     from . import auth_ldap, auth_mongo, auth_providers, config
     from .broker.listener import BrokerServer
+    from .ops import match_kernel
 
     return SimpleNamespace(
         config=config, ldap=auth_ldap, providers=auth_providers,
-        mongo=auth_mongo, server=lambda cfg: BrokerServer(cfg, device=device))
+        mongo=auth_mongo, kernels=match_kernel,
+        server=lambda cfg: BrokerServer(cfg, device=device))
 
 
 async def start_auth_backends(script: dict):
@@ -1696,3 +1700,378 @@ def authdb_world(device: str, script: dict, n_filters: int = 4000,
     asyncio.run(asyncio.wait_for(run(), 300))
     return out
 
+
+
+# ------------------------------------------------------------- exhook
+
+EXHOOK_KINDS = ("rw", "drop", "deny", "plain")  # the four topic families
+EXHOOK_SUB_FILTERS = ("rw/#", "drop/+/t", "+/+/t", "#")
+
+
+def exhook_verdicts(seed: int) -> dict:
+    """A provider's seeded verdict table: payloads under ``rewrite``
+    get ``suffix``, publishes under ``drop`` come back with
+    allow_publish=false, usernames starting ``deny_user`` are refused
+    at authenticate, publishes under ``deny_publish`` at authorize."""
+    rng = np.random.default_rng([15, seed])
+    return {"rewrite": "rw/", "drop": "drop/", "deny_user": "bad-",
+            "deny_publish": "deny/",
+            "suffix": b"!" + rng.integers(0, 256, 4, np.uint8)
+            .tobytes().hex().encode()}
+
+
+class ExhookProviderFixture:
+    """A HookProvider on the port's own gRPC server (`grpc_util`) that
+    answers from a verdict table (`exhook_verdicts`) and records every
+    request it gets, in arrival order (``requests``: ``(rpc, request)``;
+    ``counts`` by rpc).  ``delay`` (seconds) holds each verdict RPC.
+    ``stop`` closes every connection it accepted."""
+
+    HOOKS = ("message.publish", "client.authenticate", "client.authorize",
+             "session.created", "message.delivered")
+
+    def __init__(self, verdicts: dict, hooks: Sequence[str] = HOOKS,
+                 max_workers: int = 8) -> None:
+        import threading
+        from collections import Counter
+
+        from . import grpc_util
+        from .exhook import pb
+
+        self.pb = pb
+        self.verdicts = verdicts
+        self.hooks = list(hooks)
+        self.delay = 0.0
+        self.requests: List[Tuple[str, object]] = []
+        self.counts: Counter = Counter()
+        self._lock = threading.Lock()
+        self._srv = grpc_util.Server(max_workers=max_workers)
+        svc = pb.DESCRIPTOR.services[0]
+        for m in svc.methods:
+            req_cls = getattr(pb, m.input_type.rsplit(".", 1)[1])
+            fn = getattr(self, "_" + m.name, None) or self._notify(m.name)
+            self._srv.add_method(f"/{svc.full_name}/{m.name}",
+                                 self._recorded(m.name, fn),
+                                 req_cls.FromString,
+                                 lambda r: r.SerializeToString())
+        self.port = 0
+
+    def _recorded(self, rpc: str, fn):
+        def call(req, ctx):
+            with self._lock:
+                self.requests.append((rpc, req))
+                self.counts[rpc] += 1
+            return fn(req)
+
+        return call
+
+    def _notify(self, rpc: str):
+        return lambda req: self.pb.EmptySuccess()
+
+    def _wait(self) -> None:
+        if self.delay:
+            import time
+
+            time.sleep(self.delay)
+
+    def _OnProviderLoaded(self, req):
+        pb = self.pb
+        return pb.LoadedResponse(hooks=[pb.HookSpec(name=n, topics=["#"])
+                                        for n in self.hooks])
+
+    def _OnMessagePublish(self, req):
+        pb, v = self.pb, self.verdicts
+        self._wait()
+        m = req.message
+        if m.topic.startswith(v["drop"]):
+            out = pb.Message()
+            out.CopyFrom(m)
+            out.headers["allow_publish"] = "false"
+            return pb.ValuedResponse(type=pb.ValuedResponse.STOP_AND_RETURN,
+                                     message=out)
+        if m.topic.startswith(v["rewrite"]):
+            out = pb.Message()
+            out.CopyFrom(m)
+            out.payload = m.payload + v["suffix"]
+            return pb.ValuedResponse(type=pb.ValuedResponse.CONTINUE,
+                                     message=out)
+        return pb.ValuedResponse(type=pb.ValuedResponse.IGNORE)
+
+    def _OnClientAuthenticate(self, req):
+        pb = self.pb
+        self._wait()
+        ok = not req.clientinfo.username.startswith(
+            self.verdicts["deny_user"])
+        return pb.ValuedResponse(type=pb.ValuedResponse.STOP_AND_RETURN,
+                                 bool_result=ok)
+
+    def _OnClientAuthorize(self, req):
+        pb = self.pb
+        self._wait()
+        ok = not (req.type == pb.ClientAuthorizeRequest.PUBLISH
+                  and req.topic.startswith(self.verdicts["deny_publish"]))
+        return pb.ValuedResponse(type=pb.ValuedResponse.STOP_AND_RETURN,
+                                 bool_result=ok)
+
+    def start(self) -> int:
+        self.port = self._srv.add_insecure_port("127.0.0.1:0")
+        self._srv.start()
+        return self.port
+
+    @property
+    def url(self) -> str:
+        return f"127.0.0.1:{self.port}"
+
+    def stop(self) -> None:
+        self._srv.stop(0.5).wait(10)
+
+    def decoded(self) -> dict:
+        """Every request recorded, by rpc, as the JSON mapping without
+        the fields that differ run to run (message ids and timestamps,
+        the uptime) or by package (the cluster name), sorted."""
+        from .protobuf import to_dict
+
+        out: dict = {}
+        with self._lock:
+            reqs = list(self.requests)
+        for rpc, req in reqs:
+            d = to_dict(req)
+            msg = d.get("message")
+            if msg is not None:
+                msg.pop("id", None)
+                msg.pop("timestamp", None)
+            d.get("broker", {}).pop("uptime", None)
+            d.get("meta", {}).pop("cluster_name", None)
+            out.setdefault(rpc, []).append(json.dumps(d, sort_keys=True))
+        return {k: sorted(v) for k, v in out.items()}
+
+
+def exhook_script(seed: int, n_clients: int = 16, n_msgs: int = 64) -> dict:
+    """A seeded exhook world: ``n_clients`` MQTT 5 clients (every 8th
+    username refused by the provider), four subscribers on
+    `EXHOOK_SUB_FILTERS`, the other accepted clients publishing
+    ``n_msgs`` QoS 1 messages over the four topic families."""
+    rng = np.random.default_rng([15, seed, 1])
+    connects = []
+    for i in range(n_clients):
+        name = f"bad-{i}" if i % 8 == 7 else f"u-{i}"
+        connects.append((f"ex-{i}", name, i % 8 != 7))
+    ok = [i for i, c in enumerate(connects) if c[2]]
+    subs = list(zip(ok[:len(EXHOOK_SUB_FILTERS)], EXHOOK_SUB_FILTERS))
+    pubs_from = ok[len(EXHOOK_SUB_FILTERS):]
+    pubs = []
+    for k in range(n_msgs):
+        kind = EXHOOK_KINDS[int(rng.integers(len(EXHOOK_KINDS)))]
+        topic = f"{kind}/{int(rng.integers(5))}/t"
+        pubs.append((pubs_from[k % len(pubs_from)], topic, b"m%d" % k))
+    return {"seed": seed, "verdicts": exhook_verdicts(seed),
+            "connects": connects, "subscribers": subs, "pubs": pubs}
+
+
+def exhook_expected(script: dict) -> dict:
+    """What each subscriber must receive, in order, under the verdict
+    table: ``{client index: [(topic, payload), ...]}``."""
+    from . import topic as T
+
+    v = script["verdicts"]
+    out = {i: [] for i, _ in script["subscribers"]}
+    for _i, topic, payload in script["pubs"]:
+        if topic.startswith((v["drop"], v["deny_publish"])):
+            continue
+        if topic.startswith(v["rewrite"]):
+            payload = payload + v["suffix"]
+        for i, flt in script["subscribers"]:
+            if T.match(topic, flt):
+                out[i].append((topic, payload))
+    return out
+
+
+def exhook_world(device: str, script: dict, n_filters: int = 4000,
+                 impl=None) -> dict:
+    """Run `exhook_script`'s world: an `ExhookProviderFixture` in front
+    of a `BrokerServer` on ``device`` (``impl``: the modules to drive,
+    the port's by default; the broker dials the fixture through its
+    ``exhooks`` config, fail-closed), ``n_filters`` fleet filters in
+    the engine, each CONNECT in turn over TCP, the subscribers, then
+    each publish in turn (its PUBACK awaited), the deliveries and the
+    provider's notifications awaited.  Returns the CONNACK and PUBACK
+    codes, every client's bytes, the provider's requests decoded
+    (`ExhookProviderFixture.decoded`), the broker's metrics, and on the
+    port's broker the K1/K3 launches and decide windows."""
+    impl = impl or port_impl(device)
+    filters, _ = make_filters(n_filters, 8)
+    want = exhook_expected(script)
+    out: dict = {}
+
+    async def run() -> None:
+        fixture = ExhookProviderFixture(script["verdicts"])
+        fixture.start()
+        cfg = impl.config.BrokerConfig(listeners=[
+            impl.config.ListenerConfig(bind="127.0.0.1", port=0)])
+        cfg.sys.enable = False
+        cfg.exhooks = [{"name": "fixture", "url": fixture.url,
+                        "timeout": 10.0, "failure_action": "deny"}]
+        srv = impl.server(cfg)
+        b = srv.broker
+        b.router.engine.insert_many(
+            [("/".join(ws), fid) for fid, ws in filters])
+        await srv.start()
+        loop = asyncio.get_running_loop()
+        clients = {}
+        acks = []
+        try:
+            codes = []
+            for i, (cid, name, ok) in enumerate(script["connects"]):
+                cl = TransportClient(srv.listeners[0].port, cid,
+                                     username=name, password=b"pw")
+                codes.append((await cl.connect(rc=0 if ok else 0x86))
+                             .reason_code)
+                if not ok:
+                    await cl.eof()
+                clients[i] = cl
+            for i, flt in script["subscribers"]:
+                await clients[i].subscribe(flt, 1)
+                acks.append(loop.create_task(_ack_publishes(clients[i])))
+            b.router.engine.rebuild()
+            kernels = getattr(impl, "kernels", None)
+            if kernels is not None:
+                kernels.reset_launches()
+                decides = b.router.engine.counters["decide_windows"]
+            pubacks = []
+            for k, (i, topic, payload) in enumerate(script["pubs"]):
+                cl = clients[i]
+                cl.send(cl.C.Publish(topic=topic, qos=1, packet_id=k + 1,
+                                     payload=payload))
+                pubacks.append((await cl.expect(cl.C.PUBACK)).reason_code)
+            deadline = loop.time() + 60
+            for i, _ in script["subscribers"]:
+                while len(_publishes(clients[i])) < len(want[i]):
+                    if loop.time() > deadline:
+                        raise AssertionError(
+                            f"subscriber {i}: {len(_publishes(clients[i]))}"
+                            f" of {len(want[i])} messages")
+                    await asyncio.sleep(0.01)
+                got = [(p.topic, p.payload) for p in _publishes(clients[i])]
+                if got != want[i]:
+                    raise AssertionError(f"subscriber {i} got {got[:4]}, "
+                                         f"expected {want[i][:4]}")
+            n_del = sum(len(x) for x in want.values())
+            n_sessions = sum(1 for c in script["connects"] if c[2])
+            while (fixture.counts["OnMessageDelivered"] < n_del
+                   or fixture.counts["OnSessionCreated"] < n_sessions):
+                if loop.time() > deadline:
+                    raise AssertionError(
+                        f"provider notified {dict(fixture.counts)}")
+                await asyncio.sleep(0.01)
+            if kernels is not None:
+                out["launches"] = kernels.launches()
+                out["decide_windows"] = \
+                    b.router.engine.counters["decide_windows"] - decides
+            out["connacks"] = codes
+            out["pubacks"] = pubacks
+            out["bytes"] = {i: bytes(cl.raw) for i, cl in clients.items()}
+            out["requests"] = fixture.decoded()
+            out["counts"] = dict(fixture.counts)
+            m = b.metrics
+            out["metrics"] = {k: m[k] if hasattr(m, "__getitem__")
+                              else m.val(k) for k in (
+                "messages.publish", "messages.delivered",
+                "messages.dropped", "authorization.deny",
+                "authorization.allow", "client.authenticate",
+                "client.auth.failure", "client.connected")}
+        finally:
+            for t in acks:
+                t.cancel()
+            for cl in clients.values():
+                await cl.close()
+            await srv.stop()
+            fixture.stop()
+
+    asyncio.run(asyncio.wait_for(run(), 300))
+    return out
+
+
+def exhook_server_script(seed: int, n_rpcs: int) -> List[Tuple[str, dict]]:
+    """Seeded HookProvider calls for an `ExhookServer`: mostly
+    OnMessagePublish over the fleet topics and the rules' families
+    (JSON payloads the rules read), with authenticate and authorize
+    calls between them: ``[(rpc, request as the JSON mapping)]``."""
+    rng = np.random.default_rng([15, seed, 2])
+    pops = populations(4000, 8)
+    topics = make_topics(rng, n_rpcs, pops)
+    payloads = make_rule_payloads(rng, n_rpcs)
+    out: List[Tuple[str, dict]] = []
+    for k in range(n_rpcs):
+        r = int(rng.integers(10))
+        if r == 0:
+            out.append(("OnClientAuthenticate", {"clientinfo": {
+                "clientid": f"c{k}", "username": f"user{k % 7}",
+                "password": "pw"}}))
+        elif r == 1:
+            out.append(("OnClientAuthorize", {
+                "clientinfo": {"clientid": f"c{k}"}, "type": "PUBLISH",
+                "topic": topics[k]}))
+        else:
+            out.append(("OnMessagePublish", {"message": {
+                "topic": topics[k], "qos": k % 2, "id": f"{k:08x}",
+                "payload": base64.b64encode(payloads[k]).decode()},
+                "meta": {"node": "emqx@remote"}}))
+    return out
+
+
+def exhook_server_world(device: str, calls: Sequence[Tuple[str, dict]],
+                        n_filters: int = 4000, filters=None) -> dict:
+    """`ExhookServer` on a `Broker` on ``device`` with ``n_filters``
+    fleet filters (or ``filters``) and config 4's 99 fleet rules (their
+    actions record what fired), called once per entry of ``calls``
+    (`exhook_server_script`) in turn through the port's gRPC client.
+    Returns each response's bytes, the rules fired, the K1 launches, the
+    OnMessagePublish count and each call's milliseconds."""
+    import time
+
+    from . import grpc_util
+    from .broker.broker import Broker
+    from .exhook import pb
+    from .exhook.server import SERVICE, ExhookServer
+    from .ops import match_kernel as mk
+    from .protobuf import from_dict
+    from .rules.engine import FunctionAction
+
+    if filters is None:
+        filters, _ = make_filters(n_filters, 8)
+    b = Broker(device=device)
+    b.router.engine.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    fired: list = []
+    for rid, sql in make_rules(99, n_fallback=6):
+        b.rules.add_rule(rid, sql, actions=[FunctionAction(
+            lambda sel, msg, rid=rid: fired.append(
+                (rid, msg.topic, msg.payload, sorted(sel.items()))))])
+    b.router.engine.rebuild()
+    srv = ExhookServer(broker=b)
+    srv.start()
+    ch = grpc_util.Channel(f"127.0.0.1:{srv.port}")
+    responses, ms = [], []
+    svc = pb.DESCRIPTOR.services[0]
+    methods = {m.name: m for m in svc.methods}
+    try:
+        mk.reset_launches()
+        for rpc, req in calls:
+            m = methods[rpc]
+            req_cls = getattr(pb, m.input_type.rsplit(".", 1)[1])
+            resp_cls = getattr(pb, m.output_type.rsplit(".", 1)[1])
+            fn = ch.unary_unary(f"/{SERVICE}/{rpc}",
+                                lambda r: r.SerializeToString(),
+                                resp_cls.FromString)
+            body = from_dict(req, req_cls())
+            t0 = time.perf_counter()
+            resp = fn(body, timeout=30)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            responses.append((rpc, resp.SerializeToString()))
+        launches = mk.launches()
+    finally:
+        ch.close()
+        srv.stop()
+        b.shutdown()
+    return {"responses": responses, "fired": fired, "launches": launches,
+            "publishes": sum(1 for rpc, _ in calls
+                             if rpc == "OnMessagePublish"), "ms": ms}

@@ -476,7 +476,7 @@ def test_gcp_device_keys_ported_like_reference(tmp_path, source):
     environment alike; enabled, the broker holds the registry (its
     directory made) and its authenticator leads the chain."""
     assert "gcp_device_enable" not in PCfg.NOT_PORTED
-    assert "exhooks" in PCfg.NOT_PORTED
+    assert "exhooks" not in PCfg.NOT_PORTED
     want = str(tmp_path / "gcp" / "devices.json")
     got = []
     for mod in (RC, PCfg):
@@ -501,6 +501,56 @@ def test_gcp_device_keys_ported_like_reference(tmp_path, source):
     assert type(b.access.authenticators[0]).__name__ == \
         "GcpDeviceAuthenticator"
     assert Broker(PCfg.BrokerConfig(), device="cpu").gcp_devices is None
+
+
+@pytest.mark.parametrize("source", ["file", "environment"])
+def test_exhooks_key_parses_and_starts_clients(tmp_path, source):
+    """``exhooks`` is no longer refused: the list parses into
+    ``BrokerConfig.exhooks`` as in the reference, from a file or the
+    environment, and `BrokerServer.start` makes one `ExhookClient` an
+    entry with its settings (an unreachable provider: not loaded, the
+    verdict hooks failing closed), which `stop` removes."""
+    import asyncio
+
+    from emqx_tpu_torch.broker.listener import BrokerServer
+
+    hooks = [{"name": "ext", "url": "127.0.0.1:1", "timeout": 0.5,
+              "failure_action": "deny"},
+             {"name": "open", "url": "http://127.0.0.1:1",
+              "failure_action": "ignore"}]
+    got = []
+    for mod in (RC, PCfg):
+        assert mod.BrokerConfig().exhooks == []
+        if source == "file":
+            path = tmp_path / "c.json"
+            path.write_text(json.dumps({"exhooks": hooks}))
+            cfg = mod.ConfigHandler.load(str(path)).root
+        else:
+            cfg = mod.BrokerConfig()
+            mod.apply_env_overrides(cfg, environ={
+                "EMQX_TPU_EXHOOKS": json.dumps(hooks)})
+        got.append(cfg.exhooks)
+    assert got[0] == got[1] == hooks
+    cfg.listeners = [PCfg.ListenerConfig(bind="127.0.0.1", port=0)]
+    cfg.sys.enable = False
+
+    async def run():
+        srv = BrokerServer(cfg, device="cpu")
+        await srv.start()
+        try:
+            return [(c.name, c.url, c.timeout, c.failure_action, c.loaded,
+                     sorted(n for n, _ in c._registered))
+                    for c in srv.exhook_clients]
+        finally:
+            await srv.stop()
+            assert srv.exhook_clients == []
+            assert not srv.broker.hooks.has_async("message.publish")
+
+    clients = asyncio.run(asyncio.wait_for(run(), 60))
+    assert clients == [
+        ("ext", "127.0.0.1:1", 0.5, "deny", False,
+         ["client.authenticate", "client.authorize", "message.publish"]),
+        ("open", "http://127.0.0.1:1", 5.0, "ignore", False, [])]
 
 
 def test_put_configs_on_a_not_ported_path_gives_400(tmp_path):

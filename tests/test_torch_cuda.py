@@ -1315,3 +1315,30 @@ def test_sinks_world_on_card_equals_cpu(cuda):
     assert st["select_batched_rows"] > 0
     assert launches["match_batch_compact"] >= len(wins)
     assert launches["rules_eval_lowered"] == len(wins)
+
+
+@pytest.mark.cuda
+def test_exhook_world_on_card_equals_cpu(cuda):
+    """chip_smoke's exhook world at a small size (4,000 filters, 16
+    clients, 96 publishes through the port's exhook client and the
+    provider fixture on the port's own gRPC server), on the card and on
+    the CPU: the CONNACK and PUBACK codes, every client's bytes, the
+    provider's requests and the metrics; K1 and K3 once a decide window
+    on the card, and `ExhookServer`'s answers equal too."""
+    from emqx_tpu_torch import workload as W
+
+    script = W.exhook_script(15, n_clients=16, n_msgs=96)
+    got = W.exhook_world("cuda", script)
+    want = W.exhook_world("cpu", script)
+    for key in ("connacks", "pubacks", "bytes", "requests", "counts",
+                "metrics"):
+        assert got[key] == want[key], key
+    decides = got["decide_windows"]
+    assert got["launches"]["match_batch_compact"] == decides >= 1
+    assert got["launches"]["decide_packed"] == decides
+    calls = W.exhook_server_script(15, 64)
+    card = W.exhook_server_world("cuda", calls)
+    cpu = W.exhook_server_world("cpu", calls)
+    assert card["responses"] == cpu["responses"]
+    assert card["fired"] == cpu["fired"]
+    assert card["launches"]["match_batch_compact"] == card["publishes"]

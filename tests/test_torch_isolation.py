@@ -70,6 +70,14 @@ import emqx_tpu_torch.auth_mongo
 import emqx_tpu_torch.auth_ldap
 import emqx_tpu_torch.psk
 import emqx_tpu_torch.gcp_device
+import emqx_tpu_torch.protobuf
+import emqx_tpu_torch.hpack
+import emqx_tpu_torch.h2
+import emqx_tpu_torch.grpc_util
+import emqx_tpu_torch.json_schema
+import emqx_tpu_torch.exhook
+import emqx_tpu_torch.exhook.client
+import emqx_tpu_torch.exhook.server
 bad = sorted(
     n for n in sys.modules
     if n == "jax" or n.startswith("jax.")
@@ -340,4 +348,65 @@ def test_backends_sink_and_gcp_run_without_optional_dependencies():
     assert "SINK connected 1 [b'', b'payload']" in proc.stdout, proc.stdout
     assert "CONNACK [0, 0, 0, 0] {'mqtt_user': 1, 'mqtt_acl': 4}" in \
         proc.stdout, proc.stdout
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+_EXHOOK_WITHOUT_OPTIONAL = """
+import asyncio, json, os, sys, tempfile
+os.environ["PATH"] = tempfile.mkdtemp()  # no protoc
+BLOCKED = ("grpc", "google.protobuf", "jsonschema")
+for name in BLOCKED:
+    sys.modules[name] = None  # any import of it now fails
+from emqx_tpu_torch import schema_registry as SR
+from emqx_tpu_torch import workload as W
+from emqx_tpu_torch.broker.broker import Broker
+from emqx_tpu_torch.exhook import pb
+from emqx_tpu_torch.exhook.client import ExhookClient
+from emqx_tpu_torch.exhook.server import ExhookServer
+from emqx_tpu_torch.message import Message
+
+# the port's client against the port's server, both ways of exhook
+provider = ExhookServer(device="cpu", hooks=["message.publish"])
+provider.broker.hooks.add("message.publish", lambda m: Message(
+    topic=m.topic, payload=m.payload + b"!srv", qos=m.qos))
+provider.start()
+b = Broker(device="cpu", native=False)
+client = ExhookClient(b, "p", f"127.0.0.1:{provider.port}", timeout=5.0)
+client.start()
+out = b.hooks.run_fold("message.publish", (), Message(topic="a/b",
+                                                      payload=b"x"))
+print("ROUND", client.loaded, out.payload)
+client.stop()
+provider.stop()
+script = W.exhook_script(2, n_clients=8, n_msgs=12)
+world = W.exhook_world("cpu", script, n_filters=200)
+print("WORLD", world["connacks"], world["counts"]["OnMessagePublish"])
+
+reg = SR.SchemaRegistry()
+reg.add("p", "protobuf", 'syntax = "proto3"; message M { int64 a = 1; '
+        'map<string, bytes> m = 2; }')
+enc = reg.encode("p", {"a": "5", "m": {"k": "AAE="}})
+print("PROTO", enc.hex(), reg.decode("p", enc))
+reg.add("j", "json", {"type": "object", "required": ["a"]})
+print("JSON", reg.check("j", b'{"a": 1}'), reg.check("j", b'{"b": 1}'))
+print("LOADED", sorted(
+    n for n, mod in sys.modules.items() if mod is not None and (
+        n.split(".")[0] in ("jax", "emqx_tpu", "grpc", "jsonschema")
+        or n.startswith("google.protobuf"))))
+"""
+
+
+def test_exhook_and_registry_run_without_grpc_protobuf_jsonschema():
+    """With grpc, google.protobuf and jsonschema unimportable and no
+    ``protoc`` on ``PATH``: the port's exhook client and server round
+    trip (and `workload.exhook_world` through a `BrokerServer`), a
+    protobuf schema encodes and decodes and a JSON schema validates;
+    none of those packages, nor jax or the JAX package, was loaded."""
+    proc = _run("-c", _EXHOOK_WITHOUT_OPTIONAL)
+    assert proc.returncode == 0, proc.stderr
+    assert "ROUND True b'x!srv'" in proc.stdout, proc.stdout
+    assert "WORLD [0, 0, 0, 0, 0, 0, 0, 134]" in proc.stdout, proc.stdout
+    assert "PROTO 080512070a016b12020001 {'a': '5', 'm': {'k': 'AAE='}}" \
+        in proc.stdout, proc.stdout
+    assert "JSON True False" in proc.stdout, proc.stdout
     assert "LOADED []" in proc.stdout, proc.stdout

@@ -801,9 +801,15 @@ def test_rest_schema_crud_like_reference(L, tmp_path):
                 "name": "t1", "type": "avro",
                 "source": {"type": "record", "name": "R", "fields": [
                     {"name": "x", "type": "long"}]}}, expect=201)
-            await B.req("POST", "/api/v5/schema_registry", {
+            rb, pb = await B.req("POST", "/api/v5/schema_registry", {
                 "name": "bad", "type": "protobuf",
-                "source": "not a proto"}, expect=400)
+                "source": "not a proto"}, expect=400, keys_only=True)
+            # the message names the compiler: protoc's own text there,
+            # the port's proto3 parser here
+            assert pb["code"] == rb["code"] == "BAD_REQUEST"
+            assert rb["message"].startswith("protoc rejected the schema: ")
+            assert pb["message"].startswith(
+                "the proto3 parser rejected the schema: "), pb
             rb, pb = await B.req("GET", "/api/v5/schema_registry",
                                  expect=200)
             assert {"name": "t1", "type": "avro"} in pb["data"]

@@ -1,8 +1,11 @@
 """The port's schema registry against the JAX package's: the Avro codec
 (round trips, known bytes, truncation, schema errors), protobuf schemas
-compiled with ``protoc``, JSON schemas, the registry's persistence, and
-``schema_decode``/``schema_encode``/``schema_check`` through rules on
-both brokers, in both SELECT lanes.
+(the JAX package compiles them with ``protoc``; the port with its own
+proto3 parser, run here with ``protoc`` off ``PATH`` and
+``google.protobuf`` and ``jsonschema`` unimportable), JSON schemas
+(the port's own validator, its verdicts held to ``jsonschema``'s), the
+registry's persistence, and ``schema_decode``/``schema_encode``/
+``schema_check`` through rules on both brokers, in both SELECT lanes.
 
 One deliberate difference is pinned here: the port's schema functions
 read the env's ``payload`` as the message's bytes, so a binary (non
@@ -11,9 +14,15 @@ UTF-8) payload decodes; the JAX package passes the payload's UTF-8 text
 to wrong values.
 """
 
+import contextlib
 import json
+import os
+import sys
 
+import jsonschema
 import pytest
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 from emqx_tpu import schema_registry as ref_sr
 from emqx_tpu.broker.broker import Broker as RefBroker
@@ -30,6 +39,33 @@ from emqx_tpu_torch.rules import engine as port_engine
 from emqx_tpu_torch.rules.funcs import FUNCS
 
 SR = {"ref": ref_sr, "port": port_sr}
+
+
+@contextlib.contextmanager
+def port_alone(tmp_path):
+    """What the port runs in here: no ``protoc`` on ``PATH``, and
+    ``google.protobuf`` and ``jsonschema`` unimportable."""
+    saved = os.environ.get("PATH", "")
+    os.environ["PATH"] = str(tmp_path)
+    blocked = {n: sys.modules.get(n) for n in (
+        "jsonschema", "google.protobuf", "google.protobuf.json_format",
+        "google.protobuf.descriptor_pool")}
+    for n in blocked:
+        sys.modules[n] = None
+    try:
+        yield
+    finally:
+        os.environ["PATH"] = saved
+        for n, mod in blocked.items():
+            if mod is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = mod
+
+
+def on_side(side, tmp_path):
+    return port_alone(tmp_path) if side == "port" else \
+        contextlib.nullcontext()
 
 AVRO_SCHEMA = {
     "type": "record", "name": "Telemetry", "fields": [
@@ -121,59 +157,68 @@ def test_avro_known_bytes_and_errors_equal_reference():
                 SR[side].AvroSchema(schema)
 
 
-def test_protobuf_compile_and_round_trip_equal_reference():
-    port = port_sr.ProtobufSchema(PROTO_SRC)
+def test_protobuf_compile_and_round_trip_equal_reference(tmp_path):
     ref = ref_sr.ProtobufSchema(PROTO_SRC)
-    assert port.message_types() == ref.message_types() == ["SensorReading"]
     value = {"device": "d1", "temp": 3.5, "seq": "42", "tags": ["x", "y"]}
-    data = port.encode(value, "SensorReading")
+    with port_alone(tmp_path):
+        port = port_sr.ProtobufSchema(PROTO_SRC)
+        data = port.encode(value, "SensorReading")
+        decoded = port.decode(data, "SensorReading")
+    assert port.message_types() == ref.message_types() == ["SensorReading"]
     assert data == ref.encode(value, "SensorReading")
     assert data.startswith(b"\x0a\x02d1")  # field 1, "d1"
-    assert port.decode(data, "SensorReading") == ref.decode(
-        data, "SensorReading")
+    assert decoded == ref.decode(data, "SensorReading")
     for side in ("ref", "port"):
-        with pytest.raises(ValueError, match="protoc rejected"):
-            SR[side].ProtobufSchema("syntax = nonsense;")
-        with pytest.raises(ValueError, match="unknown message type"):
-            SR[side].ProtobufSchema(PROTO_SRC).decode(data, "Nope")
+        with on_side(side, tmp_path):
+            # the JAX package's message names protoc, the port's its
+            # own parser
+            with pytest.raises(ValueError, match="rejected the schema"):
+                SR[side].ProtobufSchema("syntax = nonsense;")
+            with pytest.raises(ValueError, match="unknown message type"):
+                SR[side].ProtobufSchema(PROTO_SRC).decode(data, "Nope")
 
 
 def test_registry_persistence_and_dispatch_equal_reference(tmp_path):
     out = {}
     for side in ("ref", "port"):
-        path = str(tmp_path / f"{side}.json")
-        reg = SR[side].SchemaRegistry(persist_path=path)
-        reg.add("tele", "avro", json.dumps(AVRO_SCHEMA))
-        reg.add("sensor", "protobuf", PROTO_SRC)
-        reg.add("two", "protobuf", PROTO_TWO)
-        reg.add("cfg", "json", JSON_SCHEMA)
-        with pytest.raises(ValueError, match="unknown schema type"):
-            reg.add("x", "thrift", "{}")
-        enc = reg.encode("sensor", {"device": "d9", "seq": "3"})
-        res = [reg.decode("sensor", enc), reg.encode("cfg", {"mode": "on"}),
-               reg.decode("cfg", b'{"mode": "on"}'),
-               reg.check("cfg", b'{"mode": "on"}'),
-               reg.check("cfg", b'{"other": 1}'),
-               reg.check("tele", b"garbage"),
-               reg.decode("two", reg.encode("two", {"x": 5}, "Other"),
-                          "Other")]
-        with pytest.raises(ValueError, match="2 message types"):
-            reg.decode("two", enc)
-        with pytest.raises(ValueError, match="unknown schema"):
-            reg.decode("nope", b"")
-        assert reg.remove("sensor") and not reg.remove("sensor")
-        saved = json.load(open(path))
-        again = SR[side].SchemaRegistry()
-        again.load(path)
-        missing = SR[side].SchemaRegistry()
-        missing.load(str(tmp_path / "none.json"))  # absent: nothing
-        out[side] = (res, saved, again.dump(), again.info(), reg.info(),
-                     missing.dump())
+        with on_side(side, tmp_path):
+            out[side] = _registry_round(side, tmp_path)
     assert out["port"] == out["ref"]
     res, saved, dumped, info, _, none = out["port"]
     assert res[3:6] == [True, False, False] and res[6] == {"x": 5}
     assert sorted(saved) == ["cfg", "tele", "two"] and dumped == saved
     assert none == {}
+
+
+def _registry_round(side, tmp_path):
+    path = str(tmp_path / f"{side}.json")
+    reg = SR[side].SchemaRegistry(persist_path=path)
+    reg.add("tele", "avro", json.dumps(AVRO_SCHEMA))
+    reg.add("sensor", "protobuf", PROTO_SRC)
+    reg.add("two", "protobuf", PROTO_TWO)
+    reg.add("cfg", "json", JSON_SCHEMA)
+    with pytest.raises(ValueError, match="unknown schema type"):
+        reg.add("x", "thrift", "{}")
+    enc = reg.encode("sensor", {"device": "d9", "seq": "3"})
+    res = [reg.decode("sensor", enc), reg.encode("cfg", {"mode": "on"}),
+           reg.decode("cfg", b'{"mode": "on"}'),
+           reg.check("cfg", b'{"mode": "on"}'),
+           reg.check("cfg", b'{"other": 1}'),
+           reg.check("tele", b"garbage"),
+           reg.decode("two", reg.encode("two", {"x": 5}, "Other"),
+                      "Other")]
+    with pytest.raises(ValueError, match="2 message types"):
+        reg.decode("two", enc)
+    with pytest.raises(ValueError, match="unknown schema"):
+        reg.decode("nope", b"")
+    assert reg.remove("sensor") and not reg.remove("sensor")
+    saved = json.load(open(path))
+    again = SR[side].SchemaRegistry()
+    again.load(path)
+    missing = SR[side].SchemaRegistry()
+    missing.load(str(tmp_path / "none.json"))  # absent: nothing
+    return (res, saved, again.dump(), again.info(), reg.info(),
+            missing.dump())
 
 
 # ------------------------------------------------- through rules
@@ -308,3 +353,119 @@ def test_binary_payload_decodes_in_the_port_only():
     assert out["port"] == [rec]
     assert out["ref"][0]["speed"] == rec["speed"]
     assert out["ref"][0]["odometer"] != rec["odometer"]
+
+
+# ----------------------------------------- JSON Schema against jsonschema
+
+from emqx_tpu_torch import json_schema  # noqa: E402
+
+KEYWORD_SCHEMAS = {
+    "type": {"type": "integer"},
+    "type_list": {"type": ["string", "null", "boolean"]},
+    "type_number": {"type": "number"},
+    "enum": {"enum": [1, "a", None, True, [1, 2], {"k": 1}, 2.5]},
+    "const": {"const": [False, 1]},
+    "min_max": {"minimum": 0, "maximum": 10},
+    "exclusive": {"exclusiveMinimum": 0, "exclusiveMaximum": 1.5},
+    "multiple_int": {"multipleOf": 3},
+    "multiple_float": {"multipleOf": 0.75},
+    "length": {"minLength": 2, "maxLength": 3},
+    "pattern": {"pattern": "^a.*b$"},
+    "items_count": {"minItems": 1, "maxItems": 3},
+    "unique": {"uniqueItems": True},
+    "prefix_closed": {"prefixItems": [{"type": "integer"},
+                                      {"type": "string"}], "items": False},
+    "prefix_items": {"prefixItems": [{"type": "integer"}],
+                     "items": {"type": "string"}},
+    "contains": {"contains": {"type": "integer"}, "minContains": 2,
+                 "maxContains": 3},
+    "contains_zero": {"contains": {"type": "string"}, "minContains": 0,
+                      "maxContains": 1},
+    "properties_count": {"minProperties": 1, "maxProperties": 2},
+    "required": {"required": ["a", "b"]},
+    "dependent_required": {"dependentRequired": {"a": ["b"]}},
+    "dependent_schemas": {"dependentSchemas": {"a": {"required": ["c"]}}},
+    "closed_object": {"properties": {"a": {"type": "integer"}},
+                      "patternProperties": {"^b": {"type": "string"}},
+                      "additionalProperties": False},
+    "additional_schema": {"properties": {"a": True},
+                          "additionalProperties": {"type": "boolean"}},
+    "property_names": {"propertyNames": {"maxLength": 1}},
+    "all_of": {"allOf": [{"type": "integer"}, {"minimum": 2}]},
+    "any_of": {"anyOf": [{"type": "string"}, {"maximum": 0}]},
+    "one_of": {"oneOf": [{"type": "integer"}, {"minimum": 2}]},
+    "not": {"not": {"type": "array"}},
+    "if_then_else": {"if": {"type": "integer"}, "then": {"minimum": 5},
+                     "else": {"type": "string"}},
+    "ref": {"$defs": {"pos": {"type": "integer", "minimum": 1}},
+            "type": "array", "items": {"$ref": "#/$defs/pos"}},
+    "ref_recursive": {"$defs": {"node": {
+        "type": "object", "required": ["a"],
+        "properties": {"b": {"type": "array",
+                             "items": {"$ref": "#/$defs/node"}}}}},
+        "$ref": "#/$defs/node"},
+    "format_annotation": {"type": "string", "format": "email"},
+    "boolean_schema": {"properties": {"a": False, "b": True}},
+}
+
+_KEYS = st.sampled_from(["a", "b", "c", "ab", "bz", "b1"])
+_SCALARS = (st.none() | st.booleans() | st.integers(-4, 12)
+            | st.floats(-4, 12, allow_nan=False).map(lambda f: round(f, 1))
+            | st.sampled_from([1.0, 2.0, 1.5, 0.5, 10 ** 20, 3.0])
+            | st.text(alphabet="abz1", max_size=4))
+JSON_VALUES = st.recursive(
+    _SCALARS, lambda kids: st.lists(kids, max_size=5)
+    | st.dictionaries(_KEYS, kids, max_size=4), max_leaves=12)
+
+
+# instances on both sides of every schema above, beside the generated
+EDGE_VALUES = [
+    None, True, False, 0, 1, 1.0, -1, 0.5, 1.5, 2, 3, 4.5, 6, 11, 10 ** 20,
+    "", "a", "ab", "azb", "xb", [], [1], [1, 2], [1, 1.0], [1, True],
+    [1, "a"], [1, "a", "b"], [1, 2, 3, 4], ["a"], ["a", "b"], [False, 1],
+    [False, 1.0], [0, True], {}, {"a": 1}, {"a": 1, "b": 2},
+    {"a": 1, "b": "x", "c": 3}, {"a": 1, "c": 3}, {"b1": "s"}, {"bz": 1},
+    {"a": 1, "b": [{"a": 2}]}, {"a": 1, "b": [{}]}, {"a": True, "c": False},
+]
+
+
+@pytest.mark.parametrize("keyword", sorted(KEYWORD_SCHEMAS))
+def test_json_schema_verdicts_equal_jsonschema(keyword):
+    schema = KEYWORD_SCHEMAS[keyword]
+    ref = jsonschema.Draft202012Validator(schema)
+    port = json_schema.Validator(schema)
+    seen = set()
+
+    @settings(max_examples=60, deadline=None, derandomize=True,
+              suppress_health_check=list(HealthCheck))
+    @given(JSON_VALUES)
+    def check(x):
+        want = ref.is_valid(x)
+        assert port.is_valid(x) == want, (schema, x)
+        seen.add(want)
+        if not want:
+            with pytest.raises(json_schema.ValidationError):
+                port.validate(x)
+
+    check()
+    for x in EDGE_VALUES:
+        want = ref.is_valid(x)
+        assert port.is_valid(x) == want, (schema, x)
+        seen.add(want)
+    assert seen == {True, False}, f"{keyword}: one verdict only"
+
+
+@pytest.mark.parametrize("schema,word", [
+    ({"$dynamicRef": "#meta"}, "$dynamicRef"),
+    ({"properties": {"a": {"unevaluatedProperties": False}}},
+     "unevaluatedProperties"),
+    ({"unevaluatedItems": False}, "unevaluatedItems"),
+    ({"$ref": "https://example.com/other.json"}, "$ref"),
+    ({"$ref": "#/$defs/missing"}, "$ref"),
+])
+def test_json_schema_refuses_what_it_does_not_implement(schema, word):
+    """The deliberate difference: a keyword the port's validator does not
+    implement raises at ``add``, naming it, where ``jsonschema`` would
+    validate (or resolve a remote reference)."""
+    with pytest.raises(ValueError, match=word.replace("$", r"\$")):
+        port_sr.SchemaRegistry().add("x", "json", schema)
