@@ -19,7 +19,8 @@ a topic rewrite, delayed publish, topic metrics and $SYS, then behind
 the GCP, LDAP, HTTP and Mongo authentication back ends with the
 per-client ACL cache, the server booted from a config file with tcp, ssl, ws and wss listeners, and the
 management API's REST publishes, rules, read-backs and scrape beside
-MQTT traffic.
+MQTT traffic; then durable sessions: a QoS 1 backlog, a restart and a
+reconnect storm whose replay windows the decide kernel decides.
 Phases:
 
   device          the card's name and power limit (nvidia-smi)
@@ -171,6 +172,27 @@ Phases:
                   after CONNECT, K1 and K3 once a decide window; then
                   `workload.authdb_world` (4,000 filters, 64 clients) on
                   the card against the CPU, byte for byte
+  durable broker  durable sessions on the 1M filters (lts, fsync
+                  always, a temporary directory): (a) 512 persistent
+                  sessions (clean_start 0, expiry 3,600 s, one
+                  vehicles/v<k>/sensors/# filter each, 4 a vehicle)
+                  subscribe and disconnect at receive_maximum and
+                  max_inflight 1,024, 8 publishers send 50,000 QoS 1
+                  messages of 256 B (PUBACK p50/p99 under the group
+                  commit, msgs/s in, sync_stats); a restart; (b) all
+                  512 reconnect at once (CONNACK p50/p99, CONNECT to the
+                  last replayed PUBLISH, replayed msgs/s, each client's
+                  whole backlog in each publisher's order, duplicates
+                  counted, session.resumed 512, K3 launched by the
+                  replay windows, their sizes, the share of deliveries
+                  that rode them); (c) a second backlog of 16,384, a
+                  restart at the default max_inflight of 32 (boot to
+                  listening, each boot's 1M-filter load apart), 64
+                  sessions replay it (the window share again);
+                  (d) `workload.durable_world`
+                  (20,000 filters, 32 sessions, 2,000 messages) on the
+                  card against the CPU, windowed and scalar, byte for
+                  byte
   listeners       a JSON config with a tcp, an ssl, a ws and a wss
                   listener (the committed test certificate) and one
                   EMQX_TPU_* override: --check-config on it (exit 0) and
@@ -4523,6 +4545,443 @@ def phase_exhook_broker(results, filters) -> None:
     print(f"exhook broker: the phase in {out['phase_s']:.1f} s", flush=True)
 
 
+# ------------------------------------------------------ durable broker
+
+DUR_SUBS = 512  # persistent sessions, 4 on each vehicle
+DUR_KEYS = 128  # vehicles/v{k}/sensors/# filters
+DUR_PUBS = 8
+DUR_MSGS = 50_000
+DUR_PAYLOAD = 256
+DUR_WAVE = 64  # CONNECTs in flight while the sessions are made
+# mqtt.max_inflight and the clients' receive_maximum in (a) and (b): a
+# backend consumer's setting, so a 390-message backlog fits one inflight
+# window; (c) runs at the broker's default (32)
+DUR_INFLIGHT = 1024
+DUR_RESTART_MSGS = 16_384  # 128 a vehicle: over (c)'s inflight window
+DUR_RESTART_CLIENTS = 64
+DUR_PARITY = (16, 32, 2000)  # durable_script(seed, sessions, messages)
+
+
+def durable_payload(p: int, j: int) -> bytes:
+    head = f"{p}:{j}:".encode()
+    return head + b"x" * (DUR_PAYLOAD - len(head))
+
+
+def durable_topic(p: int, j: int, n_per: int) -> str:
+    return f"vehicles/v{(p * n_per + j) % DUR_KEYS}/sensors/temp"
+
+
+async def durable_boot(filters, data_dir, label, max_inflight=None):
+    """A new card broker on ``data_dir`` (durable, lts, fsync always;
+    ``mqtt.max_inflight`` set when given, else the default):
+    constructed (the store recovers its checkpoints and indexes), the
+    1M filters loaded into its engine, then started.  The 1M filters
+    stand in for other clients' routes; every boot loads them into its
+    own engine, and that load is reported apart from the recovery.
+    Returns the server, the recovery time (construction and start) and
+    the filter load's seconds."""
+    from emqx_tpu_torch import workload as W
+
+    impl = W.port_impl("cuda")
+    cfg = impl.config.BrokerConfig(listeners=[impl.config.ListenerConfig(
+        bind="127.0.0.1", port=0)])
+    cfg.sys.enable = False
+    if max_inflight is not None:
+        cfg.mqtt.max_inflight = max_inflight
+    cfg.durable.enable = True
+    cfg.durable.data_dir = data_dir
+    cfg.durable.layout = "lts"
+    cfg.durable.fsync = "always"
+    t0 = time.perf_counter()
+    server = impl.server(cfg)
+    t_construct = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    eng = server.broker.router.engine
+    eng.insert_many([("/".join(ws), fid) for fid, ws in filters])
+    eng.rebuild()
+    t_filters = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    await server.start()
+    recovery = t_construct + time.perf_counter() - t2
+    boots = len(server.broker.durable.boot_states())
+    print(f"durable broker: {label}: recovered {boots} checkpoints in "
+          f"{recovery * 1e3:.1f} ms (construction {t_construct * 1e3:.1f} "
+          f"ms, start {(recovery - t_construct) * 1e3:.1f} ms); the "
+          f"{len(filters)} filters loaded apart in {t_filters:.1f} s "
+          f"(max_inflight {cfg.mqtt.max_inflight})", flush=True)
+    return server, recovery, t_filters
+
+
+async def durable_publish(port, n_msgs, label):
+    """``DUR_PUBS`` publishers send ``n_msgs`` QoS 1 messages of
+    ``DUR_PAYLOAD`` bytes over ``DUR_KEYS`` vehicle topics, at most 64
+    unacknowledged each, written 16 a burst; every PUBACK checked.
+    Returns (wall s, PUBACK latencies in ms, per-vehicle counts)."""
+    per = n_msgs // DUR_PUBS
+    pubs = []
+    for p in range(DUR_PUBS):
+        cl = Client(port, f"dur-pub-{p}", version=5)
+        await cl.connect()
+        pubs.append(cl)
+    lat = []
+    per_key = [0] * DUR_KEYS
+
+    async def run(p, cl):
+        C = cl.C
+        window = asyncio.Semaphore(64)
+        sent_at = {}
+        done = 0
+
+        async def acks():
+            nonlocal done
+            while done < per:
+                pkt = await asyncio.wait_for(cl.inbox.get(), 120)
+                if pkt is None or pkt.type != C.PUBACK:
+                    fail(f"{label}: publisher {p} expected PUBACK, got "
+                         f"{pkt!r}")
+                if pkt.reason_code != 0:
+                    fail(f"{label}: PUBACK {pkt.reason_code:#x}")
+                lat.append((time.perf_counter() - sent_at.pop(
+                    pkt.packet_id)) * 1e3)
+                done += 1
+                window.release()
+
+        task = asyncio.get_running_loop().create_task(acks())
+        burst = []
+        for j in range(per):
+            await window.acquire()
+            pid = j % 65535 + 1
+            burst.append(C.Publish(topic=durable_topic(p, j, per), qos=1,
+                                   packet_id=pid,
+                                   payload=durable_payload(p, j)))
+            sent_at[pid] = time.perf_counter()
+            if len(burst) == 16 or j == per - 1:
+                cl.send(*burst)
+                burst = []
+                await cl.writer.drain()
+        await task
+
+    for p in range(DUR_PUBS):
+        for j in range(per):
+            per_key[(p * per + j) % DUR_KEYS] += 1
+    t0 = time.perf_counter()
+    await asyncio.wait_for(asyncio.gather(
+        *(run(p, cl) for p, cl in enumerate(pubs))), 600)
+    wall = time.perf_counter() - t0
+    for cl in pubs:
+        cl.send(cl.C.Disconnect())
+        await cl.close()
+    return wall, lat, per_key, per
+
+
+def durable_sub_filter(i: int) -> str:
+    return f"vehicles/v{i % DUR_KEYS}/sensors/#"
+
+
+async def durable_reconnect(port, ids, per_key, per, label, metrics,
+                            receive_maximum=None):
+    """Every client of ``ids`` reconnects at once (clean_start 0, with
+    ``receive_maximum`` when given): its CONNACK must say session
+    present, then it acknowledges every replayed PUBLISH (one write a
+    read) until it holds its whole backlog.  Checks that each client
+    got every message of its vehicle, in each publisher's order; counts
+    duplicates, and the deliveries that rode a replay window (the
+    broker's ``metrics``' ``session.replay.messages``; the rest took
+    the per-session mqueue path, which runs no K3).  Returns the
+    clients (still connected) and the figures."""
+    clients = {i: Client(port, f"dur-{i}", version=5) for i in ids}
+    connack_ms, last_ms, got = {}, {}, {i: [] for i in ids}
+    props = ({} if receive_maximum is None
+             else {"receive_maximum": receive_maximum})
+    windowed0 = metrics.val("session.replay.messages")
+
+    async def one(i):
+        cl = clients[i]
+        C = cl.C
+        t0 = time.perf_counter()
+        ack = await cl.connect(clean_start=False,
+                               session_expiry_interval=3600, **props)
+        connack_ms[i] = (time.perf_counter() - t0) * 1e3
+        if not ack.session_present:
+            fail(f"{label}: dur-{i} resumed without its session")
+        want = per_key[i % DUR_KEYS]
+        seen = got[i]
+        while len(set(seen)) < want:
+            try:
+                pkt = await asyncio.wait_for(cl.inbox.get(), 120)
+            except asyncio.TimeoutError:
+                fail(f"{label}: dur-{i} stalled at {len(seen)} of {want}")
+            batch = [pkt]
+            while not cl.inbox.empty():
+                batch.append(cl.inbox.get_nowait())
+            acks = []
+            for pkt in batch:
+                if pkt is None:
+                    fail(f"{label}: dur-{i} disconnected")
+                if pkt.type != C.PUBLISH:
+                    continue
+                if pkt.qos:
+                    acks.append(C.Puback(packet_id=pkt.packet_id))
+                p, j = (int(x) for x in pkt.payload.split(b":")[:2])
+                if pkt.topic != durable_topic(p, j, per):
+                    fail(f"{label}: dur-{i} got {pkt.topic} for {p}:{j}")
+                seen.append((p, j))
+            if acks:
+                cl.send(*acks)
+            last_ms[i] = (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    await asyncio.wait_for(asyncio.gather(*(one(i) for i in ids)), 600)
+    wall = time.perf_counter() - t0
+    dups = 0
+    for i in ids:
+        seen = got[i]
+        dups += len(seen) - len(set(seen))
+        firsts = list(dict.fromkeys(seen))
+        for p in range(DUR_PUBS):
+            js = [j for q, j in firsts if q == p]
+            if js != sorted(js):
+                fail(f"{label}: dur-{i} got publisher {p}'s messages out "
+                     f"of order")
+            want = [j for j in range(per)
+                    if (p * per + j) % DUR_KEYS == i % DUR_KEYS]
+            if js != want:
+                fail(f"{label}: dur-{i} got {len(js)} of publisher {p}'s "
+                     f"{len(want)} messages")
+    n = sum(len(v) for v in got.values())
+    windowed = metrics.val("session.replay.messages") - windowed0
+    return clients, {"connack_ms": connack_ms, "last_ms": last_ms,
+                     "wall_s": wall, "replayed": n, "duplicates": dups,
+                     "window_deliveries": windowed,
+                     "window_share": windowed / (n - dups)}
+
+
+def durable_pcts(xs) -> tuple:
+    xs = sorted(xs)
+    return tuple(xs[min(len(xs) - 1, int(len(xs) * q))] for q in (0.5, 0.99))
+
+
+async def durable_load(results, filters):
+    import shutil
+    import tempfile
+
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    data_dir = tempfile.mkdtemp(prefix="durable-phase-")
+    out = {}
+    try:
+        # (a) the backlog: 512 persistent sessions, then 50,000 QoS 1
+        server, rec0, t_load = await durable_boot(
+            filters, data_dir, "boot", max_inflight=DUR_INFLIGHT)
+        broker = server.broker
+        port = server.listeners[0].port
+        t0 = time.perf_counter()
+        for w in range(0, DUR_SUBS, DUR_WAVE):
+            async def make(i):
+                cl = Client(port, f"dur-{i}", version=5)
+                await cl.connect(clean_start=False,
+                                 session_expiry_interval=3600,
+                                 receive_maximum=DUR_INFLIGHT)
+                await cl.subscribe(durable_sub_filter(i), 1)
+                cl.send(cl.C.Disconnect())
+                await cl.close()
+            await asyncio.gather(*(make(i) for i in range(
+                w, min(w + DUR_WAVE, DUR_SUBS))))
+        print(f"durable broker: (a) {DUR_SUBS} persistent sessions "
+              f"subscribed and disconnected in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        mk.reset_launches()
+        wall, lat, per_key, per = await durable_publish(port, DUR_MSGS,
+                                                       "(a)")
+        pub_launches = mk.launches()
+        stats = broker.durable.sync_stats()
+        captured = broker.durable.gate.appended
+        p50, p99 = durable_pcts(lat)
+        store = broker.durable.storage.stats()
+        if captured != DUR_MSGS or stats["unsynced"] or stats["parked"]:
+            fail(f"durable broker: (a) captured {captured} of {DUR_MSGS}, "
+                 f"sync_stats {stats}")
+        if pub_launches["match_batch_compact"] < 1:
+            fail(f"durable broker: (a) launches {pub_launches}")
+        out["a"] = {"msgs_per_s": DUR_MSGS / wall, "wall_s": wall,
+                    "puback_p50_ms": p50, "puback_p99_ms": p99,
+                    "sync_stats": stats, "store": store,
+                    "launches": pub_launches, "filters_load_s": t_load}
+        print(f"durable broker: (a) {DUR_MSGS} QoS 1 messages of "
+              f"{DUR_PAYLOAD} B from {DUR_PUBS} publishers in {wall:.3f} s: "
+              f"{DUR_MSGS / wall:.1f} msgs/s in, PUBACK p50 {p50:.3f} ms "
+              f"p99 {p99:.3f} ms under the group commit; sync_stats "
+              f"{stats}; store {store}; launches {pub_launches} "
+              f"[{results['card']}]", flush=True)
+        await server.stop()
+
+        # (b) the restart and the reconnect storm
+        server, rec1, t_load1 = await durable_boot(
+            filters, data_dir, "(b) restart", max_inflight=DUR_INFLIGHT)
+        broker = server.broker
+        port = server.listeners[0].port
+        sizes = []
+        resume = broker.resume
+        dispatch = resume._dispatch
+
+        def counted(msgs, col_m, *a):
+            sizes.append(len(col_m))
+            return dispatch(msgs, col_m, *a)
+
+        resume._dispatch = counted
+        resumed0 = broker.metrics.val("session.resumed")
+        mk.reset_launches()  # the replay's launches start here
+        clients, fig = await durable_reconnect(
+            port, list(range(DUR_SUBS)), per_key, per, "(b)",
+            broker.metrics, receive_maximum=DUR_INFLIGHT)
+        replay_launches = mk.launches()
+        if resume.committed != DUR_SUBS:
+            fail(f"durable broker: (b) {resume.committed} sessions "
+                 f"committed of {DUR_SUBS}")
+        if replay_launches["decide_packed"] < 1 or not sizes:
+            fail(f"durable broker: (b) no replay window reached K3 "
+                 f"({replay_launches}, windows {sizes})")
+        c50, c99 = durable_pcts(fig["connack_ms"].values())
+        l50, l99 = durable_pcts(fig["last_ms"].values())
+        out["b"] = {
+            "connack_p50_ms": c50, "connack_p99_ms": c99,
+            "last_publish_p50_ms": l50, "last_publish_p99_ms": l99,
+            "last_publish_max_ms": max(fig["last_ms"].values()),
+            "replayed": fig["replayed"], "duplicates": fig["duplicates"],
+            "replayed_per_s": fig["replayed"] / fig["wall_s"],
+            "wall_s": fig["wall_s"], "session_resumed": resume.committed,
+            "session_resumed_metric": broker.metrics.val(
+                "session.resumed") - resumed0,
+            "windows": len(sizes), "window_sizes": sizes,
+            "window_deliveries": fig["window_deliveries"],
+            "window_share": fig["window_share"],
+            "launches": replay_launches, "recovery_ms": rec1 * 1e3,
+            "filters_load_s": t_load1}
+        print(f"durable broker: (b) {DUR_SUBS} sessions reconnected at "
+              f"once (max_concurrent {resume.cfg.max_concurrent}): "
+              f"CONNACK p50 {c50:.3f} ms p99 {c99:.3f} ms; CONNECT to the "
+              f"last replayed PUBLISH p50 {l50:.1f} ms p99 {l99:.1f} ms; "
+              f"{fig['replayed']} replayed in {fig['wall_s']:.3f} s "
+              f"({out['b']['replayed_per_s']:.1f} msgs/s), "
+              f"{fig['duplicates']} duplicates, none lost; "
+              f"{fig['window_deliveries']} of the deliveries "
+              f"({fig['window_share']:.4f}) rode a replay window, the rest "
+              f"the mqueue path; session.resumed "
+              f"{resume.committed}; {len(sizes)} replay windows of "
+              f"{min(sizes)}-{max(sizes)} deliveries (median "
+              f"{sorted(sizes)[len(sizes) // 2]}); launches "
+              f"{replay_launches} [{results['card']}]", flush=True)
+        out["b"]["stages"] = stage_medians("durable broker (b)",
+                                           broker.profiler)
+        # every session disconnects (checkpointed) and a second backlog
+        # arrives
+        for cl in clients.values():
+            cl.send(cl.C.Disconnect())
+            await cl.close()
+        await asyncio.sleep(0.2)  # the server's teardowns run
+        wall2, _lat, per_key2, per2 = await durable_publish(
+            port, DUR_RESTART_MSGS, "(c)")
+        await server.stop()
+
+        # (c) a restart at the broker's default max_inflight (32): 64
+        # sessions resume their second backlog (128 each, over the
+        # inflight window)
+        server, rec2, t_load2 = await durable_boot(
+            filters, data_dir, "(c) restart")
+        port = server.listeners[0].port
+        mk.reset_launches()
+        clients, fig = await durable_reconnect(
+            port, list(range(DUR_RESTART_CLIENTS)), per_key2, per2, "(c)",
+            server.broker.metrics)
+        c_launches = mk.launches()
+        if server.broker.resume.committed != DUR_RESTART_CLIENTS:
+            fail(f"durable broker: (c) {server.broker.resume.committed} "
+                 f"committed of {DUR_RESTART_CLIENTS}")
+        out["c"] = {"recovery_ms": rec2 * 1e3,
+                    "replayed": fig["replayed"],
+                    "duplicates": fig["duplicates"],
+                    "wall_s": fig["wall_s"], "launches": c_launches,
+                    "window_deliveries": fig["window_deliveries"],
+                    "window_share": fig["window_share"],
+                    "max_inflight": server.broker.config.mqtt.max_inflight,
+                    "filters_load_s": t_load2,
+                    "boot_states": len(server.broker.durable.boot_states())}
+        print(f"durable broker: (c) boot to listening {rec2 * 1e3:.1f} ms "
+              f"over {DUR_SUBS} checkpoints (the filter load apart); "
+              f"{DUR_RESTART_CLIENTS} sessions at max_inflight "
+              f"{out['c']['max_inflight']} replayed {fig['replayed']} "
+              f"messages ({fig['duplicates']} duplicates) in "
+              f"{fig['wall_s']:.3f} s; {fig['window_deliveries']} of the "
+              f"deliveries ({fig['window_share']:.4f}) rode a replay "
+              f"window, the rest the mqueue path; launches {c_launches} "
+              f"[{results['card']}]", flush=True)
+        for cl in clients.values():
+            await cl.close()
+        await server.stop()
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    return out
+
+
+def durable_parity(results) -> dict:
+    """(d) `workload.durable_world` (20,000 filters, 32 persistent
+    sessions, 2,000 messages, a restart, the resume drained loop-less)
+    on the card and on the CPU, windowed and scalar: equal client bytes
+    and replay metrics; the card's windowed replay launched K3 once a
+    replay window."""
+    from emqx_tpu_torch import workload as W
+
+    t0 = time.perf_counter()
+    script = W.durable_script(*DUR_PARITY)
+    out = {}
+    for windowed in (True, False):
+        card = W.durable_world("cuda", script, windowed=windowed)
+        cpu = W.durable_world("cpu", script, windowed=windowed)
+        mode = "windowed" if windowed else "scalar"
+        if card["bytes"] != cpu["bytes"]:
+            fail(f"durable parity: the card's {mode} replay bytes differ "
+                 f"from the CPU's")
+        if card["metrics"] != cpu["metrics"]:
+            fail(f"durable parity: {mode} metrics {card['metrics']} on "
+                 f"the card, {cpu['metrics']} on the CPU")
+        if card["committed"] != DUR_PARITY[1]:
+            fail(f"durable parity: {card['committed']} sessions committed")
+        if windowed and card["replay_launches"]["decide_packed"] != \
+                card["metrics"]["session.replay.windows"]:
+            fail(f"durable parity: K3 {card['replay_launches']} for "
+                 f"{card['metrics']['session.replay.windows']} windows")
+        out[mode] = {"bytes": sum(map(len, card["bytes"].values())),
+                     "metrics": card["metrics"],
+                     "replay_launches": card["replay_launches"]}
+    print(f"durable parity: {DUR_PARITY[1]} sessions, {DUR_PARITY[2]} "
+          f"messages, windowed and scalar replay: card = CPU "
+          f"({out['windowed']['bytes']} bytes; windowed "
+          f"{out['windowed']['metrics']}) "
+          f"({time.perf_counter() - t0:.1f} s) [{results['card']}]",
+          flush=True)
+    return out
+
+
+def phase_durable_broker(results, filters) -> None:
+    phase("durable broker")
+    t0 = time.perf_counter()
+    out = asyncio.run(durable_load(results, filters))
+    out["d"] = durable_parity(results)
+    out["phase_s"] = time.perf_counter() - t0
+    results["durable"] = out
+    results["kernels"]["match_batch_compact"]["durable"] = {
+        "publish_launches": out["a"]["launches"]["match_batch_compact"],
+        "replay_launches": out["b"]["launches"]["match_batch_compact"]}
+    results["kernels"]["decide_batch"]["durable"] = {
+        "publish_launches": out["a"]["launches"]["decide_packed"],
+        "replay_launches": out["b"]["launches"]["decide_packed"],
+        "restart_replay_launches": out["c"]["launches"]["decide_packed"],
+        "replay_window_share": out["b"]["window_share"],
+        "restart_replay_window_share": out["c"]["window_share"],
+        "replay_windows": out["b"]["windows"]}
+    print(f"durable broker: the phase in {out['phase_s']:.1f} s", flush=True)
+
+
 # ------------------------------------------------------------ listeners
 
 LISTENER_KINDS = ("tcp", "ssl", "ws", "wss")
@@ -5432,6 +5891,7 @@ def main() -> None:
     phase_access_broker(results, filters)
     phase_auth_broker(results, filters)
     phase_exhook_broker(results, filters)
+    phase_durable_broker(results, filters)
     phase_listeners(results, filters)
 
     phase("kernels")
@@ -5447,7 +5907,8 @@ def main() -> None:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
             **{x: k[x] for x in ("main_path", "churn", "shared", "access",
-                                 "auth", "exhook", "listeners", "sinks",
+                                 "auth", "exhook", "durable", "listeners",
+                                 "sinks",
                                  "mgmt",
                                  "stress",
                                  "empty_launch_ms")
@@ -5460,6 +5921,7 @@ def main() -> None:
     print(f"access summary: {json.dumps(results['access'])}", flush=True)
     print(f"auth summary: {json.dumps(results['auth'])}", flush=True)
     print(f"exhook summary: {json.dumps(results['exhook'])}", flush=True)
+    print(f"durable summary: {json.dumps(results['durable'])}", flush=True)
     print(f"listeners summary: {json.dumps(results['listeners'])}",
           flush=True)
     print(f"sinks summary: {json.dumps(results['sinks'])}", flush=True)

@@ -61,8 +61,20 @@ GCP device registry, ``gcp_devices``), ``banned``, ``flapping``,
 The rules' egress hangs off it: ``resources`` (the sinks' buffer
 workers, by resource id) and ``aggregators`` (ticked by the server).
 ``tick(now)`` is the 1 Hz housekeeping: delayed wills, delayed
-publishes, topic-metric rates, alarm expiry, slow-subscriber expiry and
-session expiry.
+publishes, topic-metric rates, alarm expiry, slow-subscriber expiry,
+session expiry and, with ``durable.enable``, the store's checkpoints,
+retention and interval fsyncs.
+
+With ``durable.enable`` the broker keeps persistent sessions in the
+durable store (``ds.persist.DurableSessions``): ``prepare`` persists
+the publishes a persistent subscription's filter matches (the host
+gate), a disconnecting persistent session is checkpointed, and a
+reconnect after a restart rebuilds the session and replays the missed
+interval.  ``resume`` (`broker.resume.ResumeScheduler`) replays whole
+windows of it through `_dispatch_window` with ``preexpanded`` delivery
+columns, so a mass reconnect is decided by the decide kernel on the
+card like live traffic.  In ``fsync = "always"`` mode the batcher parks
+a window's acks until the fsync that covers its captures lands.
 """
 
 from __future__ import annotations
@@ -76,9 +88,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from .. import topic as T
 from ..access import AccessControl
 from ..codec import mqtt as C
-from ..config import BrokerConfig
+from ..config import RESUME_SHARD_REFUSED, BrokerConfig
 from ..engine import MatchEngine
 from ..hooks import HookRegistry
 from ..limiter import ConnectionLimiter
@@ -213,9 +226,74 @@ class Broker:
         # live micro-batcher, installed by the server (needs a loop);
         # without one, channels publish synchronously
         self.batcher: Optional[PublishBatcher] = None
+        # the server's event loop, once it starts: callbacks from the
+        # store's threads (corruption, census rebuild) run on it
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        # durable storage + persistent sessions (emqx_persistent_message
+        # gate + emqx_persistent_session_ds restore-on-reconnect)
+        self.durable = None
+        # mass-reconnect admission control + windowed replay: built
+        # with the store, DRIVEN by BrokerServer (its task flips
+        # `running`; a loop-less broker resumes with the scalar loop
+        # inside open_session)
+        self.resume = None
+        if self.config.durable.enable:
+            self._init_durable(native)
         # clientid -> (fire at, will message): MQTT 5 delayed wills,
         # fired by `tick`
         self._pending_wills: Dict[str, Tuple[float, Message]] = {}
+        self._last_ds_sync = time.time()
+        self._last_ds_fsync = time.time()
+
+    def _init_durable(self, native: bool) -> None:
+        from ..ds.persist import DurableSessions
+        from .resume import ResumeScheduler
+
+        cfg = self.config.durable
+        if (int(cfg.resume.shard_index), int(cfg.resume.shard_count)) \
+                != (0, 1):
+            raise ValueError(RESUME_SHARD_REFUSED)
+        self.durable = DurableSessions(
+            cfg.data_dir,
+            n_streams=cfg.n_streams,
+            store_qos0=cfg.store_qos0,
+            layout=cfg.layout,
+            fsync=cfg.fsync,
+            n_shards=cfg.n_shards,
+            native=native,
+        )
+        # detected corruption (quarantined log records, unreadable
+        # sidecars) surfaces as alarms + counters; the constructor
+        # buffered what its own loads found
+        self.durable.on_corruption = self._ds_corruption
+        for evt in self.durable.corruption_events:
+            self._ds_corruption(evt)
+        self.durable.corruption_events = []
+        # background census rebuild -> the ds_meta_rebuild alarm
+        self.durable.on_rebuild = self._ds_rebuild
+        for evt in self.durable.rebuild_events:
+            self._ds_rebuild(evt)
+        self.durable.rebuild_events = []
+        # every group fsync is counted and timed (the profiler's
+        # ds_sync stage)
+        self.durable.gate.on_sync = self._ds_synced
+        self.durable.gate.on_error = self._ds_sync_error
+        # a dropped boot checkpoint retracts the routes advertised for
+        # its detached session
+        self.durable.on_drop = self.router.cleanup_client
+        # checkpoints that expired while the broker was down go before
+        # their filters are advertised
+        self.durable.purge_expired()
+        for state in self.durable.boot_states():
+            # boot-state filters route (shared ones too), so publishes
+            # in the restart -> reconnect window keep persisting
+            for flt, opts_dict in state.subs.items():
+                self.router.subscribe(
+                    state.clientid, flt, SubOpts.from_dict(opts_dict))
+        self.resume = ResumeScheduler(self, cfg.resume)
+        # every channel detach releases a mid-replay session's slot;
+        # the job and its boot checkpoint survive for the reconnect
+        self.cm.on_detached = self.resume.pause
 
     # -------------------------------------------------- session setup
 
@@ -251,13 +329,45 @@ class Broker:
 
     def _session_discarded(self, session: Session) -> None:
         self.metrics.inc("session.discarded")
+        if self.resume is not None:
+            # a discarded session is owed nothing: drop any replay job
+            self.resume.cancel(session.clientid)
+        if self.durable is not None:
+            # the persistence gate must not outlive the session, or the
+            # log grows for a subscriber that can never return
+            self._release_gate(session)
+            self.durable.discard(session.clientid)
         self.router.cleanup_client(session.clientid)
         self.exclusive.release_all(session.clientid)
         self.hooks.run("session.discarded", session.clientid)
 
+    @staticmethod
+    def _gate_real(flt: str) -> str:
+        """The persistence gate matches MESSAGE TOPICS, so a $share
+        filter contributes its real topic part."""
+        share = T.parse_share(flt)
+        return share.topic if share else flt
+
+    def _release_gate(self, session: Session) -> None:
+        """Release exactly the persistence-gate refs this session holds."""
+        if self.durable is not None:
+            for flt in session.gate_filters:
+                self.durable.remove_filter(self._gate_real(flt))
+                if T.parse_share(flt) is not None:
+                    self.durable.shared_leave(flt, session.clientid)
+            session.gate_filters.clear()
+
     def session_terminated(self, clientid: str, session: Session) -> None:
-        """A session ending with expiry <= 0: drop its router state and
-        its ``$exclusive/`` holds."""
+        """A session ending with expiry <= 0: drop its router state, its
+        ``$exclusive/`` holds and its persistence-gate refs."""
+        if self.resume is not None:
+            # the client abandoned the session: nothing is owed, so the
+            # replay job and the boot checkpoint it drained go (discard,
+            # not drop_checkpoint: the boot state's gate refs moved to
+            # the live session and `_release_gate` releases them once)
+            self.resume.cancel(clientid)
+            self.durable.discard(clientid)
+        self._release_gate(session)
         self.router.cleanup_client(clientid)
         self.exclusive.release_all(clientid)
         self.metrics.inc("session.terminated")
@@ -269,6 +379,22 @@ class Broker:
         """Register the subscription; returns the retained messages to
         replay per retain_handling ([MQTT-3.3.1-9..11])."""
         self.router.subscribe(clientid, flt, opts)
+        # gate refcount: only a NEW subscription counts (an options
+        # refresh must not inflate it); session.gate_filters records the
+        # refs this session holds, released once on every teardown path
+        if self.durable is not None:
+            session = self.cm.lookup(clientid)
+            if (
+                session is not None
+                and session.expiry_interval > 0
+                and flt not in session.gate_filters
+            ):
+                self.durable.add_filter(self._gate_real(flt))
+                session.gate_filters.add(flt)
+                if opts.share_group is not None:
+                    # durable group membership drives the replay-time
+                    # stream assignment across restarts
+                    self.durable.shared_join(flt, clientid)
         self.hooks.run("session.subscribed", clientid, flt, opts)
         self.stats.set("subscriptions.count",
                        self.router.subscription_count())
@@ -282,10 +408,186 @@ class Broker:
     def unsubscribe(self, clientid: str, flt: str) -> bool:
         ok = self.router.unsubscribe(clientid, flt)
         if ok:
+            if self.durable is not None:
+                session = self.cm.lookup(clientid)
+                if session is not None and flt in session.gate_filters:
+                    session.gate_filters.discard(flt)
+                    self.durable.remove_filter(self._gate_real(flt))
+                    if T.parse_share(flt) is not None:
+                        self.durable.shared_leave(flt, clientid)
             self.hooks.run("session.unsubscribed", clientid, flt)
             self.stats.set("subscriptions.count",
                            self.router.subscription_count())
         return ok
+
+    # --------------------------------------------- session open/close
+
+    def open_session(
+        self, clean_start: bool, clientid: str, channel, **session_kwargs
+    ) -> Tuple[Session, bool]:
+        """`emqx_cm:open_session` plus durable restore: when the broker
+        restarted and the in-memory session is gone, a clean_start=false
+        reconnect rebuilds the session from its checkpoint and replays
+        the messages persisted since the disconnect
+        (emqx_persistent_session_ds resume).
+
+        Under a running server the replay is handed to the resume
+        scheduler (CONNACK-then-drain: the backlog streams in as
+        dispatch windows under admission control); with no scheduler
+        running the scalar replay fills the mqueue before returning.
+        Raises `ResumeBusy`, before any session state exists, when
+        admission is saturated, so the channel answers CONNACK
+        server-busy; and the error that stopped the scheduler (a failed
+        decide launch) when a replay is owed after it."""
+        resume = self.resume
+        if (
+            resume is not None
+            and resume.error is not None
+            and not clean_start
+            and (
+                resume.pending(clientid)
+                or (
+                    self.cm.lookup(clientid) is None
+                    and self.durable.has_checkpoint(clientid)
+                )
+            )
+        ):
+            raise resume.error
+        if (
+            resume is not None
+            and resume.running
+            and not clean_start
+            and self.cm.lookup(clientid) is None
+            and self.durable.has_checkpoint(clientid)
+            and not resume.pending(clientid)
+            and resume.saturated()
+        ):
+            from .resume import ResumeBusy
+
+            self.metrics.inc("session.resume.busy")
+            raise ResumeBusy(clientid)
+        session, present = self.cm.open_session(
+            clean_start, clientid, channel, **session_kwargs
+        )
+        if present or clean_start or self.durable is None:
+            if self.durable is not None and (clean_start or present):
+                if (
+                    present
+                    and not clean_start
+                    and resume is not None
+                    and resume.pending(clientid)
+                ):
+                    # a session still mid-replay reconnected: the new
+                    # channel takes over and the scheduler goes on from
+                    # the cursors; the boot checkpoint stays until
+                    # commit (its cursors are the crash story)
+                    resume.reattach(clientid)
+                else:
+                    # a live resume or clean start invalidates the
+                    # checkpoint (a later restart would double-replay),
+                    # and releases the gate refs its boot state took
+                    self.durable.drop_checkpoint(clientid)
+            return session, present
+        state = self.durable.load(clientid)
+        if state is None:
+            return session, False
+        # rebuild the subscriptions, then replay the missed interval
+        for flt, opts_dict in state.subs.items():
+            opts = SubOpts.from_dict(opts_dict)
+            session.subscribe(flt, opts)
+            self.router.subscribe(clientid, flt, opts)
+            # the boot state's gate refs move to the live session,
+            # released once on its discard or termination
+            session.gate_filters.add(flt)
+        if resume is not None and resume.running:
+            # CONNACK-then-drain: commit (checkpoint discard and
+            # session.resumed) fires when the last window is handed off
+            resume.admit(clientid, state, session)
+            return session, True
+        complete = self._resume_scalar(session, state)
+        if complete:
+            # an INCOMPLETE replay (a dropped read with no scheduler to
+            # retry) keeps the checkpoint and is not a resume
+            self.durable.discard(clientid)
+            self.metrics.inc("session.resumed")
+            self.hooks.run("session.resumed", clientid)
+        return session, True
+
+    def _resume_scalar(self, session: Session, state) -> bool:
+        """The scalar per-session resume loop: chunked `replay_chunk`
+        reads baked into the session's mqueue, drained into the send
+        window after CONNACK by `session.resume()`.  The referee the
+        windowed resume is held to (wire bytes, packet ids, inflight),
+        and the path when no scheduler runs.  True when the whole
+        interval was read; False when a blocked read stopped it (the
+        checkpoint must survive).  The cursors are not checkpointed
+        here: a chunk lives only in the in-memory mqueue until it is
+        delivered."""
+        while True:
+            msgs, done = self.durable.replay_chunk(state)
+            self._resume_enqueue(session, msgs)
+            if done:
+                return True
+            if not msgs:
+                return False
+
+    def _resume_enqueue(self, session: Session, msgs) -> int:
+        """Bake one replay chunk into a session's mqueue (the scalar
+        resume's delivery half; the scheduler's scalar mode calls it
+        per chunk).  The replay admission filters: the subscription
+        must still exist, no-local ([MQTT-3.8.3-3]: a client's own
+        publishes never replay to a no_local subscription), and the
+        mqueue's QoS 0 store gate."""
+        clientid = session.clientid
+        store_q0 = self.config.mqtt.mqueue_store_qos0
+        replayed = 0
+        for flt, msg in msgs:
+            opts = session.subscriptions.get(flt)
+            if opts is None:
+                continue
+            if opts.no_local and msg.from_client == clientid:
+                continue
+            qos = session._effective_qos(msg.qos, opts)
+            if qos == 0 and not store_q0:
+                continue
+            session.mqueue.insert(
+                session._queued(msg, opts, max(qos, 0))
+            )
+            replayed += 1
+        return replayed
+
+    def channel_disconnected(self, clientid: str) -> None:
+        """Checkpoint a persistent session at channel close so a broker
+        restart can rebuild it (emqx_persistent_session_ds commit).  A
+        stale close (a new channel already attached) does not
+        checkpoint: a restart would double-replay what the live
+        connection received."""
+        session = self.cm.lookup(clientid)
+        if (
+            session is None
+            or self.cm.channel(clientid) is not None
+            or session.expiry_interval <= 0
+            or not session.subscriptions
+            or self.durable is None
+        ):
+            return
+        if self.resume is not None and self.resume.pending(clientid):
+            # disconnected MID-REPLAY: the boot checkpoint still covers
+            # the whole interval and is kept (a fresh one would skip the
+            # un-replayed tail after a restart); subscription changes of
+            # the live window reach disk with the original cursors
+            self.resume.pause(clientid)
+            self.resume.refresh_checkpoint(clientid, session)
+        else:
+            try:
+                self.durable.save(
+                    clientid, session.subscriptions,
+                    session.expiry_interval,
+                )
+            except Exception:
+                # a failed write leaves the previous checkpoint: replay
+                # starts from its older disconnect (at-least-once)
+                log.exception("durable checkpoint failed for %s", clientid)
 
     # ------------------------------------------------------- wills
 
@@ -303,7 +605,9 @@ class Broker:
     def tick(self, now: Optional[float] = None) -> None:
         """The 1 Hz housekeeping (the server's timer, or a test's
         injected clock): due wills, due delayed publishes, topic-metric
-        rates, alarm expiry, slow-subscriber expiry, session expiry."""
+        rates, alarm expiry, slow-subscriber expiry, session expiry,
+        and the durable store's expiry, checkpoints, retention and
+        interval fsyncs."""
         now = now if now is not None else time.time()
         due = [cid for cid, (at, _) in self._pending_wills.items()
                if now >= at]
@@ -315,6 +619,21 @@ class Broker:
         self.alarms.tick(now)
         self.slow_subs.tick(now)
         self.cm.expire_sessions(now)
+        if self.durable is not None:
+            self.durable.purge_expired(now)
+            cfg = self.config.durable
+            if now - self._last_ds_sync >= cfg.sync_interval:
+                self._last_ds_sync = now
+                self.durable.checkpoint_meta()  # census/index + progress
+                self.durable.gc(
+                    int((now - cfg.retention_hours * 3600.0) * 1e6))
+            if cfg.fsync != "never" and (
+                now - self._last_ds_fsync >= cfg.fsync_interval
+            ):
+                # the interval mode's group flush, and the `always`
+                # mode's backstop for appends no barrier covered
+                self._last_ds_fsync = now
+                self.durable.sync_soon()
 
     # ------------------------------------------------------ publish
 
@@ -325,12 +644,21 @@ class Broker:
     def publish_many(self, msgs: Sequence[Message]) -> List[int]:
         """Route a window: all topics matched in one kernel launch."""
         rec = self.profiler.begin(len(msgs))
+        dur = self.durable
+        always = dur is not None and dur.fsync_mode == "always"
+        wm0 = dur.gate.appended if always else 0
         live, results = self.publish_prepare(msgs)
         if rec is not None:
             rec.lap("prepare")
-        return merge_counts(results, self.publish_dispatch(
+        counts = merge_counts(results, self.publish_dispatch(
             live, self.publish_match_finish(
                 self.publish_match_submit(live, rec)), rec))
+        if always and dur.gate.appended > wm0 and dur.gate.dirty:
+            # loop-less group commit: the caller acks after this
+            # returns, so the covering flush runs here, once a window,
+            # and only when THIS window captured something
+            dur.gate.sync_now()
+        return counts
 
     def publish_prepare(
         self, msgs: Sequence[Message]
@@ -403,6 +731,11 @@ class Broker:
                 continue
             live.append(msg)
             results.append(None)
+        if live and self.durable is not None:
+            try:
+                self.durable.persist(live)
+            except Exception:
+                log.exception("durable persist failed for window")
         return live, results
 
     def publish_match_submit(self, msgs: Sequence[Message], rec=None):
@@ -460,8 +793,10 @@ class Broker:
     # ----------------------------------------------------- dispatch
 
     def _dispatch_window(
-        self, msgs: Sequence[Message], matched: Sequence[Set[str]],
+        self, msgs: Sequence[Message],
+        matched: Optional[Sequence[Set[str]]],
         rule_sink: List[Tuple[Message, List[str]]], rec=None,
+        preexpanded: Optional[Tuple] = None, replay: bool = False,
     ) -> List[int]:
         """Fan a routed window out to subscriber sessions: CSR-expand,
         group per client with one stable sort (each client's deliveries
@@ -473,12 +808,27 @@ class Broker:
         shared group received was delivered.  Rule hits go to
         ``rule_sink`` as ``(message, raw rule ids)``; a message only
         rules matched counts as dropped for no subscribers, as in the
-        JAX package."""
+        JAX package.
+
+        ``preexpanded`` (the durable replay window) supplies the
+        ``(msg_idx, client_rows, opts_rows)`` delivery columns directly,
+        client-contiguous with each client's entries in its replay
+        order: route expansion and the per-client sort are skipped (the
+        targets are the resuming clients, and their order is the replay
+        cursors' order the scalar referee produces), and the decide
+        kernel decides the window as it does live traffic.  ``replay``
+        skips the accounting that means nothing for a backlog: no
+        no-subscriber drops, no publish-to-delivery latency, no slow
+        subscriber scan."""
         router = self.router
         n = len(msgs)
         cnt = np.zeros(n, np.int64)  # deliveries per message
-        msg_idx, rows, opts_rows, rules, shared = router.expand_window(
-            matched)
+        if preexpanded is None:
+            msg_idx, rows, opts_rows, rules, shared = router.expand_window(
+                matched)
+        else:
+            msg_idx, rows, opts_rows = preexpanded
+            rules, shared = [], []
         if rec is not None:
             rec.lap("expand")
         for i, rids in rules:
@@ -514,13 +864,17 @@ class Broker:
         # only when the window's oldest publish is past the threshold
         now_w = time.time()
         floor = now_w - self.slow_subs.threshold_ms / 1000.0
-        ts_min = min((m.timestamp for m in msgs if m.timestamp),
-                     default=0.0)
+        ts_min = 0.0 if replay else min(
+            (m.timestamp for m in msgs if m.timestamp), default=0.0)
         slow_floor = floor if ts_min and ts_min < floor else None
         try:
             if len(rows):
-                order = np.lexsort((msg_idx, rows))
-                sra, sm_a, so_a = rows[order], msg_idx[order], opts_rows[order]
+                if preexpanded is None:
+                    order = np.lexsort((msg_idx, rows))
+                    sra, sm_a, so_a = (
+                        rows[order], msg_idx[order], opts_rows[order])
+                else:
+                    sra, sm_a, so_a = rows, msg_idx, opts_rows
                 m_qos = np.fromiter((m.qos for m in msgs), np.int8, n)
                 m_retain = np.fromiter((m.retain for m in msgs), bool, n)
                 m_from = np.fromiter(
@@ -587,7 +941,7 @@ class Broker:
             rec.lap("flush")
             rec.n_deliveries = delivered
             rec.n_clients = n_clients
-            if delivered:
+            if delivered and not replay:
                 # publish -> delivery latency of each delivered message
                 now = time.time()
                 rec.e2e_ms.extend(
@@ -595,7 +949,9 @@ class Broker:
                     for m, c in zip(msgs, counts) if c and m.timestamp)
         touched = np.zeros(n, bool)
         touched[msg_idx] = True
-        none = np.flatnonzero(~touched).tolist()
+        # a backlog entry filtered at window build was not a dropped
+        # publish: replay windows count no "no subscribers"
+        none = [] if replay else np.flatnonzero(~touched).tolist()
         if none:
             mloc["messages.dropped"] += len(none)
             mloc["messages.dropped.no_subscribers"] += len(none)
@@ -613,14 +969,23 @@ class Broker:
         """Pick one live group member, skipping members whose session
         is gone (redispatch, emqx_shared_sub.erl:144-166), and append
         the pick to the window's shared delivery columns: the member's
-        row and its subscription's opts-table slot."""
+        row and its subscription's opts-table slot.  With durable
+        storage on, DETACHED persistent members are skipped too: their
+        share of the group's traffic arrives by stream-assigned replay
+        (durable shared subscriptions), and queueing it here as well
+        would deliver the offline interval twice."""
         router = self.router
         tried: Set[str] = set()
         while True:
             picked = router.shared.pick(group, real, msg, exclude=tried)
             if picked is None:
                 return
-            if self.cm.lookup(picked) is not None:
+            session = self.cm.lookup(picked)
+            if session is not None and (
+                self.durable is None
+                or self.cm.channel(picked) is not None
+                or session.expiry_interval <= 0
+            ):
                 # a member's row and slot live as long as its membership
                 s_msg.append(msg_i)
                 s_rows.append(router.row_of_client(picked))
@@ -791,21 +1156,87 @@ class Broker:
         return kept
 
     def shutdown(self) -> None:
+        """Drop held wills, flush and close the durable store."""
         self._pending_wills.clear()
+        if self.durable is not None:
+            self.durable.close()
+
+    # ------------------------------------------------ ds durability
+
+    def _on_loop(self, fn) -> None:
+        """Run ``fn`` on the server's event loop when one is live (the
+        store's callbacks may fire on its census-rebuild thread), else
+        inline (a loop-less broker)."""
+        loop = self._loop
+        if loop is not None and not loop.is_closed():
+            try:
+                loop.call_soon_threadsafe(fn)
+                return
+            except RuntimeError:
+                pass
+        fn()
+
+    def _ds_corruption(self, evt: Dict) -> None:
+        """Detected corruption (a quarantined log suffix, an unreadable
+        sidecar): a counter and an alarm.  The store already recovered
+        conservatively; this is the never-silent half."""
+        kind = evt.get("kind", "meta")
+        if kind == "storage":
+            self.metrics.inc(
+                "ds.storage.corrupt_records", int(evt.get("records", 1)))
+            name = "ds_storage_corruption"
+            msg = "dslog quarantined unreadable records"
+        else:
+            self.metrics.inc("ds.meta.corruption")
+            name = "ds_meta_corruption"
+            msg = ("DS metadata sidecar unreadable; recovered "
+                   "conservatively (at-least-once)")
+        self._on_loop(lambda: self.alarms.activate(
+            name, details=dict(evt), message=msg))
+
+    def _ds_rebuild(self, evt: Dict) -> None:
+        """Census rebuild: the alarm is up while a background rebuild
+        runs (reads serve correct-but-wider from the log), cleared when
+        the scan lands; an aborted rebuild leaves it up."""
+        event = evt.get("event")
+        if event == "start":
+            self.metrics.inc("ds.meta.rebuild")
+            self._on_loop(lambda: self.alarms.activate(
+                "ds_meta_rebuild", details=dict(evt),
+                message=("DS census rebuilding in background; "
+                         "reads serve unpruned from the log")))
+        elif event == "done":
+            self._on_loop(
+                lambda: self.alarms.deactivate("ds_meta_rebuild"))
+
+    def _ds_synced(self, dur_s: float) -> None:
+        self.metrics.inc("ds.sync.count")
+        self.profiler.stage("ds_sync", dur_s)
+
+    def _ds_sync_error(self, exc: BaseException) -> None:
+        self.metrics.inc("ds.sync.errors")
 
     # ------------------------------------------- management surface
 
     def node_info(self) -> Dict:
         """This node's row for ``GET /api/v5/nodes``: node, uptime,
-        connections, status and, once sinks exist, the egress roll-up.
-        The JAX package's resume, olp, durability, flight and multicore
-        rows come with their modules (ROADMAP.md section 1)."""
+        connections, status, with durable storage the resume queue and
+        the durability surface, and once sinks exist the egress roll-up.
+        The JAX package's olp, flight and multicore rows come with their
+        modules (ROADMAP.md section 1)."""
         node: Dict = {
             "node": self.config.node_name,
             "uptime": int(time.time() - self.metrics.start_time),
             "connections": len(self.cm),
             "node_status": "running",
         }
+        if self.resume is not None:
+            # resume-queue depth (mass-reconnect admission control)
+            node["resume"] = self.resume.info()
+        if self.durable is not None:
+            # fsync mode, group-commit counters, unsynced and parked
+            # backlog, corruption
+            node["durability"] = self.durable.sync_stats()
         egress = self.resources.summary()
         if egress["sinks"]:
             # buffered depth, batch count, breaker state at a glance
@@ -1156,6 +1587,18 @@ class PublishBatcher:
                     self._inflight_drain.set()
                 counts = merge_counts(results, self.broker.publish_dispatch(
                     live, matched, rec))
+                dur = self.broker.durable
+                if (
+                    dur is not None
+                    and dur.fsync_mode == "always"
+                    and dur.gate.dirty
+                ):
+                    # group-commit barrier: the window's acks park until
+                    # the fsync covering its captures lands (one fsync a
+                    # window, concurrent windows coalesced by the gate's
+                    # worker).  A sync fault keeps them parked and
+                    # retries: never an un-durable ack
+                    await dur.wait_durable()
             except asyncio.CancelledError:
                 raise
             except Exception as exc:

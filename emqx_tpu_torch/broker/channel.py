@@ -30,6 +30,7 @@ from ..codec import mqtt as C
 from ..message import Message
 from ..modules import ExclusiveSub
 from .broker import Broker
+from .resume import ResumeBusy
 from .session import Session, SubOpts
 
 log = logging.getLogger("emqx_tpu_torch.channel")
@@ -439,15 +440,21 @@ class Channel:
             else (0 if pkt.clean_start else mqtt.session_expiry_interval)
         )
         receive_max = pkt.properties.get("receive_maximum")
-        session, present = self.broker.cm.open_session(
-            pkt.clean_start,
-            clientid,
-            self,
-            expiry_interval=expiry,
-            max_inflight=min(
-                mqtt.max_inflight, receive_max or mqtt.max_inflight
-            ),
-        )
+        try:
+            session, present = self.broker.open_session(
+                pkt.clean_start,
+                clientid,
+                self,
+                expiry_interval=expiry,
+                max_inflight=min(
+                    mqtt.max_inflight, receive_max or mqtt.max_inflight
+                ),
+            )
+        except ResumeBusy:
+            # resume admission saturated (a mass-reconnect storm): the
+            # client backs off and retries
+            self._connack_error(RC_SERVER_BUSY)
+            return
         self.session = session
         self.broker.cancel_will(clientid)  # reconnect cancels a delayed will
         if present:
@@ -923,6 +930,7 @@ class Channel:
                 broker.publish(will)
         if self.session is not None and self.client is not None:
             broker.cm.disconnect(self.clientid, self)
+            broker.channel_disconnected(self.clientid)
             if self.session.expiry_interval <= 0:
                 broker.session_terminated(self.clientid, self.session)
                 broker.hooks.run("session.terminated", self.clientid,

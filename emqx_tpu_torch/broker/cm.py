@@ -42,6 +42,10 @@ class ConnectionManager:
         self.on_discarded: Optional[Callable[[Session], None]] = None
         # wired by the broker: counts a session a new channel took over
         self.on_takenover: Optional[Callable[[Session], None]] = None
+        # wired by the broker when durable storage is on: fired with the
+        # clientid whenever a persistent session's channel detaches, so
+        # a mid-replay resume job releases its replay slot at once
+        self.on_detached: Optional[Callable[[str], None]] = None
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -124,6 +128,8 @@ class ConnectionManager:
         e.disconnected_at = time.time()
         if e.session.expiry_interval <= 0:
             del self._entries[clientid]
+        elif self.on_detached is not None:
+            self.on_detached(clientid)
 
     def expire_sessions(self, now: Optional[float] = None) -> List[str]:
         """Drop detached sessions past their expiry interval."""

@@ -263,6 +263,12 @@ class BrokerServer:
         return self.listeners[0].port if self.listeners else None
 
     async def start(self) -> None:
+        from .. import failpoints
+
+        # arm any EMQX_FAILPOINTS spec before traffic flows (a no-op
+        # when the variable is unset)
+        failpoints.load_env()
+        self.broker._loop = asyncio.get_running_loop()
         # the config's sinks first: a rule's SinkAction finds its worker
         # from the first window on, and one that fails to start raises
         try:
@@ -296,6 +302,10 @@ class BrokerServer:
                 pipeline_windows=eng.pipeline_windows,
             )
             await self.broker.batcher.start()
+        if self.broker.resume is not None:
+            # the resume scheduler before the listeners accept: the
+            # first reconnect of a storm already goes through admission
+            await self.broker.resume.start()
         for lst in self.listeners:
             await lst.start()
         api_cfg = self.broker.config.api
@@ -364,6 +374,11 @@ class BrokerServer:
             self.api = None
         for lst in self.listeners:
             await lst.stop()
+        if self.broker.resume is not None:
+            # after the listeners (no new resumes), before the batcher:
+            # uncommitted jobs keep their boot checkpoints, so the next
+            # boot replays their intervals (at-least-once)
+            await self.broker.resume.stop()
         if self.broker.batcher is not None:
             await self.broker.batcher.stop()
             self.broker.batcher = None

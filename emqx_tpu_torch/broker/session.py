@@ -125,6 +125,9 @@ class Session:
         # the channel's retry timer drains the queue once the buffer
         # recovers.  `_dequeue` clears it when the queue empties.
         self.out_parked = False
+        # persistence-gate refs this session holds (kept by the broker;
+        # released once on discard or termination)
+        self.gate_filters: set = set()
         # wired by the broker: called with (dropped_msg, reason) when a
         # delivery is lost to queue overflow or expiry
         self.on_dropped: Optional[Callable[[Message, str], None]] = None
@@ -288,6 +291,11 @@ class Session:
             pid[pend] = pids
             n1 = pq.count(1)
         return body, pid, (len(body) - k, n1, k - n1)
+
+    def _effective_qos(self, msg_qos: int, opts: SubOpts) -> int:
+        if self.upgrade_qos:
+            return max(msg_qos, opts.qos)
+        return min(msg_qos, opts.qos)
 
     def _queued(self, msg: Message, opts: SubOpts, qos: int) -> Message:
         # bake the effective qos + subopts into the queued copy so the

@@ -6,8 +6,7 @@ key is an error) and gives dotted-path ``get``/``update`` with
 validating handlers; `apply_env_overrides` applies the
 ``EMQX_TPU_<PATH>`` environment variables; `check_config` lists the
 problems a typo would cause at boot.  A key of a section this package
-has not ported yet (overload protection, durable storage, clustering,
-...) and ``engine.use_device`` (``--device`` chooses the device here)
+has not ported yet (overload protection, clustering, ...) and ``engine.use_device`` (``--device`` chooses the device here)
 raise ValueError naming the key: such a setting is never dropped
 silently.
 """
@@ -188,6 +187,75 @@ class ApiConfig:
 
 
 @dataclass
+class ResumeConfig:
+    """Resume admission control (the mass-reconnect scheduler): a
+    bounded number of sessions replay their durable backlog
+    concurrently, each scheduler round reads at most
+    ``replay_byte_budget`` payload bytes before yielding the event
+    loop back to live traffic, and reconnects beyond
+    ``max_concurrent`` park in a FIFO (CONNACK-then-drain: the client
+    is connected and live immediately, its backlog streams in when a
+    replay slot frees).  Past ``park_queue_cap`` the broker answers
+    CONNACK server-busy so the client backs off."""
+
+    # sessions replaying concurrently (active replay slots)
+    max_concurrent: int = 64
+    # payload bytes read per scheduler round before yielding
+    replay_byte_budget: int = 4 * 1024 * 1024
+    # parked (admitted-but-waiting) sessions beyond the active slots;
+    # past this, reconnects get CONNACK server-busy (client backoff)
+    park_queue_cap: int = 4096
+    # messages pulled per session per round (cursor-batch granular)
+    chunk_msgs: int = 1024
+    # windowed replay: batch DS reads across resuming sessions and
+    # dispatch backlogs as one window through the live pipeline (the
+    # decide kernel, encode-once slots, the native splice).  False pins
+    # the scalar per-session mqueue path, the referee.
+    windowed: bool = True
+    # multicore resume sharding (the JAX package's worker pools): only
+    # the single-process (0, 1) loads here; `check_config` refuses any
+    # other until the multicore pool is ported (ROADMAP.md item 9)
+    shard_index: int = 0
+    shard_count: int = 1
+
+
+@dataclass
+class DurableConfig:
+    """Durable storage + persistent sessions (emqx_durable_storage)."""
+
+    enable: bool = False
+    data_dir: str = "data/ds"
+    # storage layout: "lts" (learned topic structure + bitmask keys —
+    # wildcard replay scans only overlapping structures) or "hash"
+    # (2-level topic-prefix hash shards); pinned per data directory
+    layout: str = "lts"
+    n_streams: int = 16  # hash layout only
+    # physical store shards: each shard is an independent segment log
+    # + fsync barrier + metadata journal.  Pinned per data directory
+    # like the layout — it decides WHERE records live.
+    n_shards: int = 1
+    store_qos0: bool = False
+    # durability mode — what "acked" means for a captured QoS>=1
+    # publish:
+    #   never    no fsync: a power cut may take everything since the
+    #            OS last flushed (process crashes still lose nothing
+    #            the log absorbed — appends are write()-complete)
+    #   interval periodic group flush off the broker tick every
+    #            `fsync_interval` s: a power cut loses at most that
+    #            window
+    #   always   group-commit: the PUBACK parks until the covering
+    #            dslog_sync lands — ONE fsync amortized per dispatch
+    #            window ("acked means durable", crash-tested with
+    #            tools/crashsim)
+    fsync: str = "interval"
+    fsync_interval: float = 5.0
+    sync_interval: float = 5.0  # metadata checkpoint + gc cadence
+    retention_hours: float = 168.0  # segment GC horizon (7 days)
+    # mass-reconnect admission control + windowed replay
+    resume: ResumeConfig = field(default_factory=ResumeConfig)
+
+
+@dataclass
 class BrokerConfig:
     mqtt: MqttConfig = field(default_factory=MqttConfig)
     listeners: List[ListenerConfig] = field(
@@ -213,6 +281,7 @@ class BrokerConfig:
     # credentials after migrating off Google IoT Core
     gcp_device_enable: bool = False
     gcp_device_file: str = "data/gcp_devices.json"
+    durable: DurableConfig = field(default_factory=DurableConfig)
     node_name: str = "emqx_tpu@127.0.0.1"
     # exhook CLIENT servers this broker calls out to (emqx_exhook):
     # [{"name", "url", "timeout", "failure_action": "deny"|"ignore"}]
@@ -230,7 +299,6 @@ NOT_PORTED = {
     "telemetry_enable": "telemetry",
     "telemetry_url": "telemetry",
     "telemetry_interval": "telemetry",
-    "durable": "durable sessions",
     "multicore": "the match service and multicore",
     "cluster": "clustering",
     "cluster_name": "cluster linking",
@@ -242,6 +310,13 @@ NOT_PORTED = {
     "engine.use_device": "no device switch: --device chooses the device",
     "retainer.deliver_rate": "a retained-delivery rate nothing reads",
 }
+
+
+# the resume shard keys load only at the single process's (0, 1)
+RESUME_SHARD_REFUSED = (
+    "durable.resume.shard_index/shard_count: multicore resume sharding "
+    "is not ported to emqx_tpu_torch (ROADMAP.md section 1, item 9); "
+    "only (0, 1) boots")
 
 
 def _not_ported(path: str) -> ValueError:
@@ -421,6 +496,28 @@ def check_config(cfg: BrokerConfig) -> List[str]:
         bad("mqtt.mqueue_default_priority must be lowest|highest")
     if int(cfg.mqtt.outbound_high_watermark) < 0:
         bad("mqtt.outbound_high_watermark must be >= 0")
+    if cfg.durable.layout not in ("lts", "hash"):
+        bad(f"durable.layout: {cfg.durable.layout!r} (lts|hash)")
+    if not 1 <= int(cfg.durable.n_shards) <= 64:
+        bad("durable.n_shards must be in [1, 64]")
+    if cfg.durable.fsync not in ("never", "interval", "always"):
+        bad(
+            f"durable.fsync: {cfg.durable.fsync!r} "
+            "(never|interval|always)"
+        )
+    if not 0.05 <= float(cfg.durable.fsync_interval) <= 3600.0:
+        bad("durable.fsync_interval must be in [0.05, 3600]")
+    res = cfg.durable.resume
+    if int(res.max_concurrent) < 1:
+        bad("durable.resume.max_concurrent must be >= 1")
+    if int(res.replay_byte_budget) < 4096:
+        bad("durable.resume.replay_byte_budget must be >= 4096")
+    if int(res.park_queue_cap) < 0:
+        bad("durable.resume.park_queue_cap must be >= 0")
+    if int(res.chunk_msgs) < 1:
+        bad("durable.resume.chunk_msgs must be >= 1")
+    if (int(res.shard_index), int(res.shard_count)) != (0, 1):
+        bad(RESUME_SHARD_REFUSED)
     if not isinstance(cfg.sinks, list):
         bad("sinks: expected a list of sink objects")
         return problems

@@ -15,8 +15,9 @@ Failure policy (`request_failed_action`): ``deny`` fails closed
 fails open (the local chain continues).  A circuit breaker backs off
 after consecutive transport failures so a dead provider costs one
 fast-failed call per breaker window instead of a full timeout per
-event (EMQX's auto_reconnect role).  Only the transport's `RpcError`
-counts as a failure.
+event (EMQX's auto_reconnect role).  The transport's `RpcError` and
+a `failpoints.FailpointError` injected at the ``exhook.call`` seam
+count as failures.
 
 Notify-only hooks (connected/disconnected/session.*/delivered/...)
 are fired asynchronously and never block the broker; the three
@@ -33,7 +34,7 @@ import logging
 import time
 from typing import Dict, List, Optional, Sequence
 
-from .. import grpc_util
+from .. import failpoints, grpc_util
 from ..hooks import STOP_WITH, with_async
 from ..message import Message
 from . import pb
@@ -306,12 +307,17 @@ class ExhookClient:
             return None
         try:
             self.stats["calls"] += 1
+            if failpoints.enabled:
+                # failpoint seam: FailpointError carries a grpc-like
+                # .code(), so an injected fault walks the same breaker
+                # and failure-policy path as a transport error
+                failpoints.evaluate("exhook.call", key=self.name)
             out = self._method(rpc, req_cls, resp_cls)(
                 req, timeout=self.timeout
             )
             self._failures = 0
             return out
-        except grpc_util.RpcError as exc:
+        except (grpc_util.RpcError, failpoints.FailpointError) as exc:
             self.stats["failures"] += 1
             self._failures += 1
             if self._failures >= self.breaker_threshold:

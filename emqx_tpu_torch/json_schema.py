@@ -107,8 +107,10 @@ _NAMED = ("properties", "patternProperties", "dependentSchemas", "$defs",
 
 
 def _scan(root: Any, node: Any, depth: int = 0) -> None:
-    """Refuse what this validator does not implement, and check that
-    every ``$ref`` resolves."""
+    """Refuse what this validator does not implement, a non-local
+    ``$ref`` included.  A local ``$ref`` resolves when an instance
+    reaches it, as in jsonschema: one that points nowhere fails only
+    the instances that reach it."""
     if depth > 200:
         raise ValueError("schema nested too deep")
     if isinstance(node, dict):
@@ -118,7 +120,9 @@ def _scan(root: Any, node: Any, depth: int = 0) -> None:
             if k == "$ref":
                 if not isinstance(v, str):
                     raise ValueError("$ref must be a string")
-                _pointer(root, v)
+                if v != "#" and not v.startswith("#/"):
+                    raise ValueError(f"$ref {v!r}: only local JSON "
+                                     "pointers (#, #/...) are supported")
             elif k in ("const", "enum", "default", "examples"):
                 continue  # instance data, not schemas
             elif k in _NAMED and isinstance(v, dict):

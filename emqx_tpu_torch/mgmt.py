@@ -29,7 +29,6 @@ from .message import Message
 # the JAX package's routes whose modules are not ported, by path prefix:
 # (the module, its item in ROADMAP.md section 1)
 NOT_PORTED: Dict[str, Tuple[str, int]] = {
-    "/api/v5/failpoints": ("failpoints", 8),
     "/api/v5/olp": ("overload protection", 7),
     "/api/v5/flight": ("the flight recorder", 8),
     "/api/v5/tracing": ("message lifecycle tracing", 8),
@@ -69,10 +68,10 @@ ROUTES = (
     ("POST", "/api/v5/publish", "post_publish"),
     ("GET", "/api/v5/alarms", "get_alarms"),
     ("DELETE", "/api/v5/alarms", "clear_alarms"),
-    ("GET", "/api/v5/failpoints", None),
-    ("PUT", "/api/v5/failpoints/{name}", None),
-    ("DELETE", "/api/v5/failpoints/{name}", None),
-    ("DELETE", "/api/v5/failpoints", None),
+    ("GET", "/api/v5/failpoints", "get_failpoints"),
+    ("PUT", "/api/v5/failpoints/{name}", "put_failpoint"),
+    ("DELETE", "/api/v5/failpoints/{name}", "delete_failpoint"),
+    ("DELETE", "/api/v5/failpoints", "delete_failpoints"),
     ("GET", "/api/v5/banned", "get_banned"),
     ("POST", "/api/v5/banned", "post_banned"),
     ("DELETE", "/api/v5/banned/{kind}/{who}", "delete_banned"),
@@ -603,6 +602,67 @@ class MgmtApi:
             self.broker.alarms.deactivate(a.name)
         return Response(status=204)
 
+    # ------------------------------------------------------ failpoints
+
+    async def get_failpoints(self, request: Request) -> Response:
+        from . import failpoints
+
+        return _json({
+            "enabled": failpoints.enabled,
+            "data": failpoints.list_points(),
+            "seams": list(failpoints.SEAMS),
+            # the port's engine has no device->host breaker (it launches
+            # or raises): it never opens and has never tripped
+            "engine_breaker": {"open": False, "trips": 0},
+        })
+
+    async def put_failpoint(self, request: Request) -> Response:
+        from . import failpoints
+
+        try:
+            body = await request.json() if request.can_read_body else {}
+        except json.JSONDecodeError:
+            body = {}
+        action = body.get("action")
+        if action not in failpoints.ACTIONS:
+            return _json(
+                {"error": f"action must be one of {failpoints.ACTIONS}"},
+                status=400,
+            )
+        kw = {}
+        try:
+            for k in ("prob", "delay"):
+                if body.get(k) is not None:
+                    kw[k] = float(body[k])
+            for k in ("after", "times", "seed"):
+                if body.get(k) is not None:
+                    kw[k] = int(body[k])
+        except (TypeError, ValueError):
+            return _json(
+                {"error": "prob/delay must be numbers; "
+                          "after/times/seed integers"},
+                status=400,
+            )
+        if body.get("match") is not None:
+            kw["match"] = str(body["match"])
+        info = failpoints.configure(
+            request.match_info["name"], action, **kw
+        )
+        return _json(info)
+
+    async def delete_failpoint(self, request: Request) -> Response:
+        from . import failpoints
+
+        if not failpoints.clear(request.match_info["name"]):
+            return _json({"error": "no such failpoint"}, status=404)
+        return Response(status=204)
+
+    async def delete_failpoints(self, request: Request) -> Response:
+        from . import failpoints
+
+        failpoints.clear()
+        return Response(status=204)
+
     async def get_banned(self, request: Request) -> Response:
         return _json({"data": self.broker.banned.all()})
 
@@ -840,6 +900,30 @@ class MgmtApi:
                 continue
             emit("engine_" + name, "gauge", value,
                  help_text=f"match engine {name}")
+        # durable-store durability gauges (group-commit gate
+        # watermarks, parked ack-windows, quarantine counts)
+        if self.broker.durable is not None:
+            ds_stats = self.broker.durable.sync_stats()
+            for name, value in sorted(ds_stats.items()):
+                if not isinstance(value, (int, float)) or isinstance(
+                    value, bool
+                ):
+                    continue
+                emit("ds_" + name, "gauge", value,
+                     help_text=f"durable store {name}")
+            # sharded store: per-shard breakdown as labeled gauges
+            for row in ds_stats.get("per_shard") or ():
+                shard = row.get("shard")
+                for name, value in sorted(row.items()):
+                    if name == "shard" or not isinstance(
+                        value, (int, float)
+                    ) or isinstance(value, bool):
+                        continue
+                    emit(
+                        "ds_shard_" + name, "gauge", value,
+                        labels={"shard": str(shard)},
+                        help_text=f"durable store shard {name}",
+                    )
         # rule-engine columnar-eval gauges (lowered/fallback registry
         # split, matrix vs scalar window counts, per-cell cost EWMAs)
         for name, value in sorted(self.broker.rules.stats().items()):

@@ -8,6 +8,10 @@ Four libraries, each from one source with a plain C interface:
   ``sortutil``     int64 argsort and unique+inverse (`sortutil_native`)
   ``dispatchasm``  the PUBLISH splice of a dispatch window (`dispatchasm`)
 
+and, outside ``NAMES`` (the engine's set, which `load_all` builds), the
+durable store's segment log ``dslog`` (`ds.native.DsLog`), built when a
+store first opens.
+
 At first use a library is compiled with ``g++ -O3 -fPIC -shared
 -std=c++17 -Wall`` into ``ops/build/``, under a name that carries a
 hash of the compiler, its flags and the source (a stale library is
@@ -84,6 +88,28 @@ SIGNATURES = {
     "sortutil": {
         "su_argsort_i64": (None, [I64P, _I64, I64P]),
         "su_unique_inverse_i64": (_I64, [I64P, _I64, I64P, I64P, I64P]),
+    },
+    "dslog": {
+        "dslog_open": (_V, [_CP, ctypes.c_uint64]),
+        "dslog_close": (None, [_V]),
+        "dslog_append": (_I64, [_V, ctypes.c_uint32, ctypes.c_uint64, _CP,
+                                ctypes.c_uint32]),
+        "dslog_sync": (ctypes.c_int, [_V]),
+        "dslog_streams": (ctypes.c_int, [_V, ctypes.POINTER(ctypes.c_uint32),
+                                         ctypes.c_int]),
+        "dslog_iter_new": (_V, [_V, ctypes.c_uint32, ctypes.c_uint64]),
+        "dslog_iter_free": (None, [_V]),
+        "dslog_iter_next": (_I64, [_V, _CP, ctypes.c_uint32,
+                                   ctypes.POINTER(ctypes.c_uint64),
+                                   ctypes.POINTER(ctypes.c_uint64)]),
+        "dslog_stream_count": (_I64, [_V, ctypes.c_uint32]),
+        "dslog_corrupt_records": (_I64, [_V]),
+        "dslog_quarantined_count": (ctypes.c_int, [_V]),
+        "dslog_gc": (_I64, [_V, ctypes.c_uint64]),
+        "dslog_gc2": (_I64, [_V, ctypes.c_uint64, ctypes.c_uint32]),
+        "dslog_seg_for": (_I64, [_V, ctypes.c_uint32, ctypes.c_uint64,
+                                 ctypes.c_uint64]),
+        "dslog_cur_seg": (_I64, [_V]),
     },
     "dispatchasm": {
         "da_assemble_run": (

@@ -41,7 +41,7 @@ import functools
 import math
 import re
 import struct
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Set, Tuple
 
 # descriptor.proto's FieldDescriptorProto.Type and .Label
 TYPE_DOUBLE, TYPE_FLOAT, TYPE_INT64, TYPE_UINT64, TYPE_INT32 = 1, 2, 3, 4, 5
@@ -251,6 +251,9 @@ class FileDesc:
         self.services: List[ServiceDesc] = []
         self.messages: Dict[str, MessageDesc] = {}  # by full name
         self.enums: Dict[str, EnumDesc] = {}
+        # every other name protoc declares in a scope: fields, oneofs
+        # and enum values (C++ scoping: a value is its enum's sibling)
+        self.symbols: Set[str] = set()
 
     def to_dict(self) -> dict:
         d: Dict[str, Any] = {"name": self.name}
@@ -333,11 +336,49 @@ class _Tokens:
         return val
 
     def string(self) -> str:
+        """A string literal; adjacent literals concatenate, as in
+        protoc (``"proto" "3"`` is ``"proto3"``)."""
         line = self.line()
         kind, val = self.next()
         if kind != "str":
             raise ValueError(f"line {line}: expected a string, got {val!r}")
-        return val[1:-1]
+        out = val[1:-1]
+        while self.i < len(self.toks) and self.toks[self.i][0] == "str":
+            out += self.next()[1][1:-1]
+        return out
+
+    def value(self) -> Tuple[str, str]:
+        """An option's value token; a string comes back quoted, with
+        adjacent literals concatenated."""
+        if self.i < len(self.toks) and self.toks[self.i][0] == "str":
+            return "str", '"' + self.string() + '"'
+        return self.next()
+
+    def reserved(self) -> Tuple[List[Tuple[int, int]], List[str]]:
+        """The body of a ``reserved`` statement (after the keyword):
+        inclusive number ranges (``max`` is the largest field number)
+        or names."""
+        ranges: List[Tuple[int, int]] = []
+        names: List[str] = []
+        while True:
+            if self.i < len(self.toks) and self.toks[self.i][0] == "str":
+                names.append(self.string())
+            else:
+                lo = self.integer()
+                hi = lo
+                if self.peek() == "to":
+                    self.next()
+                    if self.peek() == "max":
+                        self.next()
+                        hi = 536870911
+                    else:
+                        hi = self.integer()
+                ranges.append((lo, hi))
+            if self.peek() == ",":
+                self.next()
+                continue
+            self.expect(";")
+            return ranges, names
 
     def integer(self) -> int:
         line = self.line()
@@ -421,12 +462,48 @@ def _qualify(scope: str, name: str) -> str:
 
 
 def _declare(fd: FileDesc, full: str, obj: Any, line: int) -> None:
-    if full in fd.messages or full in fd.enums:
+    if full in fd.messages or full in fd.enums or full in fd.symbols:
         raise ValueError(f"line {line}: {full!r} is already defined")
     if isinstance(obj, MessageDesc):
         fd.messages[full] = obj
     else:
         fd.enums[full] = obj
+
+
+def _declare_symbol(fd: FileDesc, full: str, line: int) -> None:
+    """Declare a field, oneof or enum value: its full name must be new
+    among every name of the file."""
+    if full in fd.messages or full in fd.enums or full in fd.symbols:
+        raise ValueError(f"line {line}: {full!r} is already defined")
+    fd.symbols.add(full)
+
+
+def _add_reserved(tok: _Tokens, line: int, ranges: List[Tuple[int, int]],
+                  names: List[str]) -> None:
+    """Parse one ``reserved`` statement into ``ranges``/``names``;
+    a range overlapping an earlier one is refused, as protoc does."""
+    new, new_names = tok.reserved()
+    for lo, hi in new:
+        if lo > hi:
+            raise ValueError(f"line {line}: reserved range {lo} to {hi} "
+                             "is empty")
+        for plo, phi in ranges:
+            if lo <= phi and plo <= hi:
+                raise ValueError(
+                    f"line {line}: reserved range {lo} to {hi} overlaps "
+                    f"with already-defined range {plo} to {phi}")
+        ranges.append((lo, hi))
+    names.extend(new_names)
+
+
+def _check_reserved(what: str, name: str, number: int,
+                    ranges: List[Tuple[int, int]], names: List[str]) -> None:
+    if name in names:
+        raise ValueError(f"{what} name {name!r} is reserved")
+    for lo, hi in ranges:
+        if lo <= number <= hi:
+            raise ValueError(f"{what} {name!r} uses reserved number "
+                             f"{number}")
 
 
 def _parse_message(tok: _Tokens, fd: FileDesc, scope: str) -> MessageDesc:
@@ -436,6 +513,8 @@ def _parse_message(tok: _Tokens, fd: FileDesc, scope: str) -> MessageDesc:
     _declare(fd, msg.full_name, msg, line)
     tok.expect("{")
     optionals: List[FieldDesc] = []
+    res_ranges: List[Tuple[int, int]] = []
+    res_names: List[str] = []
     while True:
         word = tok.peek()
         line = tok.line()
@@ -444,8 +523,11 @@ def _parse_message(tok: _Tokens, fd: FileDesc, scope: str) -> MessageDesc:
             break
         if word == ";":
             tok.next()
-        elif word in ("option", "reserved"):
+        elif word == "option":
             tok.skip_statement()
+        elif word == "reserved":
+            tok.next()
+            _add_reserved(tok, line, res_ranges, res_names)
         elif word == "message":
             tok.next()
             msg.nested_types.append(_parse_message(tok, fd, msg.full_name))
@@ -455,6 +537,7 @@ def _parse_message(tok: _Tokens, fd: FileDesc, scope: str) -> MessageDesc:
         elif word == "oneof":
             tok.next()
             oname = tok.ident()
+            _declare_symbol(fd, _qualify(msg.full_name, oname), line)
             msg.oneofs.append(oname)
             tok.expect("{")
             n_members = 0
@@ -472,7 +555,7 @@ def _parse_message(tok: _Tokens, fd: FileDesc, scope: str) -> MessageDesc:
                 f = _parse_field(tok, LABEL_OPTIONAL)
                 f.oneof = oname
                 f.oneof_index = len(msg.oneofs) - 1
-                _add_field(msg, f, tok)
+                _add_field(msg, f, tok, fd)
                 n_members += 1
             tok.next()
             if not n_members:
@@ -504,7 +587,7 @@ def _parse_message(tok: _Tokens, fd: FileDesc, scope: str) -> MessageDesc:
                 entry.fields_by_number[x.number] = x
             f.type_ref = "." + entry.full_name
             msg.nested_types.append(entry)
-            _add_field(msg, f, tok)
+            _add_field(msg, f, tok, fd)
         else:
             _refuse(tok, word)
             label = LABEL_OPTIONAL
@@ -519,7 +602,19 @@ def _parse_message(tok: _Tokens, fd: FileDesc, scope: str) -> MessageDesc:
             if optional:
                 f.proto3_optional = True
                 optionals.append(f)
-            _add_field(msg, f, tok)
+            _add_field(msg, f, tok, fd)
+    by_json: Dict[str, str] = {}
+    for f in msg.fields:
+        _check_reserved("field", f.name, f.number, res_ranges, res_names)
+        # proto3 refuses two fields whose default JSON names clash,
+        # compared as protoc does: lower case, underscores dropped (a
+        # json_name option does not lift it)
+        jn = f.name.replace("_", "").lower()
+        if jn in by_json:
+            raise ValueError(
+                f"the JSON camel-case name of field {f.name!r} conflicts "
+                f"with field {by_json[jn]!r} in {msg.full_name}")
+        by_json[jn] = f.name
     for f in optionals:  # synthetic oneofs follow the declared ones
         oname = "_" + f.name
         while oname in msg.oneofs:
@@ -565,9 +660,12 @@ def _parse_field_tail(tok: _Tokens, label: int, ftype: int,
                 while tok.peek() != "=":
                     tok.next()
             tok.expect("=")
-            _kind, val = tok.next()
+            _kind, val = tok.value()
             if val == "-":
-                _kind, val = tok.next()
+                _kind, val = tok.value()
+            if oname == "default":
+                raise ValueError(f"line {oline}: explicit default values "
+                                 "are not allowed in proto3")
             if oname == "packed":
                 if val not in ("true", "false"):
                     raise ValueError(f"line {oline}: packed = {val!r}")
@@ -586,10 +684,12 @@ def _parse_field_tail(tok: _Tokens, label: int, ftype: int,
     return f
 
 
-def _add_field(msg: MessageDesc, f: FieldDesc, tok: _Tokens) -> None:
+def _add_field(msg: MessageDesc, f: FieldDesc, tok: _Tokens,
+               fd: FileDesc) -> None:
     if f.name in msg.fields_by_name:
         raise ValueError(f"line {tok.line()}: field {f.name!r} of "
                          f"{msg.full_name} is already defined")
+    _declare_symbol(fd, _qualify(msg.full_name, f.name), tok.line())
     if f.number in msg.fields_by_number:
         raise ValueError(f"line {tok.line()}: field number {f.number} of "
                          f"{msg.full_name} is already used")
@@ -604,6 +704,9 @@ def _parse_enum(tok: _Tokens, fd: FileDesc, scope: str) -> EnumDesc:
     en = EnumDesc(name, _qualify(scope, name))
     _declare(fd, en.full_name, en, line)
     tok.expect("{")
+    allow_alias: Optional[bool] = None
+    res_ranges: List[Tuple[int, int]] = []
+    res_names: List[str] = []
     while True:
         word = tok.peek()
         vline = tok.line()
@@ -612,8 +715,22 @@ def _parse_enum(tok: _Tokens, fd: FileDesc, scope: str) -> EnumDesc:
             break
         if word == ";":
             tok.next()
-        elif word in ("option", "reserved"):
-            tok.skip_statement()
+        elif word == "option":
+            tok.next()
+            if tok.peek() != "allow_alias":
+                tok.i -= 1
+                tok.skip_statement()
+                continue
+            tok.next()
+            tok.expect("=")
+            _k, val = tok.next()
+            if val not in ("true", "false"):
+                raise ValueError(f"line {vline}: allow_alias = {val!r}")
+            tok.expect(";")
+            allow_alias = val == "true"
+        elif word == "reserved":
+            tok.next()
+            _add_reserved(tok, vline, res_ranges, res_names)
         else:
             vname = tok.ident()
             tok.expect("=")
@@ -628,11 +745,25 @@ def _parse_enum(tok: _Tokens, fd: FileDesc, scope: str) -> EnumDesc:
             if vname in en.values_by_name:
                 raise ValueError(f"line {vline}: enum value {vname!r} is "
                                  "already defined")
+            if num in en.values_by_number and not allow_alias:
+                raise ValueError(
+                    f"line {vline}: {vname!r} uses the same enum value as "
+                    f"{en.values_by_number[num]!r} and enum {name!r} does "
+                    "not set allow_alias")
+            _check_reserved("enum value", vname, num, res_ranges, res_names)
+            # C++ scoping: the value is declared beside its enum
+            _declare_symbol(fd, _qualify(scope, vname), vline)
             en.values.append((vname, num))
             en.values_by_name[vname] = num
             en.values_by_number.setdefault(num, vname)
     if not en.values:
         raise ValueError(f"line {line}: enum {name!r} has no values")
+    if allow_alias is False:
+        raise ValueError(f"line {line}: enum {name!r} declares "
+                         "'option allow_alias = false;', which has no effect")
+    if allow_alias and len(en.values_by_number) == len(en.values):
+        raise ValueError(f"line {line}: enum {name!r} allows aliases but "
+                         "no values share a number")
     return en
 
 
@@ -691,16 +822,20 @@ def _parse_service(tok: _Tokens, fd: FileDesc) -> ServiceDesc:
 
 def _lookup(fd: FileDesc, scope: str, ref: str) -> Any:
     """protoc's scoping: the innermost scope whose first component
-    resolves wins."""
+    resolves wins.  The first component resolves to a message, an enum
+    or a component of the package (``a`` and ``a.b`` of ``package
+    a.b``), so a name may be written through its package."""
     if ref.startswith("."):
         full = ref[1:]
         return fd.messages.get(full) or fd.enums.get(full)
+    pkg = fd.package.split(".") if fd.package else []
+    packages = {".".join(pkg[:k]) for k in range(1, len(pkg) + 1)}
     first = ref.split(".")[0]
     parts = scope.split(".") if scope else []
     while True:
         base = ".".join(parts)
         head = _qualify(base, first)
-        if head in fd.messages or head in fd.enums:
+        if head in fd.messages or head in fd.enums or head in packages:
             full = _qualify(base, ref)
             return fd.messages.get(full) or fd.enums.get(full)
         if not parts:

@@ -13,8 +13,9 @@ marked disconnected, and nothing is lost within the buffer bound.
 role), sent with this package's own client (`httpc`), so the sink
 needs nothing outside the standard library.
 
-The worker has no failpoint seams and no overload-protection flush
-deferral: this package has neither module yet.
+The worker has the ``resource.buffer.query`` and
+``resource.batch.flush`` failpoint seams, and no overload-protection
+flush deferral: this package has no such module yet.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, Optional
 
+from . import failpoints
 from .aio import cancel_and_wait
 from .observability import Histogram
 
@@ -338,13 +340,36 @@ class BufferWorker:
         sinks — up to ``resource.max_batch`` queries as ONE
         ``on_query_batch`` call, which returns how many it consumed;
         a partial consume leaves the tail at the head for the retry
-        path (EMQX's buffer workers batch the same way)."""
+        path (EMQX's buffer workers batch the same way).
+
+        Failpoint seams (both inside the caller's try, so an injected
+        fault rides the real retry, backoff and replay path with every
+        query still buffered): ``resource.buffer.query`` a delivery
+        attempt, ``resource.batch.flush`` a multi-record flush, where
+        ``drop`` is a flush lost in flight (the records stay at the
+        head and replay) and ``duplicate`` delivers the batch twice."""
         buf = self._buf
         n_batch = getattr(self.resource, "max_batch", 1)
+        if failpoints.enabled:
+            await failpoints.evaluate_async(
+                "resource.buffer.query",
+                key=self.name or type(self.resource).__name__,
+            )
         if n_batch > 1 and hasattr(self.resource, "on_query_batch"):
             batch = [
                 buf[i] for i in range(min(n_batch, len(buf)))
             ]
+            if failpoints.enabled:
+                act = await failpoints.evaluate_async(
+                    "resource.batch.flush",
+                    key=self.name or type(self.resource).__name__,
+                )
+                if act == "drop":
+                    raise RuntimeError(
+                        "batch flush dropped in flight (failpoint)"
+                    )
+                if act == "duplicate":
+                    await self.resource.on_query_batch(list(batch))
             done = await self.resource.on_query_batch(batch)
             done = len(batch) if done is None else int(done)
             for _ in range(done):

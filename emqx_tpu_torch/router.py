@@ -318,6 +318,23 @@ class Router:
         window's shared pick contributes to the decision columns)."""
         return self._shared_slot.get((real, group, clientid))
 
+    def opts_slot_of(self, clientid: str, flt: str) -> Optional[int]:
+        """Opts-table slot of one client's subscription to ``flt``
+        (``$share`` filters included): how the durable-replay window
+        resolves each (client, filter) backlog entry to the
+        decision-column row its live deliveries ride."""
+        share = T.parse_share(flt)
+        if share is not None:
+            return self._shared_slot.get(
+                (share.topic, share.group, clientid))
+        bucket = self._csr.get(flt)
+        if bucket is None:
+            return None
+        row = self._client_rows.get(clientid)
+        if row is None:
+            return None
+        return bucket.opts_row_of(row)
+
     # --------------------------------------------------------- match
 
     def match_batch(self, topics: Sequence[str]) -> List[Set]:

@@ -714,12 +714,15 @@ class TransportClient:
                 f"{self.client_id}: expected packet type {ptype}, got {pkt!r}")
         return pkt
 
-    async def connect(self, rc: int = 0, **props):
-        """Open, CONNECT (the client's credentials, MQTT 5 ``props``),
-        and return the CONNACK, which must carry reason code ``rc``."""
+    async def connect(self, rc: int = 0, clean_start: bool = True,
+                      **props):
+        """Open, CONNECT (the client's credentials, ``clean_start``,
+        MQTT 5 ``props``), and return the CONNACK, which must carry
+        reason code ``rc``."""
         await self.open()
         self.send(self.C.Connect(client_id=self.client_id,
                                  proto_ver=self.version, keepalive=0,
+                                 clean_start=clean_start,
                                  username=self.username,
                                  password=self.password, properties=props))
         ack = await self.expect(self.C.CONNACK)
@@ -2075,3 +2078,168 @@ def exhook_server_world(device: str, calls: Sequence[Tuple[str, dict]],
     return {"responses": responses, "fired": fired, "launches": launches,
             "publishes": sum(1 for rpc, _ in calls
                              if rpc == "OnMessagePublish"), "ms": ms}
+
+
+# ------------------------------------------------------- durable sessions
+
+# the fleet's families, one wildcard filter a persistent session
+DURABLE_FILTERS = ("vehicles/v{k}/sensors/#", "dev/g{k}/+/d1",
+                   "site/+/floor/f{k}/#", "alerts/z{k}/+/+")
+DURABLE_TOPICS = ("vehicles/v{k}/sensors/temp", "dev/g{k}/x/d1",
+                  "site/s1/floor/f{k}/door", "alerts/z{k}/a/b")
+
+
+def durable_script(seed: int, n_sessions: int, n_msgs: int,
+                   n_keys: int = 16) -> dict:
+    """Persistent sessions, each on one wildcard filter of the fleet's
+    families over ``n_keys`` keys (MQTT 3.1.1 and 5.0, QoS 1 and 2,
+    some with no-local), and ``n_msgs`` QoS 1/2 messages on topics those
+    filters match, from three publishers (one of them a subscriber),
+    with payloads, message ids and timestamps from the seed."""
+    rng = np.random.default_rng(seed)
+    sessions = []
+    for i in range(n_sessions):
+        fam = int(rng.integers(len(DURABLE_FILTERS)))
+        sessions.append({
+            "cid": f"ds-{i}",
+            "flt": DURABLE_FILTERS[fam].format(k=int(rng.integers(n_keys))),
+            "qos": int(rng.integers(1, 3)),
+            "no_local": bool(rng.random() < 0.2),
+            "version": 5 if rng.random() < 0.75 else 4,
+        })
+    t0 = 4_000_000_000.0 + seed  # after any checkpoint of the run
+    msgs = []
+    for j in range(n_msgs):
+        fam = int(rng.integers(len(DURABLE_TOPICS)))
+        msgs.append({
+            "topic": DURABLE_TOPICS[fam].format(k=int(rng.integers(n_keys))),
+            "qos": int(rng.integers(1, 3)),
+            "payload": bytes(rng.integers(0, 256, int(rng.integers(0, 96)),
+                                          dtype=np.uint8)),
+            "from": str(rng.choice(["pub-a", "pub-b", "ds-0"])),
+            "mid": bytes(rng.integers(0, 256, 16, dtype=np.uint8)),
+            "timestamp": t0 + j * 1e-3,
+        })
+    return {"sessions": sessions, "msgs": msgs}
+
+
+def durable_world(device: str, script: dict, windowed: bool = True,
+                  n_filters: int = 20_000) -> dict:
+    """`durable_script`'s world on the port's broker, loop-less: each
+    session subscribes and disconnects (checkpointed), the messages go
+    through ``publish_many`` in windows of 256 beside
+    ``n_filters`` fleet filters (the host gate persists them), the
+    broker restarts on its directory, every session reconnects and the
+    resume scheduler drains the backlogs (``windowed``: replay windows
+    decided by the decide kernel; else the scalar referee), each client
+    acknowledging what it receives.  Returns every client's bytes, the
+    broker's replay metrics and the kernels' launches in the replay."""
+    import shutil
+    import tempfile
+
+    from .broker.broker import Broker
+    from .broker.channel import Channel
+    from .broker.session import SubOpts
+    from .codec import mqtt as C
+    from .config import BrokerConfig
+    from .message import Message
+    from .ops import match_kernel as mk
+
+    data_dir = tempfile.mkdtemp(prefix="durable-world-")
+    filters, _ = make_filters(n_filters, 8)
+
+    def broker():
+        cfg = BrokerConfig()
+        cfg.sys.enable = False
+        cfg.mqtt.max_inflight = 1024
+        cfg.durable.enable = True
+        cfg.durable.data_dir = data_dir
+        cfg.durable.fsync = "always"
+        cfg.durable.resume.windowed = windowed
+        cfg.durable.resume.max_concurrent = 8
+        cfg.durable.resume.chunk_msgs = 64
+        b = Broker(config=cfg, device=device)
+        b.router.engine.insert_many(
+            [("/".join(ws), fid) for fid, ws in filters])
+        b.router.engine.rebuild()
+        return b
+
+    class Wire(Channel):
+        def __init__(self, b, version):
+            self.writes = []
+
+            def send(pkts):
+                self.writes.append(b"".join(
+                    C.serialize(p, self.version) for p in pkts))
+
+            super().__init__(b, send=send, close=lambda r: None)
+            self.version = version
+
+    try:
+        b = broker()
+        for s in script["sessions"]:
+            ch = Wire(b, s["version"])
+            sess, _ = b.cm.open_session(False, s["cid"], ch,
+                                        expiry_interval=3600.0)
+            opts = SubOpts(qos=s["qos"], no_local=s["no_local"])
+            sess.subscribe(s["flt"], opts)
+            b.subscribe(s["cid"], s["flt"], opts)
+            b.cm.disconnect(s["cid"], ch)
+            b.channel_disconnected(s["cid"])
+        msgs = [Message(topic=m["topic"], qos=m["qos"],
+                        payload=m["payload"], from_client=m["from"],
+                        mid=m["mid"], timestamp=m["timestamp"])
+                for m in script["msgs"]]
+        mk.reset_launches()
+        for k in range(0, len(msgs), 256):
+            b.publish_many(msgs[k:k + 256])
+        publish_launches = mk.launches()
+        captured = b.durable.gate.appended
+        b.shutdown()
+
+        b = broker()
+        b.resume.running = True
+        chans, sessions = {}, {}
+        for s in script["sessions"]:
+            ch = Wire(b, s["version"])
+            sess, present = b.open_session(
+                False, s["cid"], ch, expiry_interval=3600.0,
+                max_inflight=1024)
+            ch.session = sess
+            ch.send_packets(sess.resume())
+            chans[s["cid"]], sessions[s["cid"]] = ch, sess
+        mk.reset_launches()
+        rounds = 0
+        while any(b.resume.pending(c) for c in chans):
+            b.resume.drain_once()
+            rounds += 1
+            if rounds > 100_000:
+                raise RuntimeError("durable world: the resume never ended")
+            for cid, ch in chans.items():  # the clients acknowledge
+                sess = sessions[cid]
+                for pkt in C.StreamParser(version=ch.version).feed(
+                        b"".join(ch.writes[getattr(ch, "_acked", 0):])):
+                    if pkt.type != C.PUBLISH or pkt.packet_id is None:
+                        continue
+                    if pkt.qos == 1:
+                        ch.send_packets(sess.puback(pkt.packet_id)[1])
+                    else:
+                        ch.send_packets(sess.pubrec(pkt.packet_id)[1])
+                        ch.send_packets(sess.pubcomp(pkt.packet_id)[1])
+                ch._acked = len(ch.writes)
+        replay_launches = mk.launches()
+        metrics = {k: b.metrics.val(k) for k in (
+            "session.resumed", "session.replay.windows",
+            "session.replay.messages", "messages.sent",
+            "messages.qos1.sent", "messages.qos2.sent")}
+        out = {
+            "bytes": {cid: b"".join(ch.writes) for cid, ch in chans.items()},
+            "metrics": metrics, "captured": captured, "rounds": rounds,
+            "committed": b.resume.committed,
+            "publish_launches": publish_launches,
+            "replay_launches": replay_launches,
+        }
+        b.shutdown()
+        return out
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)

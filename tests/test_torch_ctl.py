@@ -22,6 +22,7 @@ import pytest
 from emqx_tpu import ctl as RCtl
 
 from emqx_tpu_torch import ctl as PCtl
+from emqx_tpu_torch import failpoints as PFP
 
 from mqtt_client import TestClient
 from test_torch_mgmt import LIMIT, Loop, port_server
@@ -52,6 +53,12 @@ def _ban(broker):
     broker.banned.ban("clientid", "bad-1", seconds=None)
 
 
+def _arm_probe(broker):
+    """The port's server serves the port's failpoint registry: arm the
+    probe a ``clear`` removes before each run."""
+    PFP.configure("ctl.probe", "delay", delay=0.01, seed=3)
+
+
 # each subcommand runs once a package, back to back; a command that
 # changes the server's state gets it back before each run
 COMMANDS = [
@@ -63,10 +70,16 @@ COMMANDS = [
     (["banned"], None), (["banned", "del", "clientid", "bad-1"], _ban),
     (["profiler"], None), (["profiler", "windows", "4"], None),
     (["profiler", "reset"], None), (["clients", "kick", "nobody"], None),
+    (["failpoints"], None),
+    (["failpoints", "set", "ctl.probe", "delay", "delay=0.01", "seed=3"],
+     None),
+    (["failpoints", "list"], None),
+    (["failpoints", "clear", "ctl.probe"], _arm_probe),
+    (["failpoints", "clear"], _arm_probe),
     # modules not ported: the server's 501
     (["trace"], None), (["trace", "start", "t1", "clientid", "x"], None),
     (["data", "export"], None), (["rebalance"], None),
-    (["rebalance", "evacuation"], None), (["failpoints"], None),
+    (["rebalance", "evacuation"], None),
     (["olp"], None), (["flight"], None), (["tracing"], None),
     (["tracing", "perfetto"], None),
 ]
@@ -111,8 +124,10 @@ def test_ctl_main_of_both_packages_prints_the_same(L, tmp_path):
     assert "delivered to 1" in by[("publish", "cli/hello", "from-ctl",
                                    "--qos", "1")][0]
     assert by[("clients", "kick", "nobody")][1].startswith("error 404")
+    assert by[("failpoints",)][0].startswith("framework disabled")
+    assert "ctl.probe\tdelay\t" in by[("failpoints", "list")][0]
     for argv in (("olp",), ("rebalance",), ("data", "export"),
-                 ("failpoints",), ("tracing", "perfetto")):
+                 ("tracing", "perfetto")):
         out, err = by[argv]
         assert err.startswith("error 501: ") and "NOT_PORTED" in err, argv
 
@@ -145,3 +160,35 @@ def test_python_m_ctl_against_the_port(L, tmp_path):
             await srv.stop()
 
     L.run(t(), LIMIT)
+
+
+def test_ctl_status_shows_the_resume_queue_and_durability(L, tmp_path):
+    """With durable storage on, ``ctl status`` prints the resume queue
+    and the durability lines from ``/api/v5/nodes``, the same from both
+    packages' CLIs."""
+    from test_torch_mgmt import _cfg
+    from emqx_tpu_torch import config as PCfg
+    from emqx_tpu_torch.broker.listener import BrokerServer
+
+    async def t():
+        cfg = _cfg(PCfg, str(tmp_path / "api"))
+        cfg.durable.enable = True
+        cfg.durable.data_dir = str(tmp_path / "ds")
+        cfg.durable.fsync = "always"
+        srv = BrokerServer(cfg, device="cpu")
+        await srv.start()
+        api = ["--api", f"http://127.0.0.1:{srv.api.port}"]
+        loop = asyncio.get_running_loop()
+        try:
+            return [await loop.run_in_executor(None, run_main, main,
+                                               api + ["status"])
+                    for main in (RCtl.main, PCtl.main)]
+        finally:
+            await srv.stop()
+
+    ref, port = L.run(t(), LIMIT)
+    assert port == ref
+    out = port[0]
+    assert "  resume queue: 0 active / 0 parked / 0 paused " \
+           "(max_concurrent=64, park_cap=4096, windowed=True)" in out
+    assert "  durability: fsync=always; 0 syncs (0 errors)" in out

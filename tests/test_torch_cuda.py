@@ -1342,3 +1342,24 @@ def test_exhook_world_on_card_equals_cpu(cuda):
     assert card["responses"] == cpu["responses"]
     assert card["fired"] == cpu["fired"]
     assert card["launches"]["match_batch_compact"] == card["publishes"]
+
+
+def test_durable_world_on_card_equals_cpu(cuda):
+    """chip_smoke's durable parity world (20,000 filters, 32 persistent
+    sessions, 2,000 messages): after a restart the resume scheduler
+    replays every backlog, windowed (replay windows decided by K3 on
+    the card) and scalar; the card's client bytes equal the CPU's, and
+    the windowed replay launched K3."""
+    from emqx_tpu_torch import workload as W
+
+    script = W.durable_script(16, 32, 2000)
+    for windowed in (True, False):
+        card = W.durable_world("cuda", script, windowed=windowed)
+        cpu = W.durable_world("cpu", script, windowed=windowed)
+        assert card["bytes"] == cpu["bytes"], windowed
+        assert card["metrics"] == cpu["metrics"], windowed
+        assert card["committed"] == len(script["sessions"])
+        assert card["publish_launches"]["match_batch_compact"] > 0
+        if windowed:
+            assert card["replay_launches"]["decide_packed"] == \
+                card["metrics"]["session.replay.windows"] > 0

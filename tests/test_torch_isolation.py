@@ -410,3 +410,57 @@ def test_exhook_and_registry_run_without_grpc_protobuf_jsonschema():
         in proc.stdout, proc.stdout
     assert "JSON True False" in proc.stdout, proc.stdout
     assert "LOADED []" in proc.stdout, proc.stdout
+
+
+_DURABLE_CHECK = """
+import sys
+import emqx_tpu_torch.failpoints
+import emqx_tpu_torch.ds
+import emqx_tpu_torch.ds.api
+import emqx_tpu_torch.ds.atomicio
+import emqx_tpu_torch.ds.beamformer
+import emqx_tpu_torch.ds.builtin_local
+import emqx_tpu_torch.ds.durability
+import emqx_tpu_torch.ds.journal
+import emqx_tpu_torch.ds.lts
+import emqx_tpu_torch.ds.native
+import emqx_tpu_torch.ds.persist
+import emqx_tpu_torch.ds.reference
+import emqx_tpu_torch.ds.sharded
+import emqx_tpu_torch.broker.resume
+bad = sorted(
+    n for n in sys.modules
+    if n == "jax" or n.startswith("jax.")
+    or n == "emqx_tpu" or n.startswith("emqx_tpu.")
+)
+print("BAD", bad)
+"""
+
+
+def test_failpoints_store_and_resume_import_alone():
+    """The failpoints, the durable store and the resume scheduler load
+    neither JAX nor anything of the JAX package."""
+    proc = _run("-c", _DURABLE_CHECK)
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+
+
+def test_failed_dslog_build_raises(monkeypatch, tmp_path):
+    """The store's segment log has no fallback: a compiler that fails
+    raises out of the store and out of a durable broker."""
+    from emqx_tpu_torch.broker.broker import Broker
+    from emqx_tpu_torch.config import BrokerConfig
+    from emqx_tpu_torch.ds.persist import DurableSessions
+    from emqx_tpu_torch.ops import _native
+
+    libs = {n: lib for n, lib in _native._libs.items() if n != "dslog"}
+    monkeypatch.setattr(_native, "CXX", "false")
+    monkeypatch.setattr(_native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_native, "_libs", libs)
+    with pytest.raises(RuntimeError, match="native library build failed"):
+        DurableSessions(str(tmp_path / "ds"))
+    cfg = BrokerConfig()
+    cfg.durable.enable = True
+    cfg.durable.data_dir = str(tmp_path / "ds2")
+    with pytest.raises(RuntimeError, match="native library build failed"):
+        Broker(config=cfg, device="cpu", native=False)

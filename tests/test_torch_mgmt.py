@@ -462,6 +462,31 @@ def test_scripted_sequence_every_route_every_role(L):
                         expect=404)
             await B.req("GET", "/api/v5/slow_subscriptions", expect=200)
 
+            # failpoints: each server arms its own package's registry;
+            # the engine breaker is the JAX package's alone (the port's
+            # engine launches or raises), so only its edge is compared
+            rb, pb = await B.req("GET", "/api/v5/failpoints", expect=200,
+                                 keys_only=True)
+            assert (pb["enabled"], pb["data"], pb["seams"]) == (
+                rb["enabled"], rb["data"], rb["seams"])
+            assert pb["engine_breaker"] == {
+                k: rb["engine_breaker"][k] for k in ("open", "trips")}
+            await B.req("PUT", "/api/v5/failpoints/mgmt.probe",
+                        {"action": "delay", "delay": 0.01, "times": 2,
+                         "seed": 5, "match": "k"}, expect=200)
+            await B.req("PUT", "/api/v5/failpoints/mgmt.probe",
+                        {"action": "explode"}, expect=400)
+            await B.req("PUT", "/api/v5/failpoints/mgmt.probe",
+                        {"action": "drop", "prob": "x"}, expect=400)
+            rb, pb = await B.req("GET", "/api/v5/failpoints", expect=200,
+                                 keys_only=True)
+            assert pb["data"] == rb["data"] and pb["enabled"] is True
+            await B.req("DELETE", "/api/v5/failpoints/mgmt.probe",
+                        expect=204)
+            await B.req("DELETE", "/api/v5/failpoints/mgmt.probe",
+                        expect=404)
+            await B.req("DELETE", "/api/v5/failpoints", expect=204)
+
             # the profiler: the engine field and the stage times differ
             # by design (ROADMAP.md section 3), its shape does not
             rb, pb = await B.req("GET", "/api/v5/profiler?windows=4",
@@ -859,7 +884,7 @@ def test_unported_routes_answer_501_naming_their_item(L):
     reference serves them (or answers its own 501 NOT_ENABLED for the
     GCP registry)."""
     unported = [(m, p) for m, p, h in PM.ROUTES if h is None]
-    assert len(unported) == 32
+    assert len(unported) == 28
 
     async def t():
         ref, prt = await start_pair()

@@ -143,6 +143,100 @@ def test_parser_refuses_what_protoc_refuses_or_it_does_not_take(src,
         P.parse(src)
 
 
+# a type written through its package: every component of ``package a.b``
+# resolves a name's first component, for fields and for rpc types
+PKG_SRC = """syntax = "proto3"; package a.b;
+message Inner { string s = 1; }
+message User { a.b.Inner t = 1; b.Inner p = 2; }
+service S { rpc Go (a.b.Inner) returns (Inner); rpc Back (b.User) returns (a.b.User); }
+"""
+
+
+def test_package_qualified_names_resolve_as_protoc(tmp_path):
+    assert P.parse(PKG_SRC, "pkg.proto").to_dict() == strip_options(
+        protoc_descriptor(PKG_SRC, "pkg.proto", tmp_path))
+    src = ('syntax = "proto3"; package a.b; message Inner { string s = 1; }'
+           ' message User { a.b.Inner t = 1; b.Inner p = 2; }')
+    value = {"t": {"s": "x"}, "p": {"s": "y"}}
+    port = port_sr_mod().SchemaRegistry()
+    port.add("p", "protobuf", src)
+    assert port.encode("p", value, "User").hex() == "0a030a017812030a0179"
+    ref = ref_sr.SchemaRegistry()
+    ref.add("p", "protobuf", src)
+    assert ref.encode("p", value, "User") == port.encode("p", value, "User")
+    assert port.info() == ref.info()
+
+
+def port_sr_mod():
+    from emqx_tpu_torch import schema_registry
+
+    return schema_registry
+
+
+# protoc's verdict on each: True when it compiles the schema
+VERDICT_SRCS = [
+    "enum E { A = 0; B = 1; C = 1; }",
+    "enum E { option allow_alias = true; A = 0; B = 1; C = 1; }",
+    "enum E { option allow_alias = true; A = 0; B = 1; }",
+    "enum E { option allow_alias = false; A = 0; B = 1; }",
+    "enum E { X = 0; } enum F { X = 0; }",
+    "message M { enum E { X = 0; } enum F { X = 0; } }",
+    "message M { enum E { X = 0; } } enum F { X = 0; }",
+    "message X {} enum E { X = 0; }",
+    "message M { enum E { x = 0; } int32 x = 1; }",
+    "message M { message a {} int32 a = 1; }",
+    "message M { int32 foo_bar = 1; int32 fooBar = 2; }",
+    "message M { int32 foobar = 1; int32 fooBar = 2; }",
+    "message M { int32 a_ = 1; int32 a = 2; }",
+    "message M { oneof o { int32 foo_bar = 1; } int32 fooBar = 2; }",
+    "message M { map<string, int32> foo_bar = 1; int32 fooBar = 2; }",
+    'message M { int32 foo_bar = 1 [json_name = "q"]; int32 fooBar = 2; }',
+    'message M { int32 a = 1 [json_name = "x"]; int32 b = 2 '
+    '[json_name = "x"]; }',
+    'message M { string s = 1 [default = "x"]; }',
+    "message M { int32 s = 1 [default = 3]; }",
+    "message M { reserved 2, 5 to 7; int32 a = 6; }",
+    "message M { reserved 2, 5 to 7; int32 a = 8; }",
+    "message M { reserved 10 to max; int32 a = 100; }",
+    'message M { reserved "a"; int32 a = 1; }',
+    'message M { reserved "a" "b"; int32 ab = 1; }',
+    "message M { reserved 1 to 5, 3; }",
+    "message M { reserved 1 to 3; reserved 2; }",
+    "enum E { A = 0; reserved 1; B = 1; }",
+    'enum E { A = 0; reserved "B"; B = 1; }',
+    "enum E { A = 0; reserved -5 to -1; B = -3; }",
+    'enum E { A = 0; reserved 2 to 3; reserved "Q"; }',
+    'message M { int32 a = 1 [json_name = "x" "y"]; }',
+]
+
+
+@pytest.mark.parametrize("body", VERDICT_SRCS + [None])
+def test_parser_verdicts_equal_protoc(body, tmp_path):
+    """Each schema compiles under the port's parser exactly when protoc
+    compiles it: enum aliases, C++ scoping of enum values, clashing
+    default JSON names, explicit defaults, reserved numbers and names,
+    and adjacent string literals (``syntax = "proto" "3";``, the last
+    case)."""
+    src = ('syntax = "proto" "3"; message M { int32 a = 1; }'
+           if body is None else 'syntax = "proto3"; ' + body)
+    path = tmp_path / "v.proto"
+    path.write_text(src)
+    protoc_ok = subprocess.run(
+        ["protoc", f"--proto_path={tmp_path}",
+         f"--descriptor_set_out={tmp_path / 'v.desc'}", str(path)],
+        capture_output=True).returncode == 0
+    try:
+        fd = P.parse(src, "v.proto")
+    except ValueError:
+        port_ok = False
+    else:
+        port_ok = True
+        if protoc_ok:
+            assert fd.to_dict() == strip_options(
+                protoc_descriptor(src, "v.proto", tmp_path))
+    assert port_ok == protoc_ok
+
+
 # ---------------------------------------------------- generated messages
 
 _INTS = {

@@ -461,7 +461,7 @@ def test_json_schema_verdicts_equal_jsonschema(keyword):
      "unevaluatedProperties"),
     ({"unevaluatedItems": False}, "unevaluatedItems"),
     ({"$ref": "https://example.com/other.json"}, "$ref"),
-    ({"$ref": "#/$defs/missing"}, "$ref"),
+    ({"$ref": "other.json#/$defs/missing"}, "$ref"),
 ])
 def test_json_schema_refuses_what_it_does_not_implement(schema, word):
     """The deliberate difference: a keyword the port's validator does not
@@ -469,3 +469,26 @@ def test_json_schema_refuses_what_it_does_not_implement(schema, word):
     validate (or resolve a remote reference)."""
     with pytest.raises(ValueError, match=word.replace("$", r"\$")):
         port_sr.SchemaRegistry().add("x", "json", schema)
+
+
+@pytest.mark.parametrize("side", ["ref", "port"])
+def test_dangling_local_ref_fails_only_the_instances_reaching_it(side,
+                                                                 tmp_path):
+    """A local ``$ref`` resolves when an instance reaches it: a schema
+    whose ``$ref`` points nowhere registers, and only the instances that
+    reach the ``$ref`` fail (jsonschema raises PointerToNowhere there).
+    The port's validator resolved every ``$ref`` at ``add`` and refused
+    the schema."""
+    with on_side(side, tmp_path):
+        reg = SR[side].SchemaRegistry()
+        reg.add("j", "json", {"properties": {"a": {"$ref": "#/$defs/none"}}})
+        got = [reg.check("j", b) for b in (b"1", b'{"b": 1}', b'{"a": 1}')]
+    assert got == [True, True, False]
+    schema = {"properties": {"a": {"$ref": "#/$defs/none"}}}
+    validator = jsonschema.Draft202012Validator(schema)
+    for raw, want in ((1, True), ({"b": 1}, True)):
+        assert validator.is_valid(raw) is want
+    from referencing.exceptions import Unresolvable
+
+    with pytest.raises(Unresolvable):
+        validator.is_valid({"a": 1})
